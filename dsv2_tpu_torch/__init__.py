@@ -1,0 +1,36 @@
+"""dsv2_tpu_torch — the DSV2 (bitstream v2.8) intra encode path on PyTorch.
+
+The port of `dsv2_tpu` to PyTorch and CUDA. Device compute (forward
+subband transform, adaptive quantization, HVS block analysis, the
+entropy-coded scan blob) runs as integer torch ops on int32 tensors with
+a leading frame dimension; the one sequential recurrence on the path, the
+rice vk adaptation chain, is a hand-written CUDA kernel
+(`csrc/vk_chain.cu`). Host code (sessions, rate control, packetization,
+the native C runtime) is `dsv2_tpu`'s own jax-free modules, reused as
+they are. This package never imports jax.
+
+Module names mirror `dsv2_tpu`: `ops/sbt.py` here is the port of
+`dsv2_tpu/ops/sbt.py`, and so on.
+"""
+import os
+
+import torch
+
+__version__ = "0.1.0"
+
+DEVICE_ENV = "DSV2_TORCH_DEVICE"
+
+
+def default_device():
+    """The device named by DSV2_TORCH_DEVICE (`cuda` or `cpu`, default
+    `cuda`). Asking for CUDA where there is none raises: the CPU is used
+    only when it was asked for."""
+    name = os.environ.get(DEVICE_ENV, "cuda") or "cuda"
+    if name not in ("cuda", "cpu"):
+        raise ValueError("%s must be 'cuda' or 'cpu', not %r"
+                         % (DEVICE_ENV, name))
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; set %s=cpu to run on the CPU"
+            % DEVICE_ENV)
+    return torch.device(name)
