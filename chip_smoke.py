@@ -3,25 +3,39 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — FHD 1920x1080 4:2:0 intra encode at -qp=60
--gop=0, 32 frames, through parallel/batch.encode_intra_batch — after
-building every CUDA kernel on that path from this checkout and holding
-each against its plain PyTorch version. Each phase prints one JSON line;
-any failure raises (non-zero exit). The last lines are the kernel table,
-the card's name and power limit, and the result line
-{"ok": true, "device": {...}}. Needs CUDA, nvcc and this repository (no
-JAX: the golden digests come from tests/golden/torch_port_streams.json).
-Writes only under build/.
+Drives the port's two main paths through the entry points a user calls:
+FHD 1920x1080 4:2:0 intra encode at -qp=60 -gop=0, 32 frames, through
+parallel/batch.encode_intra_batch; then the decode of that stream and of
+the committed FHD and CIF P streams through
+codec/decoder.decode_stream_chunked, and both CLIs (`e`, `d`) in
+subprocesses. Before that it builds every CUDA kernel of those paths
+from this checkout (one nvcc per source, all at once) and holds each
+against its plain PyTorch version: the vk chain on random and FHD scan
+inputs, the in-loop filter wavefront (three kinds) on seeded random
+planes at CIF and FHD geometry and on the planes the FHD decodes feed
+it. Each phase prints one JSON line; any failure raises (non-zero exit).
+The last lines are the kernel table, the card's name and power limit,
+and the result line {"ok": true, "device": {...}}. Needs CUDA, nvcc and
+this repository (no JAX: the golden streams and digests come from
+tests/golden/). Writes only under build/.
 """
+import contextlib
 import hashlib
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NFRAMES, CHUNK, QP = 32, 16, 60
+KERNELS = ("vk_chain", "wavefront_filter")
+# seeded random filter inputs: (label, (width, height, luma block, chroma
+# shift)) — CIF and FHD 4:2:0 geometry
+RANDOM_GEOMS = (("cif", (352, 288, 16, 1)), ("fhd", (1920, 1080, 32, 1)))
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+INT_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate
 
 
 def emit(phase, **kw):
@@ -53,6 +67,13 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    integer operations over the card's non-tensor 32-bit peak."""
+    tb, to = nbytes / HBM_BYTES_PER_S, nops / INT_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -62,14 +83,20 @@ def main():
     sys.path.insert(0, os.path.join(REPO, "tools"))
     import torch_port_golden as golden
     from dsv2_tpu_torch import cli
-    from dsv2_tpu_torch.codec import plane
+    from dsv2_tpu_torch.codec import decoder, plane
     from dsv2_tpu_torch.codec.devsteps import blob_cap
-    from dsv2_tpu_torch.ops import _kernels, hzcc, scan_pl
+    from dsv2_tpu_torch.ops import _kernels, filters, hzcc, scan_pl
     from dsv2_tpu_torch.parallel import batch
-    from dsv2_tpu_torch.utils import trace
+    from dsv2_tpu_torch.utils import trace, y4m
 
     dev = torch.device("cuda")
     gold = golden.load()
+    wf = filters.wavefront_filter
+
+    def reset_counts():
+        scan_pl.vk_chain.launches = 0
+        for k in filters.KINDS:
+            wf.launches[k] = 0
 
     # 1. device
     smi = subprocess.run(
@@ -80,13 +107,15 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. build every kernel of the path from this checkout
+    # 2. build every kernel of the paths from this checkout, in parallel
     t0 = time.perf_counter()
-    so = _kernels.build("vk_chain")
-    _kernels.entry("vk_chain")
-    emit("build", kernel="vk_chain", library=os.path.relpath(so, REPO),
-         seconds=round(time.perf_counter() - t0, 3),
-         nvcc_seconds=_kernels.build_seconds.get("vk_chain"))
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        libs = dict(zip(KERNELS, ex.map(_kernels.build, KERNELS)))
+    for name in KERNELS:
+        _kernels.entry(name)
+        emit("build", kernel=name, library=os.path.relpath(libs[name], REPO),
+             nvcc_seconds=_kernels.build_seconds.get(name))
+    emit("build_all", seconds=time.perf_counter() - t0)
 
     # inputs: the seeded synthetic FHD clip of the benchmark headline
     frames, meta = cli.read_y4m(golden.input_path(golden.FHD))
@@ -105,24 +134,28 @@ def main():
                                     ctx["analyze"])
         return ctx["pcfg"], fn(xs[0], xs[1], xs[2], bds, qs)[2]
 
-    # 3. kernel vs plain version, bit-exact on every row
-    max_err = 0
+    # 3. vk kernel vs plain version, bit-exact on every row
+    vk_err = 0
     compared = []
 
     def compare(label, thr, s0, nnz, time_it=False):
-        nonlocal max_err
+        nonlocal vk_err
         got = scan_pl.vk_chain(thr, s0, nnz)
         torch.cuda.synchronize()
         plain_ms, want = host_ms(lambda: scan_pl.vk_chain_plain(thr, s0,
                                                                 nnz))
         err = int((got.long() - want.long()).abs().max())
-        max_err = max(max_err, err)
+        vk_err = max(vk_err, err)
+        live = int((nnz - s0).clamp(min=0).sum())
         rec = dict(case=label, npad=thr.shape[0], B=thr.shape[1],
-                   live_rows=int((nnz - s0).clamp(min=0).sum()),
-                   max_abs_err=err)
+                   live_rows=live, max_abs_err=err)
         if time_it:
             rec["ms"] = cuda_ms(lambda: scan_pl.vk_chain(thr, s0, nnz), 20)
             rec["plain_ms"] = plain_ms
+            # live thr rows read once, every vkpre row written once; a
+            # compare, an add and a max per live row
+            rec["bound_ms"], rec["bound_by"] = bound(
+                4 * live + 4 * thr.numel() + 16 * thr.shape[1], 3 * live)
         compared.append(rec)
         assert err == 0, rec
         return rec
@@ -150,11 +183,106 @@ def main():
     segs = tuple(hzcc.scan_segments(*cpcfg.cdims[0]))
     compare("cif_luma_chunk", *scan_pl.vk_chain_inputs(segs, cvs[0]),
             time_it=True)
-    emit("kernel_vs_plain", kernel="vk_chain", max_abs_err=max_err,
+    del vs, cvs
+    emit("kernel_vs_plain", kernel="vk_chain", max_abs_err=vk_err,
          cases=compared)
 
-    # 4. device blob vs the host scan coder of the port's contract
-    # fallback, every plane of 2 FHD frames
+    # 4. the filter wavefront vs its plain version on seeded random planes
+    # at CIF and FHD geometry. The public filters are called on the card
+    # with the wavefront recorded; each recorded call is then replayed
+    # through the kernel and through the plain version (on the card).
+    @contextlib.contextmanager
+    def recording(calls):
+        """Record (kind, lay, plane, props, scal) of each wavefront call,
+        plane copied before the call filters it in place."""
+        def rec(kind, lay, plane_, props, scal):
+            calls.append((kind, lay, plane_.clone(), props.clone(),
+                          scal.clone()))
+            return wf(kind, lay, plane_, props, scal)
+        filters.wavefront_filter = rec
+        try:
+            yield calls
+        finally:
+            filters.wavefront_filter = wf
+
+    wf_err = 0
+    wf_cases = []
+
+    def filter_case(label, call, time_it=False):
+        """Kernel vs plain on one recorded call, one plane of it."""
+        nonlocal wf_err
+        kind, lay, src, props, scal = call
+        src, props, scal = src[:1], props[:1], scal[:1]
+        got = src.clone()
+        wf(kind, lay, got, props, scal)
+        torch.cuda.synchronize()
+        want = src.clone()
+        plain_ms, _ = host_ms(lambda: filters.wavefront_filter_plain(
+            kind, lay, want, props, scal))
+        err = int((got.long() - want.long()).abs().max())
+        wf_err = max(wf_err, err)
+        rec = dict(case=label, kind=kind, plane=[lay.pw, lay.ph],
+                   tile=[lay.tw, lay.th], diagonals=lay.nd, lanes=lay.L,
+                   changed_px=int((got != src).sum()), max_abs_err=err)
+        if time_it:
+            work = src.clone()
+
+            def run():
+                work.copy_(src)
+                wf(kind, lay, work, props, scal)
+            rec["ms"] = cuda_ms(run, 5)
+            rec["plain_ms"] = plain_ms
+            # the plane read once and written once, props read once; three
+            # operations per window element of every tile (load, delta,
+            # test) as a floor of the work
+            rec["bound_ms"], rec["bound_by"] = bound(
+                8 * src.numel() + 4 * props.numel(),
+                3 * lay.ntx * lay.nty * lay.wh * lay.ww)
+        wf_cases.append(rec)
+        assert err == 0, rec
+        return rec
+
+    g = torch.Generator().manual_seed(11)
+
+    def rnd(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=dtype).to(dev)
+
+    def rnd_plane(w, h):
+        """Gradients with mild noise and steps at 8x8 cells (tile energies
+        in every filter's working range); the bottom third pure noise."""
+        yy, xx = torch.meshgrid(torch.arange(h, device=dev),
+                                torch.arange(w, device=dev), indexing="ij")
+        cells = rnd(-24, 25, (-(-h // 8), -(-w // 8)))
+        steps = cells.repeat_interleave(8, 0).repeat_interleave(8, 1)
+        vis = (xx // 3 + yy // 2 + 64 + steps[:h, :w]
+               + rnd(-3, 4, (h, w))).clamp(0, 255).to(torch.uint8)
+        vis[2 * h // 3:] = rnd(0, 256, (h - 2 * h // 3, w), torch.uint8)
+        return vis
+
+    for label, (w, h, blk, sh) in RANDOM_GEOMS:
+        nbh, nbv = -(-w // blk), -(-h // blk)
+        calls = []
+        with recording(calls):
+            vis = rnd_plane(w, h)
+            bd = rnd(0, 64, (nbv, nbh), torch.uint8)
+            filters.intra_filter_graph(w, h, nbh, nbv, vis, bd, 900, 160)
+            mv = [rnd(-40, 41, (nbv, nbh)), rnd(-40, 41, (nbv, nbh)),
+                  rnd(0, 256, (nbv, nbh)), rnd(0, 16, (nbv, nbh))]
+            filters.luma_filter_graph(w, h, nbh, nbv, blk, blk, 1, vis,
+                                      *mv, 900, 160, 1, 1)
+            cw, ch = w >> sh, h >> sh
+            filters.chroma_filter_graph(cw, ch, nbh, nbv, blk >> sh,
+                                        blk >> sh,
+                                        rnd_plane(cw, ch),
+                                        *mv[:3], 700)
+        for call in calls:
+            filter_case("random_" + label, call)
+    emit("filter_kernel_vs_plain", kernel="wavefront_filter",
+         max_abs_err=wf_err, cases=list(wf_cases))
+
+    # 5. blob vs the host scan coder of the port's contract fallback,
+    # every plane of 2 FHD frames
     pcfg, vs = chunk_scans(frames[:2], meta)
     planes = 0
     for c in range(3):
@@ -171,16 +299,15 @@ def main():
             planes += 1
     emit("blob_vs_native", planes=planes, equal=True)
 
-    # 5. the main path: 32 FHD frames through encode_intra_batch
+    # 6. main path, encode: 32 FHD frames through encode_intra_batch
     want = gold[golden.key(golden.FHD, QP)]
-
     trace.enable(True)
     warm_ms, data = host_ms(lambda: golden.encode(
         cli, frames, meta, QP, batch=batch.encode_intra_batch, chunk=CHUNK,
         device=dev))
     assert golden.digest(data)["sha256"] == want["sha256"], "warm digest"
     trace.reset()
-    scan_pl.vk_chain.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     enc = cli.make_encoder(meta, cli.default_enc_opts(qp=QP, gop=0),
@@ -190,43 +317,120 @@ def main():
     data = b"".join(out)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = scan_pl.vk_chain.launches
+    vk_launches = scan_pl.vk_chain.launches
     stages = trace.totals()
-    trace.enable(False)
     sha = hashlib.sha256(data).hexdigest()
     assert sha == want["sha256"] and len(data) == want["length"], sha
-    assert launches > 0, "vk_chain never launched on the main path"
-    assert "jax" not in sys.modules, "the port imported jax"
+    assert vk_launches > 0, "vk_chain never launched on the main path"
     emit("main_path", frames=NFRAMES, chunk=CHUNK, fps=NFRAMES / dt,
          seconds=dt, warm_seconds=warm_ms / 1e3, sha256=sha, bytes=len(data),
-         golden=True, vk_chain_launches=launches, stage_seconds=stages,
+         golden=True, vk_chain_launches=vk_launches, stage_seconds=stages,
          fallback_planes=enc.stats.blob_fallbacks)
+    del frames
 
-    # 6. the CLI, in a subprocess on the card
+    def decode_run(stream, key, nfr, captured=None):
+        """Warm decode (recording the filter calls into `captured`), then
+        a timed decode with every launch count set to 0 just before it.
+        Returns the phase record; the decoded y4m must equal dsv2_tpu's."""
+        want = gold[key]["decode"]
+        with recording(captured if captured is not None else []):
+            y = golden.decoded_y4m(decoder, y4m, stream,
+                                   decoder=decoder.Decoder(device=dev))
+        assert golden.digest(y) == want, (key, "warm decode digest")
+        trace.reset()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = golden.decoded_y4m(decoder, y4m, stream,
+                               decoder=decoder.Decoder(device=dev))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(wf.launches)
+        assert golden.digest(y) == want, (key, "decode digest")
+        assert scan_pl.vk_chain.launches == 0
+        return dict(stream=key, frames=nfr, fps=nfr / dt, seconds=dt,
+                    sha256=want["sha256"], golden=True,
+                    filter_launches=launches, stage_seconds=trace.totals())
+
+    # 7. main path, decode: the FHD intra stream just encoded
+    captured = []
+    rec = decode_run(data, golden.key(golden.FHD, QP), NFRAMES, captured)
+    assert rec["filter_launches"]["intra"] > 0, rec
+    emit("decode_main_path", **rec)
+    dec_launches = sum(rec["filter_launches"].values())
+    del data
+
+    # 8. the P streams: FHD (8 frames) and CIF (12)
+    for case in (golden.P_CASES[2], golden.P_CASES[1]):
+        key = golden.p_key(case)
+        stream = golden.read_stream(key)
+        assert golden.digest(stream) == {k: gold[key][k]
+                                         for k in ("sha256", "length")}
+        rec = decode_run(stream, key, case[3],
+                         captured if case[0] == golden.FHD else None)
+        if case[0] == golden.FHD:
+            for k in filters.KINDS:
+                assert rec["filter_launches"][k] > 0, (k, rec)
+            dec_launches += sum(rec["filter_launches"].values())
+        emit("decode_p", **rec)
+    trace.enable(False)
+
+    # 9. the filter kernel vs plain on the planes the FHD decodes fed it
+    firsts = {}
+    for call in captured:
+        firsts.setdefault((call[0], call[1].pw), call)
+    timed_wf = {}
+    for (kind, pw), call in sorted(firsts.items()):
+        label = "fhd_decode_%s_%d" % (kind, pw)
+        timed_wf[kind, pw] = filter_case(label, call, time_it=True)
+    emit("filter_kernel_vs_plain_decode", kernel="wavefront_filter",
+         max_abs_err=wf_err, cases=wf_cases[-len(firsts):])
+
+    # 10. the CLIs, in subprocesses on the card
     outdir = os.path.join(REPO, "build", "torch_smoke")
     os.makedirs(outdir, exist_ok=True)
-    out = os.path.join(outdir, "cif.dsv")
-    cmd = [sys.executable, "-m", "dsv2_tpu_torch", "e", "-y", "-y4m=1",
-           "-qp=60", "-gop=0",
-           "-inp=" + golden.input_path("cif352x288_420_12f"), "-out=" + out]
-    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                         env=dict(os.environ, DSV2_TORCH_DEVICE="cuda"),
-                         timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    with open(out, "rb") as f:
-        cif = golden.digest(f.read())
-    assert cif["sha256"] == gold[golden.key("cif352x288_420_12f", 60)][
-        "sha256"], cif
-    emit("cli", input="cif352x288_420_12f", sha256=cif["sha256"],
-         golden=True)
+    env = dict(os.environ, DSV2_TORCH_DEVICE=dev.type)
+    cif_p = golden.p_key(golden.P_CASES[1])
+    for argv, out, key, what in (
+            (["e", "-qp=60", "-gop=0",
+              "-inp=" + golden.input_path("cif352x288_420_12f")],
+             "cif.dsv", golden.key("cif352x288_420_12f", 60), None),
+            (["d", "-y4m=1", "-inp=" + golden.stream_path(cif_p)],
+             "cif_p.y4m", cif_p, "decode")):
+        out = os.path.join(outdir, out)
+        cmd = ([sys.executable, "-m", "dsv2_tpu_torch", argv[0], "-y",
+                "-y4m=1"] + argv[1:] + ["-out=" + out])
+        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             env=env, timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        with open(out, "rb") as f:
+            got = golden.digest(f.read())
+        ref = gold[key] if what is None else gold[key][what]
+        assert got["sha256"] == ref["sha256"], (argv[0], got)
+        emit("cli", command=argv[0], stream=key, sha256=got["sha256"],
+             golden=True)
+    assert not [m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "dsv2_tpu")], \
+        "the port imported jax or dsv2_tpu"
 
     luma = timed[1]
-    print(json.dumps({"kernels": [{
-        "name": "vk_chain", "route": "cuda",
-        "source": "dsv2_tpu_torch/csrc/vk_chain.cu",
-        "replaces": "dsv2_tpu/ops/scan_pl.py:133",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": luma["ms"], "plain_ms": luma["plain_ms"]}]}), flush=True)
+    wmain = timed_wf[("intra", meta.width)]
+    print(json.dumps({"kernels": [
+        {"name": "vk_chain", "route": "cuda",
+         "source": "dsv2_tpu_torch/csrc/vk_chain.cu",
+         "replaces": "dsv2_tpu/ops/scan_pl.py:133",
+         "launches": vk_launches, "max_abs_err": vk_err,
+         "ms": luma["ms"], "plain_ms": luma["plain_ms"],
+         "bound_ms": luma["bound_ms"], "bound_by": luma["bound_by"],
+         "library_ms": None},
+        {"name": "wavefront_filter", "route": "cuda",
+         "source": "dsv2_tpu_torch/csrc/wavefront_filter.cu",
+         "replaces": "dsv2_tpu/ops/filters_pl.py:273",
+         "also_replaces": "dsv2_tpu/ops/filters_pl.py:368",
+         "launches": dec_launches, "max_abs_err": wf_err,
+         "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
+         "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],
+         "library_ms": None}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ entropy-coded scan blob) runs as integer torch ops on int32 tensors with
 a leading frame dimension; the one sequential recurrence on the path, the
 rice vk adaptation chain, is a hand-written CUDA kernel
 (`csrc/vk_chain.cu`). Host code (sessions, rate control, packetization,
-the native C runtime) is `dsv2_tpu`'s own jax-free modules, reused as
-they are. This package never imports jax.
+the native C runtime) is the port's own copy of `dsv2_tpu`'s host
+modules, under the same paths. This package imports neither jax nor
+anything of `dsv2_tpu`.
 
 Module names mirror `dsv2_tpu`: `ops/sbt.py` here is the port of
 `dsv2_tpu/ops/sbt.py`, and so on.

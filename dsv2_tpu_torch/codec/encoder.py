@@ -5,27 +5,24 @@ host GOP state, rate control, packetization and intra metadata around
 one device step per frame (forward SBT, quantization, scan blob; see
 devsteps.py). Rate control (`codec/rc`), the intra analysis
 (`ops/blockanalysis.intra_analysis`) and the motion/metadata serializers
-(`codec/motion`) are `dsv2_tpu`'s jax-free host modules, reused as they
-are. P frames raise NotImplementedError (ROADMAP item 14).
+(`codec/motion`) are the port's copies of `dsv2_tpu`'s host modules.
+P frames raise NotImplementedError (ROADMAP item 14).
 (ref: src/dsv_encoder.c)
 """
 import numpy as np
 import torch
 
-from dsv2_tpu.bitstream import BitWriter
-from dsv2_tpu.codec import motion, rc
-from dsv2_tpu.core import constants as K
-from dsv2_tpu.core import intmath as im
-from dsv2_tpu.core.frame import B, Frame, ds2x_luma
-from dsv2_tpu.ops import blockanalysis
-from dsv2_tpu.utils import packet
-from dsv2_tpu.utils.packet import VideoMeta
-
 from .. import default_device
-from ..ops import hzcc
+from ..bitstream import BitWriter
+from ..core import constants as K
+from ..core import intmath as im
+from ..core.frame import B, Frame, ds2x_luma
+from ..ops import blockanalysis, hzcc
 from ..parallel import xfer
+from ..utils import packet
+from ..utils.packet import VideoMeta
 from ..utils.trace import stage
-from . import devsteps
+from . import devsteps, motion, rc
 from . import plane as planecode
 from .decoder import _PCfg
 

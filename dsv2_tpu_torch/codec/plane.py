@@ -1,11 +1,14 @@
 """Plane-level coefficient coding: host framing around the device scan
 blob or the native entropy scan (ref: src/hzcc.c:585-649).
 
-Port of the encoder half of `dsv2_tpu/codec/plane.py`.
+Port of `dsv2_tpu/codec/plane.py` for the blob transfer: the encoder's
+framing and the decoder's `decode_plane`.
 """
-from dsv2_tpu import native
-from dsv2_tpu.bitstream import BitWriter
-from dsv2_tpu.utils import log
+import numpy as np
+
+from .. import native
+from ..bitstream import BitReader, BitWriter
+from ..utils import log
 
 from ..ops import hzcc
 
@@ -49,3 +52,29 @@ def encode_plane_blob(w: BitWriter, blob, ll_value):
     it."""
     _framed(w, ll_value, blob.tobytes() if hasattr(blob, "tobytes")
             else blob)
+
+
+def decode_plane(r: BitReader, cw, ch):
+    """Returns (ok, ll_value, v_scan). Mirrors dsv_decode_plane's framing,
+    error detection and skip-by-length behavior."""
+    r.align()
+    plen = r.get_bits(32)
+    r.align()
+    total = hzcc.total_scan_coefs(cw, ch)
+    if not (0 < plen < cw * ch * 4 * 2):
+        return False, 0, np.zeros(total, dtype=np.int32)
+    start = r.byte_pos
+    ll = r.get_seg()
+    r.align()
+    a0 = r.byte_pos
+    lim = start + plen - a0
+    buf = bytes(r.buf[a0:])
+    v, endbit = native.scan_decode(np.frombuffer(buf, dtype=np.uint8), lim,
+                                   total, hzcc.scan_segments(cw, ch))
+    # verify the end-of-plane marker (ref: hzcc.c:604, 636-639)
+    r.pos = a0 * 8 + endbit
+    ok = r.get_bits(8) == EOP_SYMBOL
+    r.align()
+    r.seek_byte(start)
+    r.skip_bytes(plen)
+    return ok, ll, v

@@ -22,10 +22,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source name -> (C entry point, argtypes): pointers and the stream as
 # c_void_p (ctypes would cut a pointer passed as a plain int), ints c_int
-_ENTRY = {"vk_chain": ("dsv2t_vk_chain", [_P, _P, _P, _P, _P, _I, _I, _P])}
+_ENTRY = {"vk_chain": ("dsv2t_vk_chain", [_P, _P, _P, _P, _P, _I, _I, _P]),
+          "wavefront_filter": ("dsv2t_wavefront_filter",
+                               [_I, _P, _P, _P, _I, _P, _P])}
+_GEOM = ("pw", "ph", "tw", "th", "ntx", "nty", "L", "nd", "mr", "mc", "HP",
+         "WP", "wh", "ww")
 
 _lock = threading.Lock()
 _entries = {}
+_wavefront_limits = []
 build_seconds = {}   # source name -> seconds its last build took
 
 
@@ -83,3 +88,49 @@ def vk_chain(thr, s0, nnz, out, vkend):
             vkend.data_ptr(), int(npad), int(nb), stream)
     if rc != 0:
         raise RuntimeError("vk_chain launch failed: cudaError %d" % rc)
+
+
+def _limits():
+    """(max threads, max opt-in shared bytes per block) the wavefront
+    launch takes on the current device (one card per process)."""
+    if not _wavefront_limits:
+        fn = getattr(ctypes.CDLL(build("wavefront_filter")),
+                     "dsv2t_wavefront_limits")
+        fn.restype = _I
+        fn.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        nt, sm = _I(0), _I(0)
+        rc = fn(ctypes.byref(nt), ctypes.byref(sm))
+        if rc != 0:
+            raise RuntimeError("wavefront limits query failed: cudaError %d"
+                               % rc)
+        _wavefront_limits.append((nt.value, sm.value))
+    return _wavefront_limits[0]
+
+
+def wavefront_filter(kind, lay, plane, props, scal):
+    """Launch csrc/wavefront_filter.cu on the current stream: kind 0/1/2
+    (intra/luma/chroma), lay an ops/filters._Lay, plane (B, HP, WP),
+    props (B, NP, nty, ntx) and scal (B, 8) contiguous int32 CUDA tensors
+    on one device, checked by the caller (ops/filters.wavefront_filter).
+    Raises on a layout the kernel does not take."""
+    import numpy as np
+    import torch
+    with torch.cuda.device(plane.device):
+        max_threads, max_smem = _limits()
+        threads = -(-lay.L // 32) * 32
+        smem = lay.L * ((lay.wh * lay.ww) | 1) * 4
+        if threads > max_threads or smem > max_smem:
+            raise ValueError(
+                "wavefront layout too large for the kernel: %d lanes of "
+                "%dx%d windows need %d threads and %d B of shared memory "
+                "(limits %d, %d)" % (lay.L, lay.wh, lay.ww, threads, smem,
+                                     max_threads, max_smem))
+        geom = np.array([getattr(lay, k) for k in _GEOM]
+                        + [props.shape[1]], dtype=np.int32)
+        stream = torch.cuda.current_stream(plane.device).cuda_stream
+        rc = entry("wavefront_filter")(
+            int(kind), plane.data_ptr(), props.data_ptr(), scal.data_ptr(),
+            int(plane.shape[0]), geom.ctypes.data, stream)
+    if rc != 0:
+        raise RuntimeError("wavefront_filter launch failed: cudaError %d"
+                           % rc)

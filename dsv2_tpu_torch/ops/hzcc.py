@@ -1,7 +1,6 @@
-"""HZCC adaptive quantization as integer torch ops (intra frames).
+"""HZCC adaptive quantization and dequantization as integer torch ops.
 
-Port of the encoder half of `dsv2_tpu/ops/hzcc.py` (ref:
-src/hzcc.c:234-583). Within one subband every decision is elementwise
+Port of `dsv2_tpu/ops/hzcc.py` (ref: src/hzcc.c:234-583). Within one subband every decision is elementwise
 given the block-flag map, the already-dequantized parent subband and the
 quantizer, and subbands run in a fixed order — so quantization is ten
 vectorized passes over the coefficient plane, each over all frames of a
@@ -12,9 +11,9 @@ twin's module imports jax.
 The twin is functional; make_quantize here works on a private copy of
 the coefficients, written back in place subband by subband, and clones
 every region it reads before a write-back (a torch slice is a view
-where a JAX slice is a snapshot). P-frame quantization (tmq4pos_p, the
-P psy masks) and the dequantizer are not ported yet (ROADMAP items 11
-and 14).
+where a JAX slice is a snapshot). The dequantizer (`make_dequantize`,
+intra and P) is the decoder's; P-frame quantization (the P psy masks of
+the encoder) is not ported yet (ROADMAP item 14).
 """
 import functools
 from typing import NamedTuple
@@ -22,8 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dsv2_tpu.core import constants as K
-from dsv2_tpu.core import intmath as im
+from ..core import constants as K
+from ..core import intmath as im
 
 from . import tint
 from .tint import on_device
@@ -90,12 +89,12 @@ def lfquant(q, cfg):
 
 
 def hfquant(cfg, q, s, l):
-    """High-frequency subband quantizer (ref: hzcc.c:107-162), intra; q an
-    int32 tensor, s/l static."""
+    """High-frequency subband quantizer (ref: hzcc.c:107-162); q an int32
+    tensor, s/l static."""
     chroma = not cfg.is_luma
     psy = spatial_psy_factor(cfg, s)
     q = _floordiv(q, 2)
-    psyfac = (q * psy) >> (7 + 1)
+    psyfac = (q * psy) >> (7 + (0 if cfg.isP else 1))
     if chroma:
         tl = l - 2
         if s == LH:
@@ -108,6 +107,13 @@ def hfquant(cfg, q, s, l):
             q = q + tint.divt(psyfac, 2)
         elif l == LVL1:
             q = q + psyfac
+    if cfg.isP:
+        if l != LVL1:
+            if l == LVL3:
+                q = q * 2 - psyfac
+            else:
+                q = q - tint.divt(psyfac, 2)
+        return torch.clamp(tint.divt(q, 4), min=MINQUANT)
     q = tint.divt(q * (15 + 3 * l), 16)
     if not chroma:
         if l == LVL3:
@@ -139,6 +145,14 @@ def dequant_s(v, q):
 def dequant_d(v, q):
     t = _floordiv(q, 2)
     return v * q + torch.where(v < 0, -t, t)
+
+
+def tmq4pos_p(tmq, flags, parc):
+    """Adaptive quant from block flags, P frames (ref: hzcc.c:164-169)."""
+    cond1 = (parc != 0) | ((flags & (K.IS_STABLE | K.IS_EPRM)) != 0)
+    cond2 = (parc == 0) & ((flags & K.IS_INTRA) != 0)
+    return torch.where(cond1, (tmq * 7) >> 3,
+                       torch.where(cond2, (tmq * 6) >> 3, tmq))
 
 
 def tmq4pos_i(tmq, flags, parc, l):
@@ -347,5 +361,65 @@ def make_quantize(cfg: HzccCfg):
             vs.append(v.reshape(lead + (-1,)))
         x[..., 0, 0] = ll_save
         return x, torch.cat(vs, dim=-1)
+
+    return f
+
+
+@functools.lru_cache(maxsize=None)
+def make_dequantize(cfg: HzccCfg):
+    """Returns fn(v_scan int32[..., total], blockdata uint8[..., nbv, nbh],
+    q int32[...], ll_value int32[...]) -> coef plane int32[..., h, w]; one
+    quantizer and DC value per frame. Decoder-side counterpart of
+    make_quantize (ref: hzcc.c:450-583): positions without a coded value
+    stay zero; overlapping subband cells resolve in scan order."""
+    w, h = cfg.w, cfg.h
+    sw0, sh0 = _dimat(0, w), _dimat(0, h)
+
+    def f(v_scan, blockdata, q, ll_value):
+        if (v_scan.dtype != torch.int32 or blockdata.dtype != torch.uint8
+                or q.dtype != torch.int32 or ll_value.dtype != torch.int32):
+            raise TypeError("v_scan/q/ll_value must be int32 and blockdata "
+                            "uint8")
+        lead = v_scan.shape[:-1]
+        q = fix_quant(q)[..., None, None]
+        x = torch.zeros(lead + (h, w), dtype=torch.int32,
+                        device=v_scan.device)
+        pos = sw0 * sh0
+        v = v_scan[..., :pos].reshape(lead + (sh0, sw0))
+        if cfg.lossless:
+            x[..., :sh0, :sw0] = v
+        else:
+            qp = lfquant(q, cfg)
+            deq = dequant_d(v, qp) if cfg.isP else dequant_s(v, qp)
+            x[..., :sh0, :sw0] = torch.where(v != 0, deq, 0)
+        for (l, s, r0, c0, sw, sh) in subband_plan(w, h):
+            v = v_scan[..., pos:pos + sw * sh].reshape(lead + (sh, sw))
+            pos += sw * sh
+            cur = x[..., r0:r0 + sh, c0:c0 + sw]
+            if cfg.lossless:
+                x[..., r0:r0 + sh, c0:c0 + sw] = torch.where(v != 0, v, cur)
+                continue
+
+            def deq_one(xcur):
+                qp = hfquant(cfg, q, s, l)
+                flags = _flags_map(blockdata, sw, sh, cfg.nbh, cfg.nbv)
+                parc = _parent_vals(xcur, l, s, w, h, sw, sh, 1)
+                if cfg.isP:
+                    tmq = tmq4pos_p(qp, flags, parc)
+                else:
+                    tmq = tmq4pos_i(qp, flags, parc, l)
+                return dequant_d(v, tmq)
+
+            x[..., r0:r0 + sh, c0:c0 + sw] = torch.where(v != 0, deq_one(x),
+                                                         cur)
+            if _self_parent_mask(w, h, l, s) is not None:
+                # decode-side parc only matters through zeroness, which one
+                # rewrite finalizes (zeroness = v != 0, fixed after pass 1)
+                m = on_device(x.device, _self_parent_mask, w, h, l, s)
+                cur2 = x[..., r0:r0 + sh, c0:c0 + sw]
+                out2 = torch.where(v != 0, deq_one(x), cur2)
+                x[..., r0:r0 + sh, c0:c0 + sw] = torch.where(m, out2, cur2)
+        x[..., 0, 0] = ll_value
+        return x
 
     return f

@@ -1,6 +1,7 @@
-"""Forward multiresolution subband transform as integer torch ops.
+"""Multiresolution subband transform (analysis + synthesis) as integer
+torch ops.
 
-Port of the analysis half of `dsv2_tpu/ops/sbt.py` (ref: src/sbt.c).
+Port of `dsv2_tpu/ops/sbt.py` (ref: src/sbt.c).
 Each level's separable lifting filter runs on the last axis of a
 (..., m, n) tensor, every row or column at once; a leading frame
 dimension rides along. All arithmetic is int32 with C-exact truncating
@@ -9,12 +10,15 @@ division and arithmetic shifts, so coefficients are bit-identical to
 
 Filter selection per level (ref: sbt.c:19-29, 862-885): L1 luma (ASF93),
 L2A luma (adaptive 5-tap + SHREX), LLI luma level 4, CC chroma mid
-levels, LOSSLESS mid levels, Haar elsewhere. P-frame kinds (LLP) and
-the inverse transform are not ported yet (ROADMAP items 11 and 14).
+levels, LLP luma P level 4, LOSSLESS mid levels, Haar elsewhere (the
+inverse adds the gradient-nudging "filtered" Haar). The forward P
+transform raises (P encode, ROADMAP item 14); the decoder-arena inverse
+`make_inv_sbt_arena` is not ported (ROADMAP item 18).
 
 The JAX twin is functional (`x.at[...].set`); here each transform works
 on a private int32 copy of its input and updates it in place level by
-level, and the scratch-row carry is updated in place too.
+level, and the scratch-row carry is updated in place too. Regions read
+before a write-back are cloned (a torch slice is a view).
 """
 import functools
 from typing import NamedTuple
@@ -22,8 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dsv2_tpu.core import constants as K
-from dsv2_tpu.core import intmath as im
+from ..core import constants as K
+from ..core import intmath as im
 
 from . import tint
 from .tint import on_device
@@ -133,18 +137,30 @@ def _lo5a_upd(o, n, ring):
     return torch.cat(parts, dim=-1)
 
 
-# --- forward scales (C truncating division; ref: sbt.c:33-43) ---
+def _interleave(e, o, n):
+    out = torch.zeros(e.shape[:-1] + (n,), dtype=e.dtype, device=e.device)
+    out[..., 0::2] = e
+    out[..., 1::2] = o
+    return out
+
+
+# --- forward/inverse scale pairs (C truncating division; ref: sbt.c:33-43) ---
 _FS = {
-    "52": lambda x: tint.divt(x * 5, 2),
-    "20": lambda x: x * 2,
-    "40": lambda x: x * 4,
-    "no": lambda x: x,
+    "52": lambda x: tint.divt(x * 5, 2), "i52": lambda x: tint.divt(x * 2, 5),
+    "20": lambda x: x * 2, "i20": lambda x: tint.divt(x, 2),
+    "40": lambda x: x * 4, "i40": lambda x: tint.divt(x, 4),
+    "no": lambda x: x, "ino": lambda x: x,
 }
 
 
 def _shrex_fwd(o):
     th = o * 3
     return th - (th >> SHREX2)
+
+
+def _shrex_inv(x):
+    th = tint.divt(x, 3)
+    return th + (th >> SHREX2)
 
 
 def _fwd_lift(x, n, lo_fn, scale_l, scale_h):
@@ -156,6 +172,15 @@ def _fwd_lift(x, n, lo_fn, scale_l, scale_h):
     o = o - _hi3_upd(e, n)
     e = e + lo_fn(o)
     return torch.cat([scale_l(e), scale_h(o)], dim=-1), o
+
+
+def _inv_lift(x, n, lo_fn, iscale_l, iscale_h):
+    ne = n - n // 2
+    e = iscale_l(x[..., :ne])
+    o = iscale_h(x[..., ne:])
+    e = e - lo_fn(o)
+    o = o + _hi3_upd(e, n)
+    return _interleave(e, o, n)
 
 
 # --- ASF93 forward (L1, even n only; ref: sbt.c:384-421) ---
@@ -237,6 +262,94 @@ def _haar_fwd(sub, hs, ws, ovf):
 
 
 # ---------------------------------------------------------------------------
+# Haar inverse levels (ref: sbt.c:614-682, 684-795)
+# ---------------------------------------------------------------------------
+
+def _haar_quads(sub, hs, ws, ovf):
+    """Quadrants of an (..., hs, ws) sub-image; ll is new, lh/hl/hh are
+    clones (callers update them in place)."""
+    he, we = hs // 2, ws // 2
+    hc, wc = hs - he, ws - we
+    ll = sub[..., :hc, :wc] * (1 << ovf)
+    lh = sub[..., :hc, wc:].clone()
+    hl = sub[..., hc:, :wc].clone()
+    hh = sub[..., hc:, wc:].clone()
+    return ll, lh, hl, hh, he, we, hc, wc
+
+
+def _zpad(a, rows, cols):
+    """a with `rows` zero rows and `cols` zero columns appended."""
+    if cols:
+        a = torch.cat([a, a.new_zeros(a.shape[:-1] + (cols,))], dim=-1)
+    if rows:
+        a = torch.cat([a, a.new_zeros(a.shape[:-2] + (rows, a.shape[-1]))],
+                      dim=-2)
+    return a
+
+
+def _haar_recombine(ll, lh, hl, hh, hs, ws, he, we, hc, wc):
+    # zero-pad quadrants to (hc, wc); odd row/col formulas then fall out
+    lh = _zpad(lh, 0, wc - we)
+    hl = _zpad(hl, hc - he, 0)
+    hh = _zpad(hh, hc - he, wc - we)
+    a = tint.divt(ll + lh + hl + hh, 4)
+    b = tint.divt(ll - lh + hl - hh, 4)[..., :, :we]
+    c = tint.divt(ll + lh - hl - hh, 4)[..., :he, :]
+    d = tint.divt(ll - lh - hl + hh, 4)[..., :he, :we]
+    out = torch.zeros(ll.shape[:-2] + (hs, ws), dtype=ll.dtype,
+                      device=ll.device)
+    out[..., 0::2, 0::2] = a
+    out[..., 0::2, 1::2] = b
+    out[..., 1::2, 0::2] = c
+    out[..., 1::2, 1::2] = d
+    return out
+
+
+def _haar_inv_simple(sub, hs, ws, ovf):
+    ll, lh, hl, hh, he, we, hc, wc = _haar_quads(sub, hs, ws, ovf)
+    return _haar_recombine(ll, lh, hl, hh, hs, ws, he, we, hc, wc)
+
+
+def _nudge(center, lp, ln, hf, hqp):
+    """Gradient-consistency nudge of an HF coef (ref: sbt.c:723-741).
+    hqp broadcasts against the coefficient arrays."""
+    mx = center - ln
+    mn = lp - center
+    # after the reference's ordering swap: lower = min(max(mn,mx), 0),
+    # upper = max(min(mn,mx), 0)
+    lo = torch.clamp(torch.maximum(mn, mx), max=0)
+    hi = torch.clamp(torch.minimum(mn, mx), min=0)
+    t = tint.round4(lp - ln)
+    nud = tint.round2(torch.minimum(torch.maximum(t, lo), hi) - hf * 2)
+    upd = hf + torch.minimum(torch.maximum(nud, -hqp), hqp)
+    return torch.where(lo != hi, upd, hf)
+
+
+def _haar_inv_filtered(x, hs, ws, ovf, hqp):
+    """Haar filtered inverse: nudges LH along x-gradients of LL and HL along
+    y-gradients before recombination (ref: sbt.c:686-795). Neighbor reads
+    intentionally cross the subband boundary exactly like the reference's
+    flat-memory indexing does. hqp: int32 (..., 1, 1), one per frame."""
+    sub = x[..., :hs, :ws]
+    ll, lh, hl, hh, he, we, hc, wc = _haar_quads(sub, hs, ws, ovf)
+    if we > 0 and he > 0:
+        # horizontal pass on LH (main region rows :he, cols 1..we-1)
+        llm = ll[..., :he, :we]
+        # neighbors from raw memory layout (may read first LH/HL element)
+        lp = sub[..., :he, 0:we - 1] * (1 << ovf)    # spLL[idx-1], idx=1..we-1
+        ln = sub[..., :he, 2:we + 1] * (1 << ovf)    # spLL[idx+1]
+        lh[..., :he, 1:we] = _nudge(llm[..., :, 1:], lp, ln,
+                                    lh[..., :he, 1:we], hqp)
+        # vertical pass on HL (rows 1..he-1, all cols :we)
+        if he > 1:
+            lpv = sub[..., 0:he - 1, :we] * (1 << ovf)
+            lnv = sub[..., 2:he + 1, :we] * (1 << ovf)
+            hl[..., 1:he, :we] = _nudge(llm[..., 1:, :], lpv, lnv,
+                                        hl[..., 1:he, :we], hqp)
+    return _haar_recombine(ll, lh, hl, hh, hs, ws, he, we, hc, wc)
+
+
+# ---------------------------------------------------------------------------
 # Per-level plans
 # ---------------------------------------------------------------------------
 
@@ -262,8 +375,10 @@ def _ovf(cfg, l):
 
 
 _LIFT = {
-    # kind -> (lo_fn_builder, scaleL, scaleH)
+    # kind -> (lo_fn_builder, scaleL, scaleH); the inverse scales are the
+    # "i"-prefixed entries of _FS
     "lli": (lambda n: lambda o: _lo3_upd(o, n), "52", "40"),
+    "llp": (lambda n: lambda o: _lo3_upd(o, n), "52", "20"),
     "cc": (lambda n: lambda o: _lo5_upd(o, n, CC0, CCA, CCS), "20", "no"),
     "lossless": (lambda n: lambda o: _lo3_upd(o, n), "no", "no"),
 }
@@ -345,6 +460,45 @@ def _filter_2d_fwd(x, cfg, l, kind, blockdata, carry):
     x[..., :sh, :sw] = out
 
 
+def _filter_2d_inv(x, cfg, l, kind, blockdata, stale):
+    """One inv_2d level, in place on x (..., ch, cw). `stale` models the
+    reference's scratch row 1 at this point of the inverse (ref:
+    sbt.c:461-473): the inverse runs levels high-to-low, so its
+    degenerate (sub height 1) levels run FIRST and read whatever the
+    preceding transform left in scratch row 1 — the forward pass of the
+    same plane for the encoder's in-loop inverse; None reads zeros."""
+    w, h = cfg.cw, cfg.ch
+    sw, sh = im.round_shift(w, l - 1), im.round_shift(h, l - 1)
+    sub = x[..., :sh, :sw]
+
+    def run(arr, n, axis):
+        if kind == "l1":
+            return _inv_lift(arr, n, lambda o: _lo3_upd(o, n),
+                             _FS["i20"], _FS["i40"])
+        if kind == "l2a":
+            ring = _ring_mask(blockdata, cfg, sw, sh, axis)
+            return _inv_lift(arr, n, lambda o: _lo5a_upd(o, n, ring),
+                             _FS["i20"], _shrex_inv)
+        lo_b, sl, shh = _LIFT[kind]
+        return _inv_lift(arr, n, lo_b(n), _FS["i" + sl], _FS["i" + shh])
+
+    iscale_l = _FS["i" + _LIFT[kind][1]] if kind in _LIFT else None
+    if sh == 1:
+        # column pass n==1: out[0] = iscaleL(in[0]) - stale >> 1
+        st = (stale[..., :sw] >> 1) if stale is not None else 0
+        c = (iscale_l(sub[..., 0, :]) - st)[..., None, :]
+    else:
+        c = run(sub.transpose(-1, -2), sh, axis=0).transpose(-1, -2)
+    if sw == 1:
+        # row pass n==1: the low-pass update reads the coefficient
+        # buffer's column 1 (still the untouched higher-frequency coef)
+        nb = (x[..., :sh, 1] >> 1) if w > 1 else 0
+        out = (iscale_l(c[..., :, 0]) - nb)[..., None]
+    else:
+        out = run(c, sw, axis=1)
+    x[..., :sh, :sw] = out
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
@@ -398,3 +552,61 @@ def make_fwd_sbt_carry(cfg: SbtCfg):
         return _fwd_graph(cfg, x, blockdata)
 
     return fwd
+
+
+def _inv_graph(cfg, x, blockdata, q, stale):
+    """q: int32 (..., 1, 1), one quantizer per frame."""
+    x = x.to(torch.int32, copy=True)
+    for l in range(cfg.lvls, 0, -1):
+        kind = _kind(cfg, l)
+        ovf = _ovf(cfg, l)
+        if kind != "haar":
+            _filter_2d_inv(x, cfg, l, kind, blockdata, stale)
+            continue
+        sw = im.round_shift(cfg.cw, l - 1)
+        sh = im.round_shift(cfg.ch, l - 1)
+        if cfg.lossless or (not cfg.is_luma and cfg.isP):
+            out = _haar_inv_simple(x[..., :sh, :sw], sh, sw, ovf)
+        else:
+            if cfg.is_luma:
+                div = 14 if cfg.isP else (2 if l > 4 else 8)
+            else:
+                div = 2
+            hqp = torch.div(q, div, rounding_mode="floor")
+            out = _haar_inv_filtered(x, sh, sw, ovf, hqp)
+        x[..., :sh, :sw] = out
+    return x
+
+
+def _check_inv(cfg, x, blockdata, q):
+    if (x.dtype != torch.int32 or blockdata.dtype != torch.uint8
+            or q.dtype != torch.int32):
+        raise TypeError("coefs/q must be int32 and blockdata uint8, got "
+                        "%s, %s, %s" % (x.dtype, blockdata.dtype, q.dtype))
+    if tuple(x.shape[-2:]) != (cfg.ch, cfg.cw):
+        raise ValueError("plane shape %s != %s"
+                         % (tuple(x.shape), (cfg.ch, cfg.cw)))
+
+
+@functools.lru_cache(maxsize=None)
+def make_inv_sbt(cfg: SbtCfg):
+    """Returns fn(coefs int32[..., ch, cw], blockdata uint8[..., nbv, nbh],
+    q int32[...]) -> pixel-domain int32[..., ch, cw] (still centered; add
+    128 and clamp separately). For degenerate planes this assumes a zero
+    scratch row — encoder in-loop callers use make_inv_sbt_stale."""
+    def inv(x, blockdata, q):
+        _check_inv(cfg, x, blockdata, q)
+        return _inv_graph(cfg, x, blockdata, q[..., None, None], None)
+
+    return inv
+
+
+@functools.lru_cache(maxsize=None)
+def make_inv_sbt_stale(cfg: SbtCfg):
+    """Inverse taking the scratch-row-1 state int32[..., cw] — the fwd
+    carry for the encoder's in-loop inverse."""
+    def inv(x, blockdata, q, stale):
+        _check_inv(cfg, x, blockdata, q)
+        return _inv_graph(cfg, x, blockdata, q[..., None, None], stale)
+
+    return inv

@@ -20,22 +20,20 @@ import functools
 import numpy as np
 import torch
 
-from dsv2_tpu import native
-from dsv2_tpu.bitstream import BitWriter
-from dsv2_tpu.codec import motion, rc
-from dsv2_tpu.codec.motion import MotionField
-from dsv2_tpu.core import constants as K
-from dsv2_tpu.core import intmath as im
-from dsv2_tpu.core.frame import B, Frame, ds2x_luma
-from dsv2_tpu.ops.blockanalysis import intra_analysis
-from dsv2_tpu.utils import log, packet
-from dsv2_tpu.utils.packet import VideoMeta
-
-from ..codec import devsteps
+from .. import native
+from ..bitstream import BitWriter
+from ..codec import devsteps, motion, rc
 from ..codec import plane as planecode
 from ..codec.decoder import _PCfg
 from ..codec.encoder import EncData
+from ..codec.motion import MotionField
+from ..core import constants as K
+from ..core import intmath as im
+from ..core.frame import B, Frame, ds2x_luma
 from ..ops import blockanalysis, hzcc
+from ..ops.blockanalysis import intra_analysis
+from ..utils import log, packet
+from ..utils.packet import VideoMeta
 from ..utils.trace import stage as _stage
 from . import xfer
 

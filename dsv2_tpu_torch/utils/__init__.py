@@ -1,1 +1,1 @@
-"""Host utilities of the port (counterparts of `dsv2_tpu/utils`)."""
+"""Host utilities of the port (mirrors dsv2_tpu/utils)."""

@@ -1,14 +1,21 @@
 """torch port end to end on the CPU: the port's CLI and its batched
 encode_intra_batch must produce the golden `dsv2_tpu` streams
 (tests/golden/torch_port_streams.json, tools/torch_port_golden.py) for
-every fixture, the lossless contract-fallback case included; the two
-smallest entries are re-derived live through dsv2_tpu; and both entry
-points run with jax unimportable."""
+every fixture, the lossless contract-fallback case included; the port's
+decoder must give `dsv2_tpu`'s decoded y4m for each of those streams and
+for the committed P streams (and the conformance decoder's frames), its
+CLI `d` the bytes of `python -m dsv2_tpu d` under every decode option;
+the smallest entries are re-derived live through dsv2_tpu; and the port
+imports nothing of dsv2_tpu or jax."""
+import ast
+import functools
 import hashlib
+import io
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from torch_parity import REPO
@@ -18,12 +25,20 @@ from dsv2_tpu_torch.cli import read_y4m
 GOLD = golden.load()
 SMALL = [golden.key(n, q) for n, q in golden.cases()[:2]]
 FIXTURE_CASES = [(n, q) for n, q in golden.cases() if n != golden.FHD]
+P_SMALL = [golden.p_key(c) for c in golden.P_CASES if c[0] != golden.FHD]
 
 
-def _check(key, data):
-    want = GOLD[key]
+def _check(key, data, what=None):
+    want = GOLD[key] if what is None else GOLD[key][what]
     assert len(data) == want["length"], key
     assert hashlib.sha256(data).hexdigest() == want["sha256"], key
+
+
+def _port_y4m(data):
+    from dsv2_tpu_torch.codec import decoder
+    from dsv2_tpu_torch.utils import y4m
+    return golden.decoded_y4m(decoder, y4m, data,
+                              decoder=decoder.Decoder(device="cpu"))
 
 
 @pytest.mark.parametrize("name,qp", FIXTURE_CASES,
@@ -36,15 +51,21 @@ def test_cli_golden(name, qp, tmp_path):
     _check(golden.key(name, qp), out.read_bytes())
 
 
-@pytest.mark.parametrize("name,qp", FIXTURE_CASES,
-                         ids=[golden.key(n, q) for n, q in FIXTURE_CASES])
-def test_batch_golden(name, qp):
+@functools.lru_cache(maxsize=None)
+def _batch_stream(name, qp):
+    """The port's batched CPU encode of an intra case (shared by the
+    encode and decode tests of one worker)."""
     from dsv2_tpu_torch import cli
     from dsv2_tpu_torch.parallel.batch import encode_intra_batch
     frames, meta = read_y4m(golden.input_path(name))
-    data = golden.encode(cli, frames, meta, qp, batch=encode_intra_batch,
+    return golden.encode(cli, frames, meta, qp, batch=encode_intra_batch,
                          chunk=4, device="cpu")
-    _check(golden.key(name, qp), data)
+
+
+@pytest.mark.parametrize("name,qp", FIXTURE_CASES,
+                         ids=[golden.key(n, q) for n, q in FIXTURE_CASES])
+def test_batch_golden(name, qp):
+    _check(golden.key(name, qp), _batch_stream(name, qp))
 
 
 @pytest.mark.parametrize("key", SMALL)
@@ -90,14 +111,127 @@ def test_stage_totals():
 
 
 def test_p_frames_raise():
+    """P-frame encoding is not ported yet; decoding P frames is (below)."""
     from dsv2_tpu_torch import cli
     frames, meta = read_y4m(golden.input_path("nano48x32_420_4f"))
     enc = cli.make_encoder(meta, cli.default_enc_opts(qp=60, gop=8),
                            device="cpu")
     with pytest.raises(NotImplementedError):
         enc.encode_frame(frames[0])
-    with pytest.raises(NotImplementedError):
-        cli.main(["d"])
+
+
+@pytest.mark.parametrize("name,qp", FIXTURE_CASES,
+                         ids=[golden.key(n, q) for n, q in FIXTURE_CASES])
+def test_decode_golden(name, qp):
+    """The port decodes each golden intra stream (re-encoded by the port,
+    hence dsv2_tpu's bytes) to dsv2_tpu's decoded y4m."""
+    data = _batch_stream(name, qp)
+    _check(golden.key(name, qp), data)
+    _check(golden.key(name, qp), _port_y4m(data), "decode")
+
+
+@pytest.mark.parametrize("key", P_SMALL)
+def test_decode_p_golden(key):
+    data = golden.read_stream(key)
+    _check(key, data)
+    _check(key, _port_y4m(data), "decode")
+
+
+def test_decode_p_conformance():
+    """The CIF P stream against dsv2_tpu's independent conformance
+    decoder, frame by frame."""
+    from dsv2_tpu.conformance import decode_stream as conf_decode
+    from dsv2_tpu_torch.codec import decoder
+    data = golden.read_stream(golden.p_key(golden.P_CASES[1]))
+    want = list(conf_decode(io.BytesIO(data)))
+    got = list(decoder.decode_stream(io.BytesIO(data), device="cpu"))
+    assert [f for f, _ in got] == [f for f, _ in want] and len(got) == 12
+    for (fno, frame), (_, planes) in zip(got, want):
+        for c in range(3):
+            assert np.array_equal(frame.view(c), planes[c]), (fno, c)
+
+
+DEC_OPTS = [[], ["-y4m=1"], ["-y4m=1", "-out420p=1"], ["-postsharp=1"],
+            ["-y4m=1", "-drawinfo=7"]]
+
+
+@pytest.mark.parametrize("opts", DEC_OPTS,
+                         ids=[" ".join(o) or "raw" for o in DEC_OPTS])
+def test_decode_cli(opts, tmp_path):
+    """`python -m dsv2_tpu_torch d` equals `python -m dsv2_tpu d` (both in
+    process) on the 4:2:2 P stream, for every DEC_PARAMS option."""
+    from dsv2_tpu import cli as jcli
+    from dsv2_tpu_torch import cli
+    inp = golden.stream_path(golden.p_key(golden.P_CASES[0]))
+    outs = []
+    for mod in (jcli, cli):
+        out = str(tmp_path / ("%s.out" % mod.__name__))
+        assert mod.main(["d", "-y", "-inp=" + inp, "-out=" + out]
+                        + opts) == 0
+        with open(out, "rb") as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1] and len(outs[0]) > 0
+    if opts == ["-y4m=1"]:
+        _check(golden.p_key(golden.P_CASES[0]), outs[1], "decode")
+
+
+@pytest.mark.parametrize("key", [SMALL[0], P_SMALL[0]])
+def test_decode_golden_live(key):
+    """The golden decode digests are what dsv2_tpu decodes today."""
+    from dsv2_tpu.codec import decoder as jdecoder
+    from dsv2_tpu.utils import y4m as jy4m
+    if key in P_SMALL:
+        data = golden.read_stream(key)
+    else:
+        from dsv2_tpu import cli as jcli
+        frames, meta = read_y4m(golden.input_path("nano48x32_420_4f"))
+        data = golden.encode(jcli, frames, meta, 60)
+    _check(key, golden.decoded_y4m(jdecoder, jy4m, data), "decode")
+
+
+@pytest.mark.slow
+def test_decode_golden_fhd():
+    """FHD: the intra stream (encoded by the port) and the P stream."""
+    from dsv2_tpu_torch import cli
+    from dsv2_tpu_torch.parallel.batch import encode_intra_batch
+    frames, meta = read_y4m(golden.input_path(golden.FHD))
+    key = golden.key(golden.FHD, 60)
+    data = golden.encode(cli, frames, meta, 60, batch=encode_intra_batch,
+                         chunk=8, device="cpu")
+    _check(key, data)
+    _check(key, _port_y4m(data), "decode")
+    key = golden.p_key(golden.P_CASES[2])
+    data = golden.read_stream(key)
+    _check(key, data)
+    _check(key, _port_y4m(data), "decode")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "dsv2_tpu_torch")):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_no_dsv2_tpu_imports():
+    """No file of the port, nor chip_smoke.py, imports dsv2_tpu or jax."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                if n.split(".")[0] in ("dsv2_tpu", "jax", "jaxlib"):
+                    bad.append("%s:%d %s" % (os.path.relpath(path, REPO),
+                                             node.lineno, n))
+    assert len(_port_sources()) > 30
+    assert not bad, bad
 
 
 def test_no_cuda_raises(monkeypatch):
@@ -116,8 +250,8 @@ JAX_FREE = r"""
 import importlib.abc, sys
 class NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked in this process")
+        if name.split(".")[0] in ("jax", "jaxlib", "dsv2_tpu"):
+            raise ImportError(name + " is blocked in this process")
 sys.meta_path.insert(0, NoJax())
 sys.path.insert(0, {repo!r})
 sys.path.insert(0, {tools!r})
@@ -131,17 +265,24 @@ assert cli.main(["e", "-y", "-v", "-y4m=1", "-qp=60", "-gop=0",
 frames, meta = read_y4m(golden.input_path(name))
 data = golden.encode(cli, frames, meta, 60, batch=encode_intra_batch)
 assert data == open({out!r}, "rb").read()
-assert "jax" not in sys.modules and "jaxlib" not in sys.modules
+assert cli.main(["d", "-y", "-y4m=1", "-inp=" + {pinp!r},
+                 "-out=" + {yout!r}]) == 0
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "dsv2_tpu")]
 print("JAXFREE", golden.digest(data)["sha256"])
+print("DECODE", golden.digest(open({yout!r}, "rb").read())["sha256"])
 """
 
 
 def test_jax_free_subprocess(tmp_path):
-    """The GPU machine has no JAX: both entry points run with jax
-    unimportable (a subprocess, since this one already imported jax)."""
+    """The GPU machine has no JAX: the encode entry points and the CLI
+    decode run with jax and dsv2_tpu unimportable (a subprocess, since
+    this one already imported both)."""
     out = str(tmp_path / "nano.dsv")
+    pkey = golden.p_key(golden.P_CASES[0])
     code = JAX_FREE.format(repo=REPO, tools=os.path.join(REPO, "tools"),
-                           out=out)
+                           out=out, pinp=golden.stream_path(pkey),
+                           yout=str(tmp_path / "p.y4m"))
     env = dict(os.environ, DSV2_TORCH_DEVICE="cpu")
     env.pop("DSV2_XPROF", None)
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -151,3 +292,5 @@ def test_jax_free_subprocess(tmp_path):
     line = [ln for ln in res.stdout.splitlines() if ln.startswith("JAXFREE")]
     assert line == ["JAXFREE " + GOLD[golden.key(
         "nano48x32_420_4f", 60)]["sha256"]]
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("DECODE")]
+    assert line == ["DECODE " + GOLD[pkey]["decode"]["sha256"]]
