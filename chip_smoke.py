@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through the entry points a user calls:
-FHD 1920x1080 4:2:0 intra encode at -qp=60 -gop=0, 32 frames, through
-parallel/batch.encode_intra_batch; then the decode of that stream and of
-the committed FHD and CIF P streams through
-codec/decoder.decode_stream_chunked, and both CLIs (`e`, `d`) in
-subprocesses. Before that it builds every CUDA kernel of those paths
-from this checkout (one nvcc per source, all at once) and holds each
-against its plain PyTorch version: the vk chain on random and FHD scan
-inputs, the in-loop filter wavefront (three kinds) on seeded random
-planes at CIF and FHD geometry and on the planes the FHD decodes feed
-it. Each phase prints one JSON line; any failure raises (non-zero exit).
+Drives the port's three main paths through the entry points a user
+calls: FHD 1920x1080 4:2:0 intra encode at -qp=60 -gop=0, 32 frames,
+through parallel/batch.encode_intra_batch; the decode of that stream and
+of the committed FHD and CIF P streams through
+codec/decoder.decode_stream_chunked; FHD P encode at -qp=60 -gop=8, 8
+frames, through cli.make_encoder + encode_frame; and the CLIs (`e` at
+-gop=0 and -gop=12, `d`) in subprocesses. Before that it builds every
+CUDA kernel of those paths from this checkout (one nvcc per source, all
+at once) and holds each against its plain PyTorch version: the vk chain
+on random and FHD scan inputs, the in-loop filter wavefront (three
+kinds) on seeded random planes at CIF and FHD geometry and on the planes
+the FHD decodes feed it, the two motion-search kernels on seeded CIF
+inputs and on the inputs of FHD P frames 1 and 2 (level by level).
+Each phase prints one JSON line; any failure raises (non-zero exit).
 The last lines are the kernel table, the card's name and power limit,
 and the result line {"ok": true, "device": {...}}. Needs CUDA, nvcc and
 this repository (no JAX: the golden streams and digests come from
@@ -30,7 +33,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NFRAMES, CHUNK, QP = 32, 16, 60
-KERNELS = ("vk_chain", "wavefront_filter")
+KERNELS = ("vk_chain", "wavefront_filter", "hme_search")
+P_FRAMES, P_GOP = 8, 8
 # seeded random filter inputs: (label, (width, height, luma block, chroma
 # shift)) — CIF and FHD 4:2:0 geometry
 RANDOM_GEOMS = (("cif", (352, 288, 16, 1)), ("fhd", (1920, 1080, 32, 1)))
@@ -85,7 +89,8 @@ def main():
     from dsv2_tpu_torch import cli
     from dsv2_tpu_torch.codec import decoder, plane
     from dsv2_tpu_torch.codec.devsteps import blob_cap
-    from dsv2_tpu_torch.ops import _kernels, filters, hzcc, scan_pl
+    from dsv2_tpu_torch.ops import (_kernels, filters, hme_gpu, hme_wave,
+                                    hzcc, scan_pl)
     from dsv2_tpu_torch.parallel import batch
     from dsv2_tpu_torch.utils import trace, y4m
 
@@ -97,6 +102,8 @@ def main():
         scan_pl.vk_chain.launches = 0
         for k in filters.KINDS:
             wf.launches[k] = 0
+        for k in hme_gpu.launches:
+            hme_gpu.launches[k] = 0
 
     # 1. device
     smi = subprocess.run(
@@ -112,7 +119,8 @@ def main():
     with ThreadPoolExecutor(len(KERNELS)) as ex:
         libs = dict(zip(KERNELS, ex.map(_kernels.build, KERNELS)))
     for name in KERNELS:
-        _kernels.entry(name)
+        for e in _kernels.entries(name):
+            _kernels.entry(e)
         emit("build", kernel=name, library=os.path.relpath(libs[name], REPO),
              nvcc_seconds=_kernels.build_seconds.get(name))
     emit("build_all", seconds=time.perf_counter() - t0)
@@ -373,7 +381,155 @@ def main():
                 assert rec["filter_launches"][k] > 0, (k, rec)
             dec_launches += sum(rec["filter_launches"].values())
         emit("decode_p", **rec)
+
+    # 8a. the motion-search kernels vs their plain version (on the card),
+    # level by level, on seeded CIF inputs without and with temporal
+    # candidates; below also on the inputs of FHD P frames 1 and 2. (After
+    # the intra and decode main paths, so those run in the parent's state.)
+    hme_cases = []
+
+    def hme_vs_plain(label, cfg, inputs, time_it=False):
+        """Each level through its kernel and through the plain version, fed
+        the same parent field; exact on every field. With time_it, each
+        launch is timed with CUDA events and the plain version once."""
+        (sp, rp, op, su, sv, ru, rv, tmx, tmy, quant, skt) = inputs
+        quant, skt = int(quant), int(skt)
+        tmv = torch.stack([tmx, tmy]).contiguous()
+        gxy = torch.zeros(2, dtype=torch.int32, device=dev)
+        parent = torch.zeros((2, cfg.nbv, cfg.nbh), dtype=torch.int32,
+                             device=dev)
+        err, levels = 0, []
+        for level in range(cfg.pyramid_levels, -1, -1):
+            gx, gy = gxy[0], gxy[1]
+            if level:
+                got = hme_gpu.hme_level(cfg, level, sp[level], rp[level],
+                                        op[level], parent, tmv, gxy, quant)
+                torch.cuda.synchronize()
+                pms, want = host_ms(lambda: torch.stack(
+                    hme_wave.refine_level_graph(
+                        cfg, level, sp[level], rp[level], op[level],
+                        parent[0], parent[1], tmx, tmy, gx, gy, quant)))
+                e = int((got.long() - want.long()).abs().max())
+                kern = lambda: hme_gpu.hme_level(cfg, level, sp[level],
+                                                 rp[level], op[level], parent,
+                                                 tmv, gxy, quant)
+                nbytes = 3 * sp[level].numel() + 4 * 6 * parent[0].numel()
+            else:
+                chroma = (su, sv, ru, rv)
+                out, sums = hme_gpu.hme_level0(cfg, sp[0], rp[0], op[0],
+                                               chroma, parent, tmv, gxy,
+                                               quant, skt)
+                torch.cuda.synchronize()
+                pms, st = host_ms(lambda: hme_wave.refine_level0_graph(
+                    cfg, (sp[0], su, sv), (rp[0], ru, rv), op[0], parent[0],
+                    parent[1], tmx, tmy, gx, gy, quant, skt))
+                want = torch.stack([st[k] for k in hme_wave.FIELDS0]
+                                   + [st["fskip"].int()])
+                wsum = torch.stack([st[k] for k in hme_wave.SUMS0])
+                e = max(int((out.long() - want.long()).abs().max()),
+                        int((sums.long() - wsum.long()).abs().max()))
+                got = out
+                kern = lambda: hme_gpu.hme_level0(cfg, sp[0], rp[0], op[0],
+                                                  chroma, parent, tmv, gxy,
+                                                  quant, skt)
+                nbytes = (3 * sp[0].numel() + 4 * su.numel()
+                          + 4 * (4 + hme_gpu.NF0) * parent[0].numel())
+            rec = dict(level=level, max_abs_err=e)
+            if time_it:
+                rec["ms"] = cuda_ms(kern, 3)
+                rec["plain_ms"] = pms
+                # the level's planes and grids read once, fields written
+                # once; a floor of 8 integer operations per pixel for two
+                # metrics per block (the zero candidate and the
+                # good-enough test every block runs)
+                fw, fh = cfg.dims[level]
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    nbytes, 2 * 8 * fw * fh)
+            levels.append(rec)
+            err = max(err, e)
+            if level:
+                parent = got
+                gxy = torch.stack(hme_wave.global_motion_graph(
+                    cfg, level, got[0], got[1]))
+        rec = dict(case=label, nbh=cfg.nbh, nbv=cfg.nbv, has_tmv=cfg.has_tmv,
+                   max_abs_err=err, levels=levels)
+        hme_cases.append(rec)
+        assert err == 0, rec
+        return rec
+
+    for tmv_on in (False, True):
+        cfgd, inputs = golden.hme_case(cif_frames, cif_meta, has_tmv=tmv_on,
+                                       device=dev)
+        hme_vs_plain("cif_seeded_tmv%d" % tmv_on, hme_wave.WaveCfg(**cfgd),
+                     inputs)
+    emit("hme_kernel_vs_plain", kernels=["hme_level", "hme_level0"],
+         max_abs_err=max(c["max_abs_err"] for c in hme_cases),
+         cases=list(hme_cases))
+
+    # 8b. main path, P encode: the first 8 FHD frames at -qp=60 -gop=8
+    # through cli.make_encoder + encode_frame (1 I + 7 P frames). The warm
+    # run records the motion search inputs of P frames 1 and 2.
+    frames_p = cli.read_y4m(golden.input_path(golden.FHD))[0][:P_FRAMES]
+    pkey = golden.p_key(golden.P_CASES[2])
+    recorded = []
+    make_me = hme_gpu.make_motion_est
+
+    def recording_me(cfg):
+        fn = make_me(cfg)
+
+        def f(*inputs):
+            if len(recorded) < 2:
+                recorded.append((cfg, inputs))
+            return fn(*inputs)
+        return f
+
+    hme_gpu.make_motion_est = recording_me
+    try:
+        warm_ms, pdata = host_ms(lambda: golden.encode(
+            cli, frames_p, meta, QP, gop=P_GOP, device=dev))
+    finally:
+        hme_gpu.make_motion_est = make_me
+    assert golden.digest(pdata) == {k: gold[pkey][k]
+                                    for k in ("sha256", "length")}, \
+        "warm P digest"
+    trace.reset()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = cli.make_encoder(meta, cli.default_enc_opts(qp=QP, gop=P_GOP),
+                           device=dev)
+    out = []
+    for fr in frames_p:
+        out.extend(enc.encode_frame(fr))
+    out.extend(enc.end_of_stream())
+    pdata = b"".join(out)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    hme_launches = dict(hme_gpu.launches)
+    p_filter_launches = dict(wf.launches)
+    sha = hashlib.sha256(pdata).hexdigest()
+    assert sha == gold[pkey]["sha256"] and len(pdata) == gold[pkey][
+        "length"], sha
+    assert all(n > 0 for n in hme_launches.values()), hme_launches
+    emit("p_encode_main_path", frames=P_FRAMES, gop=P_GOP,
+         fps=P_FRAMES / dt, seconds=dt, warm_seconds=warm_ms / 1e3,
+         sha256=sha, bytes=len(pdata), golden=True,
+         hme_launches=hme_launches,
+         hme_launches_expected={"hme_level": 7 * enc.pyramid_levels,
+                                "hme_level0": 7},
+         filter_launches=p_filter_launches, stage_seconds=trace.totals())
     trace.enable(False)
+    del frames_p
+
+    # 8c. the motion-search kernels vs plain on FHD P frames 1 (no
+    # temporal candidates) and 2 (with them), level by level, timed
+    fhd_hme = [hme_vs_plain("fhd_p_frame%d" % (n + 1), c, inputs,
+                            time_it=True)
+               for n, (c, inputs) in enumerate(recorded)]
+    assert [c["has_tmv"] for c in fhd_hme] == [False, True], fhd_hme
+    emit("hme_kernel_vs_plain_fhd", kernels=["hme_level", "hme_level0"],
+         max_abs_err=max(c["max_abs_err"] for c in fhd_hme), cases=fhd_hme)
+    del recorded
 
     # 9. the filter kernel vs plain on the planes the FHD decodes fed it
     firsts = {}
@@ -395,6 +551,9 @@ def main():
             (["e", "-qp=60", "-gop=0",
               "-inp=" + golden.input_path("cif352x288_420_12f")],
              "cif.dsv", golden.key("cif352x288_420_12f", 60), None),
+            (["e", "-qp=60", "-gop=12",
+              "-inp=" + golden.input_path("cif352x288_420_12f")],
+             "cif_gop12.dsv", golden.p_key(golden.P_CASES[1]), None),
             (["d", "-y4m=1", "-inp=" + golden.stream_path(cif_p)],
              "cif_p.y4m", cif_p, "decode")):
         out = os.path.join(outdir, out)
@@ -430,7 +589,18 @@ def main():
          "launches": dec_launches, "max_abs_err": wf_err,
          "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
          "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],
-         "library_ms": None}]}), flush=True)
+         "library_ms": None}] + [
+        {"name": name, "route": "cuda",
+         "source": "dsv2_tpu_torch/csrc/hme_search.cu",
+         "replaces": "dsv2_tpu/ops/hme_pallas.py:%d" % line,
+         "launches": hme_launches[name],
+         "max_abs_err": max(c["max_abs_err"] for c in hme_cases),
+         "ms": lv["ms"], "plain_ms": lv["plain_ms"],
+         "bound_ms": lv["bound_ms"], "bound_by": lv["bound_by"],
+         "library_ms": None}
+        for name, line, lv in (
+            ("hme_level", 248, fhd_hme[0]["levels"][-2]),
+            ("hme_level0", 311, fhd_hme[0]["levels"][-1]))]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

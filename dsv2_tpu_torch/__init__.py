@@ -1,11 +1,12 @@
-"""dsv2_tpu_torch — the DSV2 (bitstream v2.8) intra encode path on PyTorch.
+"""dsv2_tpu_torch — the DSV2 (bitstream v2.8) codec on PyTorch: intra and
+P encode, decode.
 
-The port of `dsv2_tpu` to PyTorch and CUDA. Device compute (forward
-subband transform, adaptive quantization, HVS block analysis, the
-entropy-coded scan blob) runs as integer torch ops on int32 tensors with
-a leading frame dimension; the one sequential recurrence on the path, the
-rice vk adaptation chain, is a hand-written CUDA kernel
-(`csrc/vk_chain.cu`). Host code (sessions, rate control, packetization,
+The port of `dsv2_tpu` to PyTorch and CUDA. Device compute (subband
+transforms, quantization, HVS block analysis, the entropy-coded scan
+blob, motion compensation) runs as integer torch ops on int32 tensors;
+the sequential recurrences, which the TPU ran as Pallas kernels, are
+hand-written CUDA kernels under `csrc/`: the rice vk adaptation chain,
+the in-loop filter wavefront and the motion search. Host code (sessions, rate control, packetization,
 the native C runtime) is the port's own copy of `dsv2_tpu`'s host
 modules, under the same paths. This package imports neither jax nor
 anything of `dsv2_tpu`.

@@ -3,9 +3,9 @@
 Same flag surface as the reference CLI (ref: src/dsv_main.c:102-247)
 and `dsv2_tpu`'s CLI, whose flag tables, argument parser, overwrite
 prompt and statistics dump are copied here. Encoding covers intra
-streams (`-gop=0`; P frames raise, ROADMAP); decoding (`d`) runs the
-device-chain decoder on every stream it can hold (ROADMAP lists what
-raises). DSV2_TORCH_DEVICE picks the device (`cuda`, the default, or
+(`-gop=0`) and P streams (`-gop=N`: sequential encode_frame on the
+device reference chain); decoding (`d`) runs the device-chain decoder on
+every stream it can hold (ROADMAP lists what raises). DSV2_TORCH_DEVICE picks the device (`cuda`, the default, or
 `cpu`).
 """
 import sys

@@ -1,14 +1,21 @@
-"""Whole-frame device steps: intra encode and decode.
+"""Whole-frame device steps: encode and decode.
 
-Port of two parts of `dsv2_tpu/codec/devsteps.py`.
+Port of `dsv2_tpu/codec/devsteps.py`.
 
 Intra encode (blob transfer): the per-plane forward SBT -> quantize ->
 scan blob chain, the blob merge (`_finish_blob`), the single-frame step
-of the sequential session (`make_i_encode_step`, reconstruction-free:
-gop=0 keeps no reference) and its host fetch (`fetch_sparse_outs`).
-Every function takes a leading frame dimension; the sequential step is
-the batch of one. The batched pipeline (parallel/batch.py) runs the same
-`encode_planes`.
+of the sequential session (`make_i_encode_step`) and its host fetch
+(`fetch_sparse_outs`). Every intra function takes a leading frame
+dimension; the sequential step is the batch of one. The batched pipeline
+(parallel/batch.py) runs the same `encode_planes`.
+
+P encode and the encoder's device reference chain (gop != 0): the P step
+(`make_p_encode_step`: MC prediction -> residual -> forward SBT ->
+quantize -> in-loop inverse -> reconstruction, one frame), the input
+prep (`make_input_prep`: bordered planes + motion search pyramid) and
+the chain steps (`make_i_chain_step`, `make_p_chain_step`): the
+reconstruction goes through the in-loop filters, border extension and
+the pyramid without leaving the device.
 
 Decode (device chain): dequantize -> inverse SBT -> (P) motion
 compensation and reconstruction -> in-loop filters -> border extension
@@ -24,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from ..core.frame import plane_dims
 from ..ops import filters, framedev, hzcc, mc, scan_pl, sbt
 from ..parallel import xfer
 from ..utils.packet import VideoMeta
@@ -60,33 +68,183 @@ def _finish_blob(lls, vs, pcfg):
     return buf, smalls
 
 
-def encode_planes(pcfg, xs, bd, q):
+def _code_plane(pcfg, c, x, bd, q, need_recon, masks=()):
+    """Forward SBT -> quantize (-> in-loop inverse) of one plane x int32
+    [..., ch, cw] (centered). Returns (coefs, v, recon): recon the clamped
+    uint8 reconstruction [..., ch, cw] or None."""
+    scfg = pcfg.sbt_cfg(c)
+    coefs, cr = sbt.make_fwd_sbt_carry(scfg)(x, bd)
+    deq, v = hzcc.make_quantize(pcfg.hzcc_cfg(c))(coefs, bd, q, *masks)
+    if not need_recon:
+        return coefs, v, None
+    # fwd carry -> in-loop inverse: replicates the reference's shared
+    # scratch at degenerate (extreme-aspect) levels
+    rpx = sbt.make_inv_sbt_stale(scfg)(deq, bd, q, cr)
+    return coefs, v, _clip_u8(rpx)
+
+
+def encode_planes(pcfg, xs, bd, q, need_recon=False):
     """xs: three (nfr, ch, cw) uint8 coefficient-dim planes; bd (nfr, nbv,
     nbh) uint8 blockdata; q (nfr,) int32. Returns (lls, vs) per plane: the
     unquantized DC coefficient (nfr,) and the quantized scan (nfr,
-    total)."""
-    lls, vs = [], []
+    total); with need_recon also the reconstructed planes (nfr, ch, cw)
+    uint8."""
+    lls, vs, recons = [], [], []
     for c in range(3):
-        x = xs[c].to(torch.int32) - 128
-        coefs, _ = sbt.make_fwd_sbt_carry(pcfg.sbt_cfg(c))(x, bd)
-        _, v = hzcc.make_quantize(pcfg.hzcc_cfg(c))(coefs, bd, q)
+        coefs, v, rec = _code_plane(pcfg, c, xs[c].to(torch.int32) - 128, bd,
+                                    q, need_recon)
         lls.append(coefs[:, 0, 0])
         vs.append(v)
+        recons.append(rec)
+    if need_recon:
+        return lls, vs, recons
     return lls, vs
 
 
 @functools.lru_cache(maxsize=None)
-def make_i_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy):
-    """Single-frame intra step of the sequential session, without
-    reconstruction: step(xs, bd, q) -> (buf, smalls, vs) with the
-    _finish_blob layout for nfr = 1."""
+def make_i_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
+                       need_recon=False):
+    """Single-frame intra step of the sequential session: step(xs, bd, q)
+    -> (buf, smalls, vs) with the _finish_blob layout for nfr = 1; with
+    need_recon, (buf, smalls, vs, recons) where recons are the three
+    reconstructed coefficient-dim planes (1, ch, cw) uint8."""
     pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
                  blk_w, blk_h, False, lossless, do_psy)
 
     def step(xs, bd, q):
-        lls, vs = encode_planes(pcfg, xs, bd, q)
+        out = encode_planes(pcfg, xs, bd, q, need_recon)
+        buf, smalls = _finish_blob(out[0], out[1], pcfg)
+        return (buf, smalls) + tuple(out[1:])
+
+    return step
+
+
+@functools.lru_cache(maxsize=None)
+def make_p_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy):
+    """One P frame: step(srcs, refs, mvx, mvy, flags, submask, dc, bd,
+    eprm_m, mlt_m, q, tmc) -> (recons, buf, smalls, vs). srcs are the
+    (gh, gw) uint8 source canvases, refs the bordered reference planes,
+    the MV maps (nbv, nbh) int32, bd uint8, eprm_m/mlt_m bool, q a 0-d
+    int32 tensor; recons are the reconstructed canvases (gh, gw) uint8,
+    the rest the _finish_blob layout for nfr = 1. Mirrors the sequential
+    sub_pred -> fwd SBT -> quantize -> inv SBT -> reconstruct chain (ref:
+    dsv_encoder.c:1123-1172)."""
+    pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
+                 blk_w, blk_h, True, lossless, do_psy)
+
+    def step(srcs, refs, mvx, mvy, flags, submask, dc, bd, eprm_m, mlt_m,
+             q, tmc):
+        recons, lls, vs = [], [], []
+        for c in range(3):
+            mcc = pcfg.mc_cfg(c)
+            cw, ch = pcfg.cdims[c]
+            pw, ph = pcfg.pdims[c]
+            pred = mc.make_predict(mcc)(refs[c], mvx, mvy, flags, submask,
+                                        dc, tmc)
+            res = mc.make_subtract(mcc)(srcs[c], pred, flags)
+            x = torch.zeros((ch, cw), dtype=torch.int32, device=res.device)
+            x[:ph, :] = res[:ph, :cw].to(torch.int32) - 128
+            coefs, v, rpx = _code_plane(pcfg, c, x, bd, q, True,
+                                        (eprm_m, mlt_m))
+            res2 = res.clone()
+            res2[:ph, :pw] = rpx[:ph, :pw]
+            recons.append(mc.make_reconstruct(mcc)(res2, pred, flags))
+            lls.append(coefs[0, 0][None])
+            vs.append(v[None])
         buf, smalls = _finish_blob(lls, vs, pcfg)
-        return buf, smalls, vs
+        return recons, buf, smalls, vs
+
+    return step
+
+
+def _chain_outputs(pcfg, levels, recons):
+    """Filter-free tail of a chain step: border-extend every visible recon
+    plane (ph, pw) uint8 and build the luma motion search pyramid, all on
+    the device (ref: dsv_encoder.c:1166-1172 + frame.c:357-434)."""
+    planes = [framedev.extend_plane_graph(recons[c], *pcfg.pdims[c])
+              for c in range(3)]
+    rpyr = framedev.pyramid_graph(planes[0], pcfg.pdims[0][0],
+                                  pcfg.pdims[0][1], levels)
+    return {"recon": planes, "rpyr": rpyr}
+
+
+@functools.lru_cache(maxsize=None)
+def make_input_prep(w, h, subsamp, levels):
+    """prep(vis0, vis1, vis2) -> {"padded": bordered planes, "pyr": luma
+    motion search pyramid}: the per-frame upload is just the visible
+    pixels, everything derived stays on the device (ref:
+    dsv_encoder.c:493-516, frame.c:357-434)."""
+    dims = plane_dims(subsamp, w, h)
+
+    def prep(vis0, vis1, vis2):
+        padded = [framedev.extend_plane_graph(v, pw, ph)
+                  for v, (pw, ph) in zip((vis0, vis1, vis2), dims)]
+        return {"padded": padded,
+                "pyr": framedev.pyramid_graph(padded[0], w, h, levels)}
+
+    return prep
+
+
+@functools.lru_cache(maxsize=None)
+def make_i_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
+                      levels):
+    """Intra encode step + device reference chain: recon -> intra dering
+    filter -> border extension -> pyramid. step(xs, bd, q, fq, fthresh,
+    do_filter) -> (buf, smalls, vs, chain) with xs/bd/q as for
+    make_i_encode_step and chain {"recon", "rpyr"} (ref:
+    dsv_encoder.c:1296-1301 + bmc.c:390-457)."""
+    pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
+                 blk_w, blk_h, False, lossless, do_psy)
+    base = make_i_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
+                              True)
+
+    def step(xs, bd, q, fq, fthresh, do_filter):
+        buf, smalls, vs, recons = base(xs, bd, q)
+        vis = _visible(pcfg, [r[0] for r in recons])
+        if not lossless:
+            vis[0] = filters.intra_filter_graph(
+                pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv,
+                vis[0], bd[0], fq, fthresh * do_filter)
+        return buf, smalls, vs, _chain_outputs(pcfg, levels, vis)
+
+    return step
+
+
+@functools.lru_cache(maxsize=None)
+def make_p_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
+                      levels, inter_sharpen):
+    """P encode step + device reference chain: recon -> in-loop luma and
+    chroma filters -> border extension -> pyramid. step(srcs_full, refs,
+    mvx, mvy, flags, submask, dc, bd, eprm_m, mlt_m, q, tmc, fq, fthresh,
+    do_filter) -> (buf, smalls, vs, chain); srcs_full are the bordered
+    input planes, whose MC canvas slice (the apron rows/cols past the
+    visible edge included) the step codes (ref: dsv_encoder.c:1123-1172
+    + bmc.c:459-659)."""
+    pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
+                 blk_w, blk_h, True, lossless, do_psy)
+    base = make_p_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy)
+    B = framedev.B
+
+    def step(srcs_full, refs, mvx, mvy, flags, submask, dc, bd, eprm_m,
+             mlt_m, q, tmc, fq, fthresh, do_filter):
+        srcs = []
+        for c in range(3):
+            mcc = pcfg.mc_cfg(c)
+            srcs.append(srcs_full[c][B:B + mcc.gh, B:B + mcc.gw])
+        recons, buf, smalls, vs = base(srcs, refs, mvx, mvy, flags, submask,
+                                       dc, bd, eprm_m, mlt_m, q, tmc)
+        vis = _visible(pcfg, recons)
+        if not lossless:
+            vis[0] = filters.luma_filter_graph(
+                pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv,
+                blk_w, blk_h, inter_sharpen, vis[0], mvx, mvy, flags,
+                submask, fq, fthresh, do_filter, tmc)
+            for c in (1, 2):
+                mcc = pcfg.mc_cfg(c)
+                vis[c] = filters.chroma_filter_graph(
+                    pcfg.pdims[c][0], pcfg.pdims[c][1], pcfg.nbh, pcfg.nbv,
+                    mcc.bw, mcc.bh, vis[c], mvx, mvy, flags, q)
+        return buf, smalls, vs, _chain_outputs(pcfg, levels, vis)
 
     return step
 
@@ -96,7 +254,7 @@ def fetch_sparse_outs(step_out):
     copy of the occupied blob prefix. Returns (vscans, lls) per plane,
     each vscan ("blob", bytes of the device blob) or, on the per-plane
     contract fallback, ("dense", the int32 scan array)."""
-    buf, smalls, vs = step_out
+    buf, smalls, vs = step_out[:3]
     sm = smalls.cpu().numpy().reshape(3, 4)
     useds = sm[:, 2].astype(np.int64)
     offs = np.concatenate([[0], np.cumsum(useds)[:-1]])

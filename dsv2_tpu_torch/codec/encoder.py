@@ -1,12 +1,19 @@
-"""DSV2 v2.8 encoder session, intra only (gop=0).
+"""DSV2 v2.8 encoder session.
 
-Port of `dsv2_tpu/codec/encoder.py` restricted to `gop == K.GOP_INTRA`:
-host GOP state, rate control, packetization and intra metadata around
-one device step per frame (forward SBT, quantization, scan blob; see
-devsteps.py). Rate control (`codec/rc`), the intra analysis
-(`ops/blockanalysis.intra_analysis`) and the motion/metadata serializers
+Port of `dsv2_tpu/codec/encoder.py`: host GOP state, rate control,
+scene change detection, packetization and the motion/metadata
+serializers around one device step per frame (see devsteps.py). Rate
+control (`codec/rc`), scene change detection (`codec/scd`), the intra
+analysis (`ops/blockanalysis.intra_analysis`) and the serializers
 (`codec/motion`) are the port's copies of `dsv2_tpu`'s host modules.
-P frames raise NotImplementedError (ROADMAP item 14).
+
+`gop == 0` codes every frame intra with no reference. Any other gop runs
+the twin's device reference chain: the input prep, the motion search
+(codec/hme: a hand-written CUDA kernel on the card), the P or intra
+step with reconstruction, the in-loop filters, border extension and the
+pyramids stay on the device; the host reads back only the motion field
+and the entropy-coded scans. The twin's host reference path (host motion
+search, host in-loop filters) is not ported.
 (ref: src/dsv_encoder.c)
 """
 import numpy as np
@@ -24,10 +31,7 @@ from ..utils.packet import VideoMeta
 from ..utils.trace import stage
 from . import devsteps, motion, rc
 from . import plane as planecode
-from .decoder import _PCfg
-
-P_FRAMES = "P frames: ROADMAP item 14 (only -gop=0 is ported)"
-
+from .decoder import _PCfg, compute_filter_q
 
 class Params:
     """Per-frame coding parameters (ref: DSV_PARAMS, src/dsv.h:242-268)."""
@@ -68,6 +72,10 @@ class EncData:
                                       # the smallest level)
         self.params = None
         self.quant = 0
+        self.refdata = None           # the reference frame's EncData
+        self.final_mvs = None
+        self.dev = None               # device reference chain: padded/pyr
+                                      # (input prep) + recon/rpyr (chain)
 
     @property
     def pyramid(self):
@@ -155,6 +163,8 @@ class Encoder:
         self.prev_gop = -1
         self.prev_quant = 0
         self.stats = Stats()
+        self.ref = None               # EncData of the reference frame
+        self.hme_backend = None       # None/"auto": see codec/hme.py
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -181,8 +191,6 @@ class Encoder:
         """Encode one frame (y, u, v arrays). Returns a list of packet
         buffers (bytes) with link offsets applied (ref: dsv_enc,
         dsv_encoder.c:1430-1575)."""
-        if self.gop != K.GOP_INTRA:
-            raise NotImplementedError(P_FRAMES)
         meta = self.meta
         padded = Frame(meta.subsamp, meta.width, meta.height, border=True)
         padded.load(planes)
@@ -261,40 +269,95 @@ class Encoder:
             prev = f
         return pyr
 
+    def _devchain(self):
+        """The device reference chain (every frame of a gop != 0 stream):
+        recon, in-loop filters, border extension and the motion search
+        pyramids never leave the device."""
+        return self.gop != K.GOP_INTRA
+
+    def _input_prep(self, d):
+        """Upload the visible planes once; the bordered planes and the
+        pyramid are built on the device."""
+        meta = self.meta
+        vis = [xfer.upload(np.ascontiguousarray(d.padded.view(c)),
+                           self.device) for c in range(3)]
+        return devsteps.make_input_prep(meta.width, meta.height,
+                                        meta.subsamp,
+                                        self.pyramid_levels)(*vis)
+
     def _encode_one(self, d):
-        """The gop=0 branch of encode_one_frame (ref: dsv_encoder.c:
-        1184-1317): every frame is an intra frame with no reference."""
+        """(ref: encode_one_frame, dsv_encoder.c:1184-1317)."""
         self._setup_params(d)
         p = d.params
         prev_I = self.prev_gop
-        d.pyramid = self._mk_pyramid(d.padded)
+        if self._devchain():
+            # the host pyramid only materializes if CRF dark-boost needs it
+            d._pyramid_fn = (lambda padded=d.padded:
+                             self._mk_pyramid(padded))
+            with stage("encode.input_prep"):
+                d.dev = self._input_prep(d)
+        else:
+            d.pyramid = self._mk_pyramid(d.padded)
 
         gop_start = 0
         if self.force_metadata or (self.prev_gop + self.gop) <= d.fnum:
             gop_start = 1
             self.prev_gop = d.fnum
             self.force_metadata = 0
-        p.is_ref = 0
-        p.has_ref = 0
-        self.avg_err = 0
-        if self.intra_map is None:
-            self.intra_map = np.zeros(p.nbh * p.nbv, dtype=np.uint8)
-        self.intra_map[:] = 0
 
-        d.quant = rc.quality2quant(self, d, prev_I, 0)
+        if self.gop == K.GOP_INTRA:
+            p.is_ref = 0
+            p.has_ref = 0
+        else:
+            p.is_ref = 1
+            if gop_start:
+                p.has_ref = 0
+            else:
+                p.has_ref = 1
+                d.refdata = self.ref
+            self.ref = d
+        self.avg_err = 0
+
+        forced_intra = 0
+        if not p.has_ref:
+            if self.intra_map is None:
+                self.intra_map = np.zeros(p.nbh * p.nbv, dtype=np.uint8)
+        else:
+            with stage("encode.motion_est"):
+                self._motion_est(d)
+            with stage("encode.scd"):
+                forced_intra = self._scene_change_detection(d)
+        if self.variable_i_interval and forced_intra:
+            self.prev_gop = d.fnum
+        if not p.has_ref:
+            self.intra_map[:] = 0
+
+        d.quant = rc.quality2quant(self, d, prev_I, forced_intra)
         self._compute_auto_filter(d)
-        return gop_start, self._encode_picture(d)
+        outbuf = self._encode_picture(d)
+        d.refdata = None    # its chain is consumed; free the device planes
+        return gop_start, outbuf
 
     # -- picture ------------------------------------------------------------
 
     def _gather_stats(self, d, intramv, stats):
-        """Intra branch of (ref: dsv_encoder.c:992-1037)."""
+        """(ref: dsv_encoder.c:992-1037)."""
         p = d.params
         nblk = p.nbh * p.nbv
         temp_rc = self.refresh_ctr
         if self.refresh_ctr >= self.stable_refresh:
             temp_rc = 0
         avgdiv = max(temp_rc, 1)
+        if p.has_ref:
+            fl = d.final_mvs.flags.astype(np.uint32)
+            intra = ((fl >> K.MV_BIT_INTRA) & 1).astype(bool)
+            skip = ((fl >> K.MV_BIT_SKIP) & 1).astype(bool)
+            eprm = ((fl >> K.MV_BIT_EPRM) & 1).astype(bool)
+            ns = int((~skip).sum())
+            stats[K.MODE_STAT] += 2 * int((intra & ~skip).sum()) - ns
+            stats[K.EPRM_STAT] += 2 * int((eprm & ~skip).sum()) - ns
+            stats[K.STABLE_STAT] += 2 * int(((~intra) & skip).sum()) - nblk
+            return
         fl = intramv.flags
         if d.fnum > 0 and self.do_temporal_aq:
             stable = ((self.stability[:, 0] // avgdiv == 0)
@@ -308,14 +371,16 @@ class Encoder:
         stats[K.STABLE_STAT] += 2 * int(stable.sum()) - nblk
 
     def _stable_decisions(self, d, intramv):
-        """Intra branch of the stable/skip bits + blockdata init (ref:
-        encode_stable_blocks, dsv_encoder.c:797-883)."""
+        """Stable/skip bits + blockdata init + stability accumulation
+        (ref: encode_stable_blocks, dsv_encoder.c:797-883)."""
         p = d.params
         nblk = p.nbh * p.nbv
         if self.refresh_ctr >= self.stable_refresh:
             self.refresh_ctr = 0
             self.stability[:] = 0
         avgdiv = max(self.refresh_ctr, 1)
+        if p.has_ref:
+            return self._stable_decisions_p(d)
         fl = intramv.flags
         if d.fnum > 0 and self.do_temporal_aq:
             stable = ((self.stability[:, 0] // avgdiv == 0)
@@ -326,8 +391,39 @@ class Encoder:
         self.blockdata[:] = stable.astype(np.uint8) << K.STABLE_BIT
         return stable.astype(np.uint8)
 
+    def _stable_decisions_p(self, d):
+        """P branch of _stable_decisions: moving inter blocks accumulate
+        motion, skip vectors are zeroed, blockdata gets the P flags."""
+        p = d.params
+        fps = im.udiv_round(p.meta.fps_num, p.meta.fps_den)
+        if fps <= 24:
+            dsf = 6
+        elif fps <= 30:
+            dsf = 4
+        elif fps <= 60:
+            dsf = 2
+        else:
+            dsf = 0
+        mf = d.final_mvs
+        fl = mf.flags.astype(np.uint32)
+        skip = ((fl >> K.MV_BIT_SKIP) & 1).astype(bool)
+        intra = ((fl >> K.MV_BIT_INTRA) & 1).astype(bool)
+        simc = ((fl >> K.MV_BIT_SIMCMPLX) & 1).astype(np.uint8)
+        stable = (~intra) & skip
+        acc = (~intra) & (~skip)
+        self.stability[:, 0] += np.where(
+            acc, np.abs(mf.x.astype(np.int64)) >> dsf, 0)
+        self.stability[:, 1] += np.where(
+            acc, np.abs(mf.y.astype(np.int64)) >> dsf, 0)
+        mf.x[skip] = 0
+        mf.y[skip] = 0
+        self.blockdata[:] = (np.where(intra, K.IS_INTRA, 0).astype(np.uint8)
+                             | (stable.astype(np.uint8) << K.SKIP_BIT)
+                             | (simc << K.SIMCMPLX_BIT))
+        return stable.astype(np.uint8)
+
     def _encode_picture(self, d):
-        """Intra branch of (ref: encode_picture, dsv_encoder.c:1039-1173)."""
+        """(ref: encode_picture, dsv_encoder.c:1039-1173)."""
         p = d.params
         meta = self.meta
         w = BitWriter(1 << 16)
@@ -335,7 +431,9 @@ class Encoder:
         w.align()
         w.put_bits(32, d.fnum)
 
-        intramv = blockanalysis.intra_analysis(d.padded, p)
+        intramv = None
+        if not p.has_ref:
+            intramv = blockanalysis.intra_analysis(d.padded, p)
 
         stats = [K.ONE_MARKER] * K.MAX_STAT
         if self.effort >= 7:
@@ -351,29 +449,72 @@ class Encoder:
         w.put_ueg(im.lb2(p.blk_h) - 4)
         w.align()
         w.put_bit(stats[K.STABLE_STAT])
-        w.put_bit(stats[K.MAINTAIN_STAT])
-        w.put_bit(stats[K.RINGING_STAT])
-        w.put_bit(self.do_intra_filter)
+        if p.has_ref:
+            w.put_bit(stats[K.MODE_STAT])
+            w.put_bit(stats[K.EPRM_STAT])
+            inter_filter = (self.do_inter_filter == 1
+                            or (self.do_inter_filter == -1
+                                and self.auto_filter))
+            w.put_bit(1 if inter_filter else 0)
+        else:
+            inter_filter = False
+            w.put_bit(stats[K.MAINTAIN_STAT])
+            w.put_bit(stats[K.RINGING_STAT])
+            w.put_bit(self.do_intra_filter)
         w.put_bits(K.MAX_QP_BITS, d.quant)
         w.put_bit(0)
         w.align()
 
         stable_bits = self._stable_decisions(d, intramv)
         motion.encode_stable_blocks(w, stable_bits, stats)
-        fl = intramv.flags
-        self.blockdata |= (((fl >> K.MV_BIT_RINGING) & 1)
-                           << K.RINGING_BIT).astype(np.uint8)
-        self.blockdata |= (((fl >> K.MV_BIT_MAINTAIN) & 1)
-                           << K.MAINTAIN_BIT).astype(np.uint8)
-        ring_bits = (fl & (1 << K.MV_BIT_RINGING)) != 0
-        maint_bits = (fl & (1 << K.MV_BIT_MAINTAIN)) != 0
-        motion.encode_intra_meta(w, ring_bits, maint_bits, stats)
+        if p.has_ref:
+            # prediction/subtraction happen inside the device step
+            w.align()
+            motion.encode_motion(w, d.final_mvs, stats, self.blockdata)
+        else:
+            fl = intramv.flags
+            self.blockdata |= (((fl >> K.MV_BIT_RINGING) & 1)
+                               << K.RINGING_BIT).astype(np.uint8)
+            self.blockdata |= (((fl >> K.MV_BIT_MAINTAIN) & 1)
+                               << K.MAINTAIN_BIT).astype(np.uint8)
+            ring_bits = (fl & (1 << K.MV_BIT_RINGING)) != 0
+            maint_bits = (fl & (1 << K.MV_BIT_MAINTAIN)) != 0
+            motion.encode_intra_meta(w, ring_bits, maint_bits, stats)
 
         # image data — one device step for the whole frame
         # (ref: dsv_encoder.c:1134-1161)
         w.align()
-        pcfg = _PCfg(meta, p.blk_w, p.blk_h, False, p.lossless,
+        pcfg = _PCfg(meta, p.blk_w, p.blk_h, bool(p.has_ref), p.lossless,
                      do_psy=p.do_psy)
+        with stage("encode.device_step"):
+            if p.has_ref:
+                outs = self._p_step(d, pcfg, inter_filter)
+            else:
+                outs = self._i_step(d, pcfg)
+            if len(outs) == 4:  # chain step: keep the device reference
+                d.dev.update(outs[3])
+        with stage("encode.fetch"):
+            vscans, lls = devsteps.fetch_sparse_outs(outs)
+        with stage("encode.serialize"):
+            for c in range(3):
+                cw, ch = pcfg.cdims[c]
+                kind, payload = vscans[c]
+                if kind == "blob":
+                    planecode.encode_plane_blob(w, payload, lls[c])
+                else:
+                    self.stats.blob_fallbacks += 1
+                    planecode.encode_plane(w, payload, lls[c], cw, ch)
+        return w.data()
+
+    def _filter_q(self, pcfg, quant):
+        fq = compute_filter_q(pcfg.hzcc_cfg(0), quant)
+        return fq, 32 * (14 - im.lb2(fq))
+
+    def _i_step(self, d, pcfg):
+        """The intra device step: (buf, smalls, vs), plus the reference
+        chain when the frame is a reference (gop != 0)."""
+        p = d.params
+        meta = self.meta
         dev = self.device
         xs = []
         for c in range(3):
@@ -385,19 +526,47 @@ class Encoder:
         bd = xfer.upload(np.ascontiguousarray(
             self.blockdata.reshape(1, p.nbv, p.nbh)), dev)
         q = xfer.upload(np.array([d.quant], dtype=np.int32), dev)
-        step = devsteps.make_i_encode_step(
+        cfg = (meta.width, meta.height, meta.subsamp, p.blk_w, p.blk_h,
+               p.lossless, p.do_psy)
+        if not (p.is_ref and self._devchain()):
+            return devsteps.make_i_encode_step(*cfg)(xs, bd, q)
+        fq, fthresh = self._filter_q(pcfg, d.quant)
+        step = devsteps.make_i_chain_step(*cfg, self.pyramid_levels)
+        return step(xs, bd, q, fq, fthresh, self.do_intra_filter)
+
+    def _p_step(self, d, pcfg, inter_filter):
+        """The P device step with the reference chain. The motion field
+        and the per-block maps go up as one int32 array."""
+        p = d.params
+        meta = self.meta
+        mf = d.final_mvs
+        eprm = mf.bit(K.MV_BIT_EPRM)
+        mlt = (mf.bit(K.MV_BIT_MAINTAIN)
+               & (np.abs(mf.x.astype(np.int32)) < 32)
+               & (np.abs(mf.y.astype(np.int32)) < 32))
+        grids = np.stack([a.astype(np.int32) for a in (
+            mf.x, mf.y, mf.flags, mf.submask, mf.dc, self.blockdata, eprm,
+            mlt)]).reshape(8, p.nbv, p.nbh)
+        g = xfer.upload(grids, self.device)
+        q = xfer.upload(np.array(d.quant, dtype=np.int32), self.device)
+        fq, fthresh = self._filter_q(pcfg, d.quant)
+        step = devsteps.make_p_chain_step(
             meta.width, meta.height, meta.subsamp, p.blk_w, p.blk_h,
-            p.lossless, p.do_psy)
-        vscans, lls = devsteps.fetch_sparse_outs(step(xs, bd, q))
-        for c in range(3):
-            cw, ch = pcfg.cdims[c]
-            kind, payload = vscans[c]
-            if kind == "blob":
-                planecode.encode_plane_blob(w, payload, lls[c])
-            else:
-                self.stats.blob_fallbacks += 1
-                planecode.encode_plane(w, payload, lls[c], cw, ch)
-        return w.data()
+            p.lossless, p.do_psy, self.pyramid_levels, meta.inter_sharpen)
+        return step(d.dev["padded"], d.refdata.dev["recon"], g[0], g[1],
+                    g[2], g[3], g[4], g[5].to(torch.uint8), g[6] != 0,
+                    g[7] != 0, q, K.temporal_mc(d.fnum), fq, fthresh,
+                    1 if inter_filter else 0)
+
+    # -- P-frame machinery ----------------------------------------------------
+
+    def _motion_est(self, d):
+        from . import hme
+        hme.motion_est(self, d)
+
+    def _scene_change_detection(self, d):
+        from . import scd
+        return scd.scene_change_detection(self, d)
 
     def _compute_auto_filter(self, d):
         """(ref: dsv_encoder.c:518-543)."""
@@ -433,16 +602,62 @@ class Encoder:
         st.imins = min(outlen, st.imins)
 
     def _tally(self, d, outlen):
-        """Intra branch of (ref: dsv_enc, dsv_encoder.c:1471-1570)."""
-        self._tally_intra_size(outlen, self.rc_qual)
+        """(ref: dsv_enc, dsv_encoder.c:1471-1570)."""
+        p = d.params
+        if p.has_ref:
+            self._tally_p(d, outlen)
+        else:
+            self._tally_intra_size(outlen, self.rc_qual)
+        if p.has_ref:
+            self.refresh_ctr += 1
         if self.rc_mode != K.RC_CQP:
             if self.rc_mode == K.RC_CRF:
                 self.rf_total += self.rc_qual
             else:
                 self.rf_total += outlen
             self.rf_reset += 1
+            if p.has_ref:
+                self.total_P_frame_q += self.rc_qual
+                self.avg_P_frame_q = self.total_P_frame_q // self.rf_reset
             self.rf_avg = self.rf_total // self.rf_reset
             if self.rf_reset >= K.RF_RESET:
                 self.rf_total = self.rf_avg
                 self.total_P_frame_q = self.total_P_frame_q // self.rf_reset
                 self.rf_reset = 1
+
+    def _tally_p(self, d, outlen):
+        """Post-frame P stats: sizes, qualities, block modes and MV
+        precisions."""
+        p = d.params
+        st = self.stats
+        st.pnum += 1
+        st.pfnum += 1 if self.auto_filter else 0
+        st.psize += outlen
+        st.pqual += self.rc_qual
+        st.pmaxq = max(self.rc_qual, st.pmaxq)
+        st.pmaxs = max(outlen, st.pmaxs)
+        st.pminq = min(self.rc_qual, st.pminq)
+        st.pmins = min(outlen, st.pmins)
+        mf = d.final_mvs
+        fl = mf.flags.astype(np.int64)
+        skip = (fl & (1 << K.MV_BIT_SKIP)) != 0
+        intra = ~skip & ((fl & (1 << K.MV_BIT_INTRA)) != 0)
+        inter = ~skip & ~intra
+        st.eprm += int(((fl & (1 << K.MV_BIT_EPRM)) != 0).sum())
+        st.skip += int(skip.sum())
+        st.mbI += int(intra.sum())
+        st.mbdc += int((intra & ((mf.dc & K.SRC_DC_PRED) != 0)).sum())
+        sub = intra & (mf.submask != K.MASK_ALL_INTRA)
+        st.mbsub += int(sub.sum())
+        for b in range(4):
+            st.mbsubs[b] += int((sub & ((mf.submask & (1 << b)) != 0)).sum())
+        st.mbP += int(inter.sum())
+        for val, fp, hp, qp in ((mf.x, "fpx", "hpx", "qpx"),
+                                (mf.y, "fpy", "hpy", "qpy")):
+            v = val.astype(np.int64)
+            q_ = inter & ((v & 1) != 0)
+            h_ = inter & ((v & 1) == 0) & ((v & 3) != 0)
+            setattr(st, qp, getattr(st, qp) + int(q_.sum()))
+            setattr(st, hp, getattr(st, hp) + int(h_.sum()))
+            setattr(st, fp, getattr(st, fp) + int((inter & ~q_ & ~h_).sum()))
+        st.mb += p.nbh * p.nbv

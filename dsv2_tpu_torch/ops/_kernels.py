@@ -13,6 +13,8 @@ import subprocess
 import threading
 import time
 
+import numpy as np
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -24,7 +26,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p (ctypes would cut a pointer passed as a plain int), ints c_int
 _ENTRY = {"vk_chain": ("dsv2t_vk_chain", [_P, _P, _P, _P, _P, _I, _I, _P]),
           "wavefront_filter": ("dsv2t_wavefront_filter",
-                               [_I, _P, _P, _P, _I, _P, _P])}
+                               [_I, _P, _P, _P, _I, _P, _P]),
+          "hme_level": ("dsv2t_hme_level", [_P] * 9),
+          "hme_level0": ("dsv2t_hme_level0", [_P] * 14)}
+# one source may hold several entry points
+_SOURCE = {"hme_level": "hme_search", "hme_level0": "hme_search"}
 _GEOM = ("pw", "ph", "tw", "th", "ntx", "nty", "L", "nd", "mr", "mc", "HP",
          "WP", "wh", "ww")
 
@@ -62,13 +68,20 @@ def build(name):
     return so
 
 
+def entries(source):
+    """The entry point names of csrc/<source>.cu."""
+    return [n for n in _ENTRY if _SOURCE.get(n, n) == source]
+
+
 def entry(name):
-    """The C entry point of csrc/<name>.cu (built and loaded on first
-    use); it returns a cudaError_t."""
+    """The C entry point `name` (of csrc/<name>.cu, or of the source
+    _SOURCE names; built and loaded on first use); it returns a
+    cudaError_t."""
     with _lock:
         if name not in _entries:
             fn_name, argtypes = _ENTRY[name]
-            fn = getattr(ctypes.CDLL(build(name)), fn_name)
+            fn = getattr(ctypes.CDLL(build(_SOURCE.get(name, name))),
+                         fn_name)
             fn.restype = _I
             fn.argtypes = argtypes
             _entries[name] = fn
@@ -134,3 +147,35 @@ def wavefront_filter(kind, lay, plane, props, scal):
     if rc != 0:
         raise RuntimeError("wavefront_filter launch failed: cudaError %d"
                            % rc)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _run(name, dev, *ptrs):
+    import torch
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = entry(name)(*ptrs, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError("%s launch failed: cudaError %d" % (name, rc))
+
+
+def hme_level(src, ref, ogr, parent, tmv, gxy, out, geom):
+    """Launch csrc/hme_search.cu's upper-level search on the current
+    stream; tensors checked by the caller (ops/hme_gpu.hme_level), geom
+    an int32 numpy array."""
+    geom = np.ascontiguousarray(geom, dtype=np.int32)
+    _run("hme_level", src.device, *(_ptr(t) for t in (
+        src, ref, ogr, parent, tmv, gxy, out)),
+         ctypes.c_void_p(geom.ctypes.data))
+
+
+def hme_level0(src, ref, ogr, chroma, parent, tmv, gxy, out, sums, geom):
+    """Launch csrc/hme_search.cu's base-level search on the current
+    stream; tensors checked by the caller (ops/hme_gpu.hme_level0)."""
+    geom = np.ascontiguousarray(geom, dtype=np.int32)
+    _run("hme_level0", src.device, *(_ptr(t) for t in (
+        (src, ref, ogr) + tuple(chroma) + (parent, tmv, gxy, out, sums))),
+         ctypes.c_void_p(geom.ctypes.data))

@@ -1,14 +1,13 @@
-"""Device-side border extension, so reconstructed reference frames never
-leave the device (ref: src/frame.c:357-410; host twin core/frame.py).
+"""Device-side frame container ops: border extension and the motion
+search pyramid, so reconstructed reference frames never leave the device
+(ref: src/frame.c:210-434; host twins in core/frame.py).
 
-Port of `extend_plane_graph` from `dsv2_tpu/ops/framedev.py`, with
-leading (frame) dimensions. The ME pyramid (`ds2x_luma_graph`,
-`pyramid_graph`) belongs to P encode and is not ported yet (ROADMAP
-item 9).
+Port of `dsv2_tpu/ops/framedev.py`, with leading (frame) dimensions.
 """
 import torch
 
 from ..core import constants as K
+from ..core import intmath as im
 
 B = K.FRAME_BORDER
 SUBDIV = 4
@@ -66,3 +65,28 @@ def extend_plane_graph(vis, w, h):
     top = row(tl, ts, tr)[..., None, :].expand(lead + (B, w + 2 * B))
     bot = row(bl, bs, br)[..., None, :].expand(lead + (B, w + 2 * B))
     return torch.cat([top, mid, bot], dim=-2).to(torch.uint8)
+
+
+def ds2x_luma_graph(bordered, dw, dh):
+    """2x luma downsample of a bordered plane (..., H, W) to EXPLICIT
+    destination dims (..., dh, dw) uint8: level dims round from the
+    original frame size, not the parent level (ref: src/frame.c:210-234,
+    dsv_encoder.c:505-510; host twin core/frame.py:ds2x_luma)."""
+    win = bordered[..., B:B + 2 * dh + 1, B:B + 2 * dw + 1].to(_I32)
+    p1 = win[..., 0:2 * dh:2, 0:2 * dw:2]
+    p2 = win[..., 0:2 * dh:2, 1:2 * dw + 1:2]
+    p3 = win[..., 1:2 * dh + 1:2, 0:2 * dw:2]
+    p4 = win[..., 1:2 * dh + 1:2, 1:2 * dw + 1:2]
+    return ((p1 + p2 + p3 + p4 + 2) >> 2).to(torch.uint8)
+
+
+def pyramid_graph(luma_bordered, w, h, levels):
+    """Motion search pyramid: list of `levels` bordered and extended
+    2x-downsampled luma planes (ref: dsv_encoder.c:493-516)."""
+    out = []
+    prev = luma_bordered
+    for i in range(levels):
+        dw, dh = im.round_shift(w, i + 1), im.round_shift(h, i + 1)
+        prev = extend_plane_graph(ds2x_luma_graph(prev, dw, dh), dw, dh)
+        out.append(prev)
+    return out

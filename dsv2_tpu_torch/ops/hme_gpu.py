@@ -1,0 +1,152 @@
+"""The motion search on the card: launch wrappers of the hand-written
+CUDA kernels in csrc/hme_search.cu.
+
+The counterpart of `dsv2_tpu/ops/hme_pallas.py` (the TPU's Pallas
+kernels `_level_call` and `_level0_call`). `make_motion_est(cfg)` has the
+inputs and the output dict of `hme_wave.make_motion_est`: for CPU
+tensors it is that plain version; for CUDA tensors each upper pyramid
+level is one `hme_level` launch and the base level one `hme_level0`
+launch, the global motion between them a few torch ops, so the search
+never syncs with the host. A CUDA tensor never reaches the plain
+version.
+
+Layout: the TPU kernels walk the anti-diagonals as a sequential grid,
+keep the last three diagonals in an SMEM ring and get every parent and
+temporal candidate pre-gathered per diagonal in XLA, then unskew the
+rows. Here one CTA walks the diagonals of a level in a loop (a barrier
+between diagonals); a warp searches one block, its lanes splitting the
+pixel loops, and up to 16 warps take the blocks of a diagonal in turn.
+Each warp reads its neighbours, parents and temporal candidates straight
+from the (nbv, nbh) grids and writes its results into them. The planes
+stay the bordered uint8 planes; a window is read at its start clamped
+into the plane, exactly like the plain version's.
+"""
+import numpy as np
+import torch
+
+from ..core import constants as K
+from . import hme_wave as hw
+
+_I32 = torch.int32
+NF0 = 7            # level-0 fields: fx, fy, flags, err, dc, submask, fskip
+GEOM = ("nbh", "nbv", "blk_w", "blk_h", "vid_w", "vid_h", "hs", "vs",
+        "effort", "lossless", "levels", "has_tmv", "skip_neg", "level",
+        "fw", "fh", "W", "H", "CW", "CH", "quant", "skip_thresh", "psyf",
+        "b2sr")
+
+launches = {"hme_level": 0, "hme_level0": 0}
+
+
+def geometry(cfg, level, planes, chroma, quant, skip_thresh):
+    """The int32 parameter block of one launch (GEOM order)."""
+    fw, fh = cfg.dims[level]
+    H, W = planes[0].shape
+    CH, CW = chroma[0].shape if chroma else (0, 0)
+    b2sr = ((256 * ((quant * quant) >> K.MAX_QP_BITS)
+             * (cfg.blk_w * cfg.blk_h)) // (cfg.vid_w * cfg.vid_h))
+    vals = dict(nbh=cfg.nbh, nbv=cfg.nbv, blk_w=cfg.blk_w, blk_h=cfg.blk_h,
+                vid_w=cfg.vid_w, vid_h=cfg.vid_h,
+                hs=K.fmt_h_shift(cfg.subsamp), vs=K.fmt_v_shift(cfg.subsamp),
+                effort=cfg.effort, lossless=int(cfg.lossless),
+                levels=cfg.pyramid_levels, has_tmv=int(cfg.has_tmv),
+                skip_neg=int(cfg.skip_thresh_neg), level=level, fw=fw, fh=fh,
+                W=W, H=H, CW=CW, CH=CH, quant=quant, skip_thresh=skip_thresh,
+                psyf=cfg.psyf_all, b2sr=b2sr)
+    return np.array([vals[k] for k in GEOM], dtype=np.int32)
+
+
+def _check(cfg, level, planes, chroma, grids, out):
+    dev = planes[0].device
+    for p in planes + chroma:
+        if p.dtype != torch.uint8 or p.dim() != 2 or not p.is_contiguous():
+            raise ValueError("planes must be contiguous 2-D uint8, got %s %s"
+                             % (p.dtype, tuple(p.shape)))
+        if p.device != dev:
+            raise ValueError("plane on %s, expected %s" % (p.device, dev))
+    fw, fh = cfg.dims[level]
+    for p in planes:
+        if tuple(p.shape) != tuple(planes[0].shape):
+            raise ValueError("luma planes of a level differ in shape")
+    H, W = planes[0].shape
+    if H < fh + 2 * hw.B or W < fw + 2 * hw.B:
+        raise ValueError("level %d plane %s smaller than %dx%d + border"
+                         % (level, tuple(planes[0].shape), fw, fh))
+    for t in grids + (out,):
+        if t.dtype != _I32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError("grids must be contiguous int32 on %s" % dev)
+        if tuple(t.shape[-2:]) != (cfg.nbv, cfg.nbh):
+            raise ValueError("grid shape %s, expected (..., %d, %d)"
+                             % (tuple(t.shape), cfg.nbv, cfg.nbh))
+
+
+def hme_level(cfg, level, src, ref, ogr, parent, tmv, gxy, quant):
+    """One upper pyramid level on the card (kernel 4): returns the (2, nbv,
+    nbh) int32 fields (fx, fy) in full-resolution full-pel units. parent
+    and tmv are (2, nbv, nbh) int32, gxy (2,) int32 (global motion)."""
+    from . import _kernels
+    out = torch.zeros((2, cfg.nbv, cfg.nbh), dtype=_I32, device=src.device)
+    _check(cfg, level, [src, ref, ogr], [], (parent, tmv), out)
+    if gxy.dtype != _I32 or tuple(gxy.shape) != (2,):
+        raise ValueError("gxy must be int32 (2,)")
+    geom = geometry(cfg, level, [src], [], quant, 0)
+    _kernels.hme_level(src, ref, ogr, parent, tmv, gxy, out, geom)
+    launches["hme_level"] += 1
+    return out
+
+
+def hme_level0(cfg, src, ref, ogr, chroma, parent, tmv, gxy, quant,
+               skip_thresh):
+    """The base level on the card (kernel 5): returns ((NF0, nbv, nbh)
+    int32 fields fx, fy, flags, err, dc, submask, fskip; (4,) int32 sums
+    terr, ndiff, nelig, nintra). chroma = (src_u, src_v, ref_u, ref_v)."""
+    from . import _kernels
+    dev = src.device
+    out = torch.zeros((NF0, cfg.nbv, cfg.nbh), dtype=_I32, device=dev)
+    sums = torch.zeros(4, dtype=_I32, device=dev)
+    _check(cfg, 0, [src, ref, ogr], list(chroma), (parent, tmv), out)
+    if len({tuple(c.shape) for c in chroma}) != 1:
+        raise ValueError("chroma planes differ in shape")
+    geom = geometry(cfg, 0, [src], list(chroma), quant, skip_thresh)
+    _kernels.hme_level0(src, ref, ogr, chroma, parent, tmv, gxy, out, sums,
+                        geom)
+    launches["hme_level0"] += 1
+    return out, sums
+
+
+def _device_search(cfg, src_planes, ref_planes, ogr_planes, src_u, src_v,
+                   ref_u, ref_v, tmv_x, tmv_y, quant, skip_thresh):
+    dev = src_planes[0].device
+    quant, skip_thresh = int(quant), int(skip_thresh)
+    tmv = torch.stack([tmv_x, tmv_y]).to(_I32).contiguous()
+    gxy = torch.zeros(2, dtype=_I32, device=dev)
+    parent = torch.zeros((2, cfg.nbv, cfg.nbh), dtype=_I32, device=dev)
+    for level in range(cfg.pyramid_levels, 0, -1):
+        parent = hme_level(cfg, level, src_planes[level], ref_planes[level],
+                           ogr_planes[level], parent, tmv, gxy, quant)
+        gx, gy = hw.global_motion_graph(cfg, level, parent[0], parent[1])
+        gxy = torch.stack([gx, gy])
+    out, sums = hme_level0(cfg, src_planes[0], ref_planes[0], ogr_planes[0],
+                           (src_u, src_v, ref_u, ref_v), parent, tmv, gxy,
+                           quant, skip_thresh)
+    st = dict(zip(hw.FIELDS0, out[:6]))
+    st["fskip"] = out[6].to(torch.uint8)
+    st.update(zip(hw.SUMS0, sums))
+    return st
+
+
+def make_motion_est(cfg):
+    """fn(src_planes, ref_planes, ogr_planes, src_u, src_v, ref_u, ref_v,
+    tmv_x, tmv_y, quant, skip_thresh) -> the output dict of
+    hme_wave.make_motion_est: the kernels for CUDA tensors, the plain
+    version for CPU tensors, an error for anything else."""
+    plain = hw.make_motion_est(cfg)
+
+    def f(src_planes, *rest):
+        dev = src_planes[0].device
+        if dev.type == "cpu":
+            return plain(src_planes, *rest)
+        if dev.type != "cuda":
+            raise ValueError("no motion search for device %s" % dev)
+        return _device_search(cfg, src_planes, *rest)
+
+    return f

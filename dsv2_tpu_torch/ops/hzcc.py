@@ -12,8 +12,7 @@ The twin is functional; make_quantize here works on a private copy of
 the coefficients, written back in place subband by subband, and clones
 every region it reads before a write-back (a torch slice is a view
 where a JAX slice is a snapshot). The dequantizer (`make_dequantize`,
-intra and P) is the decoder's; P-frame quantization (the P psy masks of
-the encoder) is not ported yet (ROADMAP item 14).
+intra and P) is the decoder's.
 """
 import functools
 from typing import NamedTuple
@@ -280,17 +279,42 @@ def _self_parent_mask(w, h, l, s):
 @functools.lru_cache(maxsize=None)
 def make_quantize(cfg: HzccCfg):
     """Returns fn(coefs int32[..., h, w], blockdata uint8[..., nbv, nbh],
-    q int32[...]) -> (dequantized coefs int32[..., h, w], v_scan
-    int32[..., total]), one quantizer per frame. The twin's P-only
-    eprm/maintain-lt mask arguments are dropped (intra only)."""
-    if cfg.isP:
-        raise NotImplementedError("P-frame quantization: ROADMAP item 14")
+    q int32[...], eprm_m=None, maintlt_m=None) -> (dequantized coefs
+    int32[..., h, w], v_scan int32[..., total]), one quantizer per frame.
+    eprm_m / maintlt_m are the (..., nbv, nbh) bool maps from the motion
+    field that P frames need (psy masking; ref: hzcc.c:369-380); intra
+    frames take neither. The twin passes them before q."""
     w, h = cfg.w, cfg.h
     sw0, sh0 = _dimat(0, w), _dimat(0, h)
     psy_i = bool(cfg.do_psy & K.PSY_I_VISUAL_MASKING) and cfg.is_luma
+    psy_p = bool(cfg.do_psy & K.PSY_P_VISUAL_MASKING) and cfg.is_luma
 
-    def quant_one(xcur, blockdata, q, sub, l, s, sw, sh):
+    def quant_p(xcur, blockdata, q, sub, l, s, sw, sh, eprm_m, maintlt_m):
+        qp = hfquant(cfg, q, s, l)
+        flags = _flags_map(blockdata, sw, sh, cfg.nbh, cfg.nbv)
+        parc = _parent_vals(xcur, l, s, w, h, sw, sh, 1)
+        tmq = tmq4pos_p(qp, flags, parc)
+        if not psy_p:
+            return quant_s(sub, tmq), tmq
+        gparc = _parent_vals(xcur, l, s, w, h, sw, sh, 2)
+        by, bx = on_device(blockdata.device, _block_gather, sw, sh, cfg.nbh,
+                           cfg.nbv)
+        eprm = eprm_m[..., by[:, None], bx[None, :]]
+        mlt = maintlt_m[..., by[:, None], bx[None, :]]
+        simc = (flags & K.IS_SIMCMPLX) != 0
+        texture = parc == 0
+        c1 = (texture & (gparc == 0)) | eprm | mlt
+        c2 = texture | ~simc
+        v = torch.where(
+            c1, quant_sub(sub, tmq, tmq >> 3),
+            torch.where(c2, quant_sub(sub, tmq, tint.divt(tmq, 6)),
+                        quant_sub(sub, tmq, tmq >> 2)))
+        return v, tmq
+
+    def quant_one(xcur, blockdata, q, sub, l, s, sw, sh, *masks):
         """v and tmq for one subband given the current plane state."""
+        if cfg.isP:
+            return quant_p(xcur, blockdata, q, sub, l, s, sw, sh, *masks)
         qp = hfquant(cfg, q, s, l)
         flags = _flags_map(blockdata, sw, sh, cfg.nbh, cfg.nbv)
         parc = _parent_vals(xcur, l, s, w, h, sw, sh, 1)
@@ -315,10 +339,16 @@ def make_quantize(cfg: HzccCfg):
             v = quant_s(sub, tmq)
         return v, tmq
 
-    def f(x, blockdata, q):
+    def f(x, blockdata, q, eprm_m=None, maintlt_m=None):
         if (x.dtype != torch.int32 or blockdata.dtype != torch.uint8
                 or q.dtype != torch.int32):
             raise TypeError("coefs/q must be int32 and blockdata uint8")
+        masks = ()
+        if cfg.isP:
+            if eprm_m is None or maintlt_m is None:
+                raise ValueError("P-frame quantization needs eprm_m and "
+                                 "maintlt_m")
+            masks = (eprm_m.to(torch.bool), maintlt_m.to(torch.bool))
         lead = x.shape[:-2]
         x = x.clone()
         ll_save = x[..., 0, 0].clone()
@@ -330,6 +360,9 @@ def make_quantize(cfg: HzccCfg):
         ll = x[..., :sh0, :sw0].clone()
         if cfg.lossless:
             v = ll
+        elif cfg.isP:
+            v = quant_s(ll, qp)
+            x[..., :sh0, :sw0] = torch.where(v != 0, dequant_d(v, qp), 0)
         else:
             v = quant_sub(ll, qp, -_floordiv(qp, 6))
             x[..., :sh0, :sw0] = torch.where(v != 0, dequant_s(v, qp), 0)
@@ -339,7 +372,7 @@ def make_quantize(cfg: HzccCfg):
             if cfg.lossless:
                 vs.append(sub.reshape(lead + (-1,)))
                 continue
-            v, tmq = quant_one(x, blockdata, q, sub, l, s, sw, sh)
+            v, tmq = quant_one(x, blockdata, q, sub, l, s, sw, sh, *masks)
             x[..., r0:r0 + sh, c0:c0 + sw] = torch.where(
                 v != 0, dequant_d(v, tmq), 0)
             m = _self_parent_mask(w, h, l, s)
@@ -352,7 +385,8 @@ def make_quantize(cfg: HzccCfg):
                 # propagate further than one rewrite)
                 m = on_device(x.device, _self_parent_mask, w, h, l, s)
                 for _ in range(max(sw, sh).bit_length()):
-                    v2, tmq2 = quant_one(x, blockdata, q, sub, l, s, sw, sh)
+                    v2, tmq2 = quant_one(x, blockdata, q, sub, l, s, sw, sh,
+                                         *masks)
                     v = torch.where(m, v2, v)
                     fixed = torch.where(v != 0, dequant_d(v, tmq2), 0)
                     cur = x[..., r0:r0 + sh, c0:c0 + sw]

@@ -1,13 +1,11 @@
 """Block motion compensation as per-pixel gather programs (device).
 
-Port of the decoder half of `dsv2_tpu/ops/mc.py` (ref: src/bmc.c:661-987):
-`make_predict` and `make_reconstruct`. Every output pixel computes its
-source coordinates from the broadcast MV field and gathers what it
-needs — the quarter-pel two-pass 4-tap filter becomes 16 gathers plus
+Port of `dsv2_tpu/ops/mc.py` (ref: src/bmc.c:661-1055): `make_predict`,
+`make_subtract` (encoder) and `make_reconstruct`. Every output pixel
+computes its source coordinates from the broadcast MV field and gathers
+what it needs — the quarter-pel two-pass 4-tap filter becomes 16 gathers plus
 elementwise arithmetic over the whole plane, intra DC fills become
 block-window reductions, and mode selection is a per-pixel select.
-`make_subtract` belongs to P encode and is not ported yet (ROADMAP
-item 10).
 
 Gathers clamp their indices by hand, as the twin's do: torch raises on an
 index out of range where JAX clamps.
@@ -217,6 +215,32 @@ def make_predict(cfg: McCfg):
             torch.where(qmask_pix, fill_q_pix, wholepel))
 
         out = torch.where(_bcast(intra_b, cfg), intra_pix, inter)
+        return out.to(torch.uint8)
+
+    return f
+
+
+@functools.lru_cache(maxsize=None)
+def make_subtract(cfg: McCfg):
+    """Returns fn(res uint8 (gh, gw), pred uint8 (gh, gw), flags (nbv, nbh)
+    int32) -> the residual canvas uint8, per-block modes (ref:
+    bmc.c:989-1055)."""
+
+    def f(res, pred, flags):
+        r = res.to(_I32)
+        p = pred.to(_I32)
+        if cfg.lossless:
+            return ((r - p + 128) & 0xFF).to(torch.uint8)
+        intra = (flags & (1 << K.MV_BIT_INTRA)) != 0
+        skip = (flags & (1 << K.MV_BIT_SKIP)) != 0
+        noxmit = (flags & (1 << (K.MV_BIT_NOXMITY if cfg.is_luma
+                                 else K.MV_BIT_NOXMITC))) != 0
+        eprm = (flags & (1 << K.MV_BIT_EPRM)) != 0
+        zero_b = _bcast(~intra & (skip | noxmit), cfg)
+        eprm_p = _bcast(eprm, cfg)
+        normal = torch.clamp(r - p + 128, 0, 255)
+        halved = torch.clamp((r - p + 256) >> 1, 0, 255)
+        out = torch.where(zero_b, 128, torch.where(eprm_p, halved, normal))
         return out.to(torch.uint8)
 
     return f

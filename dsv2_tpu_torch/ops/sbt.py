@@ -11,9 +11,8 @@ division and arithmetic shifts, so coefficients are bit-identical to
 Filter selection per level (ref: sbt.c:19-29, 862-885): L1 luma (ASF93),
 L2A luma (adaptive 5-tap + SHREX), LLI luma level 4, CC chroma mid
 levels, LLP luma P level 4, LOSSLESS mid levels, Haar elsewhere (the
-inverse adds the gradient-nudging "filtered" Haar). The forward P
-transform raises (P encode, ROADMAP item 14); the decoder-arena inverse
-`make_inv_sbt_arena` is not ported (ROADMAP item 18).
+inverse adds the gradient-nudging "filtered" Haar). The decoder-arena
+inverse `make_inv_sbt_arena` is not ported (ROADMAP item 18).
 
 The JAX twin is functional (`x.at[...].set`); here each transform works
 on a private int32 copy of its input and updates it in place level by
@@ -539,9 +538,6 @@ def make_fwd_sbt_carry(cfg: SbtCfg):
     (coefs int32[..., ch, cw], carry int32[..., cw]): the transform plus
     the scratch-row-1 carry the in-loop inverse of a degenerate plane must
     consume. Leading dims (frames) are independent."""
-    if cfg.isP:
-        raise NotImplementedError("P-frame transform: ROADMAP item 14")
-
     def fwd(x, blockdata):
         if x.dtype != torch.int32 or blockdata.dtype != torch.uint8:
             raise TypeError("x must be int32 and blockdata uint8, got "

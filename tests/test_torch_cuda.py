@@ -177,3 +177,64 @@ def test_decode_intra_golden_cuda(cuda):
     y = golden.decoded_y4m(decoder, y4m, data,
                            decoder=decoder.Decoder(device=cuda))
     assert golden.digest(y) == golden.load()[golden.key(name, 60)]["decode"]
+
+
+@pytest.mark.parametrize("name,has_tmv,effort", [
+    ("nano48x32_420_4f", False, 10), ("nano48x32_420_4f", True, 10),
+    ("nano48x32_420_4f", True, 5), ("odd100x62_420_4f", True, 10),
+    ("tiny64x48_422_4f", True, 10), ("cif352x288_420_12f", False, 10),
+    ("cif352x288_420_12f", True, 10)])
+def test_hme_kernels_vs_plain(cuda, name, has_tmv, effort):
+    """Both motion-search kernels against the plain version on every field
+    and sum (exact), with and without temporal candidates."""
+    from dsv2_tpu_torch.ops import hme_gpu, hme_wave
+    frames, meta = read_y4m(golden.input_path(name))
+    cfg, inputs = golden.hme_case(frames, meta, has_tmv=has_tmv,
+                                  effort=effort, device=cuda)
+    wcfg = hme_wave.WaveCfg(**cfg)
+    fn = hme_gpu.make_motion_est(wcfg)
+    n0 = dict(hme_gpu.launches)
+    got = fn(*inputs)
+    torch.cuda.synchronize()
+    assert hme_gpu.launches["hme_level"] == (n0["hme_level"]
+                                             + wcfg.pyramid_levels)
+    assert hme_gpu.launches["hme_level0"] == n0["hme_level0"] + 1
+
+    def cpu(x):
+        if isinstance(x, tuple):
+            return tuple(cpu(a) for a in x)
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+    want = fn(*cpu(inputs))
+    for k in golden.HME_OUTPUTS:
+        assert got[k].is_cuda and got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_hme_kernel_rejects(cuda):
+    from dsv2_tpu_torch.ops import hme_gpu, hme_wave
+    frames, meta = read_y4m(golden.input_path("nano48x32_420_4f"))
+    cfg, inputs = golden.hme_case(frames, meta, device=cuda)
+    wcfg = hme_wave.WaveCfg(**cfg)
+    lv = wcfg.pyramid_levels
+    z = torch.zeros((2, wcfg.nbv, wcfg.nbh), dtype=torch.int32, device=cuda)
+    gxy = torch.zeros(2, dtype=torch.int32, device=cuda)
+    src, ref, ogr = (x[lv] for x in inputs[:3])
+    with pytest.raises(ValueError):
+        hme_gpu.hme_level(wcfg, lv, src, ref, ogr.cpu(), z, z, gxy, 1200)
+    with pytest.raises(ValueError):
+        hme_gpu.hme_level(wcfg, lv, src, ref, ogr, z[:, :1], z, gxy, 1200)
+
+
+@pytest.mark.parametrize("key", ["tiny64x48_422_4f@qp60_gop4",
+                                 "cif352x288_420_12f@qp60_gop12"])
+def test_p_encode_golden_cuda(cuda, key):
+    from dsv2_tpu_torch import cli
+    from dsv2_tpu_torch.ops import hme_gpu
+    name, qp, gop, nfr = next(c for c in golden.P_CASES
+                              if golden.p_key(c) == key)
+    frames, meta = read_y4m(golden.input_path(name))
+    n0 = hme_gpu.launches["hme_level0"]
+    data = golden.encode(cli, frames[:nfr], meta, qp, gop=gop, device=cuda)
+    want = golden.load()[key]
+    assert golden.digest(data) == {k: want[k] for k in ("sha256", "length")}
+    assert hme_gpu.launches["hme_level0"] > n0

@@ -111,13 +111,17 @@ def test_stage_totals():
 
 
 def test_p_frames_raise():
-    """P-frame encoding is not ported yet; decoding P frames is (below)."""
+    """P frames encode through the device motion search only: asking for
+    one of dsv2_tpu's other backends (host, gang) raises at the first P
+    frame; the default encodes (tests/test_torch_pencode.py)."""
     from dsv2_tpu_torch import cli
     frames, meta = read_y4m(golden.input_path("nano48x32_420_4f"))
     enc = cli.make_encoder(meta, cli.default_enc_opts(qp=60, gop=8),
                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        enc.encode_frame(frames[0])
+    enc.hme_backend = "host"
+    enc.encode_frame(frames[0])          # the I frame needs no search
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        enc.encode_frame(frames[1])
 
 
 @pytest.mark.parametrize("name,qp", FIXTURE_CASES,
@@ -267,16 +271,20 @@ data = golden.encode(cli, frames, meta, 60, batch=encode_intra_batch)
 assert data == open({out!r}, "rb").read()
 assert cli.main(["d", "-y", "-y4m=1", "-inp=" + {pinp!r},
                  "-out=" + {yout!r}]) == 0
+assert cli.main(["e", "-y", "-y4m=1", "-qp=60", "-gop=4",
+                 "-inp=" + golden.input_path("tiny64x48_422_4f"),
+                 "-out=" + {out!r} + ".p"]) == 0
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "dsv2_tpu")]
+print("PENC", golden.digest(open({out!r} + ".p", "rb").read())["sha256"])
 print("JAXFREE", golden.digest(data)["sha256"])
 print("DECODE", golden.digest(open({yout!r}, "rb").read())["sha256"])
 """
 
 
 def test_jax_free_subprocess(tmp_path):
-    """The GPU machine has no JAX: the encode entry points and the CLI
-    decode run with jax and dsv2_tpu unimportable (a subprocess, since
+    """The GPU machine has no JAX: the encode entry points (intra and P)
+    and the CLI decode run with jax and dsv2_tpu unimportable (a subprocess, since
     this one already imported both)."""
     out = str(tmp_path / "nano.dsv")
     pkey = golden.p_key(golden.P_CASES[0])
@@ -294,3 +302,5 @@ def test_jax_free_subprocess(tmp_path):
         "nano48x32_420_4f", 60)]["sha256"]]
     line = [ln for ln in res.stdout.splitlines() if ln.startswith("DECODE")]
     assert line == ["DECODE " + GOLD[pkey]["decode"]["sha256"]]
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("PENC")]
+    assert line == ["PENC " + GOLD[pkey]["sha256"]]

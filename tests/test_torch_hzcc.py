@@ -83,7 +83,12 @@ def test_psy_factor(s):
 
 
 def test_p_frames_not_ported():
+    """P quantization is ported; it refuses to run without the motion
+    field's eprm/maintain masks (tests/test_torch_pencode.py holds it
+    against the twin)."""
     cfg = hzcc.HzccCfg(64, 48, True, True, False, 4, 3, 16, 16, 64, 48,
                        K.SUBSAMP_420, 0)
-    with pytest.raises(NotImplementedError):
-        hzcc.make_quantize(cfg)
+    x = tt(np.zeros((48, 64), np.int32))
+    bd = tt(np.zeros((3, 4), np.uint8))
+    with pytest.raises(ValueError):
+        hzcc.make_quantize(cfg)(x, bd, tt(np.int32(900)))

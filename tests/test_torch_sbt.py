@@ -70,5 +70,14 @@ def test_cfg_fields():
 
 
 def test_p_frames_not_ported():
-    with pytest.raises(NotImplementedError):
-        sbt.make_fwd_sbt_carry(sbt.SbtCfg(64, 48, True, True, False, 4, 3))
+    """The P forward transform is ported: its luma level 4 is the "llp"
+    lifting, and it equals the twin (more cases in test_torch_pencode)."""
+    args = (64, 48, True, True, False, 4, 3)
+    assert sbt._kind(sbt.SbtCfg(*args), 4) == "llp"
+    x = np.random.default_rng(3).integers(-128, 128, (48, 64)).astype(
+        np.int32)
+    bd = np.zeros((3, 4), np.uint8)
+    got = sbt.make_fwd_sbt_carry(sbt.SbtCfg(*args))(tt(x), tt(bd))
+    want = jsbt.make_fwd_sbt_carry(jsbt.SbtCfg(*args))(jnp.asarray(x),
+                                                       jnp.asarray(bd))
+    assert_same(got, want)

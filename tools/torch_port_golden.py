@@ -10,9 +10,10 @@ per-plane contract fallback), and the synthetic FHD 1920x1080 4:2:0
 32-frame input of the benchmark headline (tools/mkfixtures.write_y4m,
 seeded). The P cases (P_CASES: tiny 4:2:2 at -gop=4, CIF at -gop=12, the
 first 8 FHD frames at -gop=8) also commit their streams as
-tests/golden/<key>.dsv, since the port cannot encode P frames yet. The
-port's tests and chip_smoke.py compare against these files; the machine
-with the GPU has no JAX.
+tests/golden/<key>.dsv (the decoder's inputs); P_DIGESTS are P cases
+kept as digests only (nano and odd 4:2:0, lossless 4:4:4, nano at
+-effort=5). The port's tests and chip_smoke.py compare against these
+files; the machine with the GPU has no JAX.
 
     python tools/torch_port_golden.py [--only KEY ...]
 
@@ -36,6 +37,11 @@ FHD_SHAPE = (1920, 1080, 32)
 # (name, qp, gop, frames) of the committed P streams
 P_CASES = [("tiny64x48_422_4f", 60, 4, 4), ("cif352x288_420_12f", 60, 12, 12),
            (FHD, 60, 8, 8)]
+# (name, qp, gop, frames, effort or None) of the digest-only P cases
+P_DIGESTS = [("nano48x32_420_4f", 60, 4, 4, None),
+             ("odd100x62_420_4f", 60, 4, 4, None),
+             ("tiny64x48_444_4f", 100, 4, 4, None),
+             ("nano48x32_420_4f", 60, 4, 4, 5)]
 
 
 def cases():
@@ -46,15 +52,18 @@ def cases():
             + [(FHD, 60)])
 
 
-def key(name, qp, gop=0):
+def key(name, qp, gop=0, effort=None):
+    k = "%s@qp%d" % (name, qp)
     if gop:
-        return "%s@qp%d_gop%d" % (name, qp, gop)
-    return "%s@qp%d" % (name, qp)
+        k += "_gop%d" % gop
+    if effort is not None:
+        k += "_effort%d" % effort
+    return k
 
 
 def p_key(case):
-    name, qp, gop, _ = case
-    return key(name, qp, gop)
+    """Key of a P_CASES or P_DIGESTS entry."""
+    return key(case[0], case[1], case[2], *case[4:])
 
 
 def stream_path(k):
@@ -83,13 +92,16 @@ def input_path(name):
     return path
 
 
-def encode(cli, frames, meta, qp, batch=None, chunk=16, gop=0, **enc_kw):
-    """The -qp=<qp> -gop=<gop> stream of `frames` through a CLI module's
-    make_encoder (dsv2_tpu.cli or dsv2_tpu_torch.cli): sequential
-    encode_frame calls, or the batched path if `batch` (an
-    encode_intra_batch) is given."""
-    enc = cli.make_encoder(meta, cli.default_enc_opts(qp=qp, gop=gop),
-                           **enc_kw)
+def encode(cli, frames, meta, qp, batch=None, chunk=16, gop=0, effort=None,
+           **enc_kw):
+    """The -qp=<qp> -gop=<gop> [-effort=<effort>] stream of `frames`
+    through a CLI module's make_encoder (dsv2_tpu.cli or
+    dsv2_tpu_torch.cli): sequential encode_frame calls, or the batched
+    path if `batch` (an encode_intra_batch) is given."""
+    opts = dict(qp=qp, gop=gop)
+    if effort is not None:
+        opts["effort"] = effort
+    enc = cli.make_encoder(meta, cli.default_enc_opts(**opts), **enc_kw)
     out = []
     if batch is None:
         for fr in frames:
@@ -117,6 +129,75 @@ def decoded_y4m(decoder_mod, y4m_mod, data, decoder=None):
     return out.getvalue()
 
 
+def hme_case(frames, meta, has_tmv=False, effort=10, quant=1200,
+             shift=(3, 2), seed=0, skip_thresh=0, device="cpu"):
+    """Seeded inputs of the port's motion search (the arguments of
+    dsv2_tpu_torch.ops.hme_wave.make_motion_est) built from the first
+    frame of `frames`: the source is that frame shifted by `shift` with
+    noise, the reference a noised copy of it (the "recon"), the original
+    reference the frame itself; one block of the source is a copy of the
+    reference (skip) and one a flat patch (intra), so the refine, subpel,
+    skip, intra and EPRM branches fire. Returns (WaveCfg field dict,
+    inputs tuple) with the planes as tensors on `device`."""
+    import numpy as np
+    import torch
+    from dsv2_tpu_torch.core import constants as K
+    from dsv2_tpu_torch.core import intmath as im
+    from dsv2_tpu_torch.core.frame import plane_dims
+    from dsv2_tpu_torch.ops import framedev
+
+    rng = np.random.RandomState(seed)
+    f0 = [p.astype(np.int32) for p in frames[0]]
+    w, h, sub = meta.width, meta.height, meta.subsamp
+    hs, vs = K.fmt_h_shift(sub), K.fmt_v_shift(sub)
+
+    def noisy(pl, dx, dy, noise):
+        s = (np.roll(np.roll(pl, dy, 0), dx, 1)
+             + rng.randint(-noise, noise + 1, pl.shape))
+        return np.clip(s, 0, 255).astype(np.uint8)
+
+    cs = [(shift[0], shift[1]), (shift[0] >> hs, shift[1] >> vs)]
+    src = [noisy(f0[c], *cs[min(c, 1)], 3 if c == 0 else 2) for c in range(3)]
+    ref = [noisy(f0[c], 0, 0, 2) for c in range(3)]
+    ogr = [f0[c].astype(np.uint8) for c in range(3)]
+    blk = K.MAX_BLOCK_SIZE if min(w, h) > 1280 else K.MIN_BLOCK_SIZE
+    src[0][:blk, :blk] = ref[0][:blk, :blk]
+    src[0][blk:2 * blk, blk:blk + blk // 2] = 200
+    nbh, nbv = -(-w // blk), -(-h // blk)
+    lvls = im.lb2(min(w, h))
+    while (1 << lvls) > max(nbh, nbv):
+        lvls -= 1
+    lvls = im.clamp(lvls, 3, K.MAX_PYRAMID_LEVELS)
+    dims = plane_dims(sub, w, h)
+    dev = torch.device(device)
+
+    def chain(planes):
+        b = [framedev.extend_plane_graph(torch.as_tensor(p).to(dev), *dims[c])
+             for c, p in enumerate(planes)]
+        return b, [b[0]] + framedev.pyramid_graph(b[0], w, h, lvls)
+
+    (sb, sp), (rb, rp), (_, op) = chain(src), chain(ref), chain(ogr)
+    if has_tmv:
+        tmv = rng.randint(-24, 25, (2, nbv, nbh)).astype(np.int32)
+    else:
+        tmv = np.zeros((2, nbv, nbh), np.int32)
+    tmv = torch.as_tensor(tmv).to(dev)
+    cfg = dict(nbh=nbh, nbv=nbv, blk_w=blk, blk_h=blk, vid_w=w, vid_h=h,
+               subsamp=sub, effort=effort, lossless=False,
+               pyramid_levels=lvls, has_tmv=has_tmv,
+               skip_thresh_neg=skip_thresh < 0,
+               dims=tuple([(w, h)] + [(im.round_shift(w, i + 1),
+                                       im.round_shift(h, i + 1))
+                                      for i in range(lvls)]))
+    inputs = (tuple(sp), tuple(rp), tuple(op), sb[1], sb[2], rb[1], rb[2],
+              tmv[0], tmv[1], quant, skip_thresh)
+    return cfg, inputs
+
+
+HME_OUTPUTS = ("fx", "fy", "flags", "err", "dc", "submask", "fskip", "terr",
+               "ndiff", "nelig", "nintra")
+
+
 def digest(data):
     return {"sha256": hashlib.sha256(data).hexdigest(), "length": len(data)}
 
@@ -140,20 +221,22 @@ def main(argv=None):
     from dsv2_tpu_torch.cli import read_y4m
 
     table = load() if os.path.exists(GOLDEN) else {}
-    todo = [(n, q, 0, None) for n, q in cases()] + P_CASES
-    for name, qp, gop, nfr in todo:
-        k = key(name, qp, gop)
+    todo = ([(n, q, 0, None, None) for n, q in cases()]
+            + [c + (None,) for c in P_CASES] + P_DIGESTS)
+    for name, qp, gop, nfr, effort in todo:
+        k = key(name, qp, gop, effort)
         if args.only and k not in args.only:
             continue
         frames, meta = read_y4m(input_path(name))
         frames = frames[:nfr]
-        data = encode(cli, frames, meta, qp, gop=gop)
+        data = encode(cli, frames, meta, qp, gop=gop, effort=effort)
         entry = digest(data)
         entry.update(input=os.path.relpath(input_path(name), REPO)
                      if name != FHD else "synthetic %dx%d %d frames "
                      "(tools/mkfixtures.write_y4m)" % FHD_SHAPE,
-                     args="-qp=%d -gop=%d" % (qp, gop))
-        if gop:
+                     args="-qp=%d -gop=%d" % (qp, gop)
+                     + ("" if effort is None else " -effort=%d" % effort))
+        if gop and effort is None and (name, qp, gop, nfr) in P_CASES:
             entry.update(frames=len(frames),
                          stream=os.path.relpath(stream_path(k), REPO))
             with open(stream_path(k), "wb") as f:
