@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths through the entry points a user
-calls: FHD 1920x1080 4:2:0 intra encode at -qp=60 -gop=0, 32 frames,
-through parallel/batch.encode_intra_batch; the decode of that stream and
-of the committed FHD and CIF P streams through
+Drives the port's main paths through the entry points a user calls:
+FHD 1920x1080 4:2:0 intra encode at -qp=60 -gop=0, 32 frames, through
+parallel/batch.encode_intra_batch; the decode of that stream and of the
+committed FHD and CIF P streams through
 codec/decoder.decode_stream_chunked; FHD P encode at -qp=60 -gop=8, 8
-frames, through cli.make_encoder + encode_frame; and the CLIs (`e` at
--gop=0 and -gop=12, `d`) in subprocesses. Before that it builds every
-CUDA kernel of those paths from this checkout (one nvcc per source, all
-at once) and holds each against its plain PyTorch version: the vk chain
-on random and FHD scan inputs, the in-loop filter wavefront (three
-kinds) on seeded random planes at CIF and FHD geometry and on the planes
-the FHD decodes feed it, the two motion-search kernels on seeded CIF
-inputs and on the inputs of FHD P frames 1 and 2 (level by level).
+frames, through cli.make_encoder + encode_frame; the CLIs (`e` at
+-gop=0 and -gop=12, `d`) in subprocesses; lockstep CIF P encode (8
+streams x 48 frames at -qp=60 -gop=48, BASELINE config 1) through
+parallel/dynbatch.encode_streams_lockstep with the gang motion search,
+then with groups=2 and with kernels 4/5; and the gang cost probe's
+tool run. Before that it builds every CUDA kernel of those paths from
+this checkout (one nvcc per source, all at once) and holds each against
+its plain PyTorch version: the vk chain on random and FHD scan inputs,
+the in-loop filter wavefront (three kinds) on seeded random planes at
+CIF and FHD geometry and on the planes the FHD decodes feed it, the two
+motion-search kernels on seeded CIF inputs and on the inputs of FHD P
+frames 1 and 2 (level by level), the two gang kernels level by level on
+8 seeded CIF lanes and on FHD P frames 1-2 as 2 lanes (against kernels
+4/5 and the plain version), and the probe kernels.
 Each phase prints one JSON line; any failure raises (non-zero exit).
 The last lines are the kernel table, the card's name and power limit,
 and the result line {"ok": true, "device": {...}}. Needs CUDA, nvcc and
@@ -33,8 +39,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NFRAMES, CHUNK, QP = 32, 16, 60
-KERNELS = ("vk_chain", "wavefront_filter", "hme_search")
+KERNELS = ("vk_chain", "wavefront_filter", "hme_search", "hme_gang",
+           "probe_gang")
 P_FRAMES, P_GOP = 8, 8
+LS_WARM_FRAMES = 2      # frames per lane of the lockstep warm run
+LS_PALLAS_FRAMES = 16   # frames per lane of the lockstep run on kernels 4/5
 # seeded random filter inputs: (label, (width, height, luma block, chroma
 # shift)) — CIF and FHD 4:2:0 geometry
 RANDOM_GEOMS = (("cif", (352, 288, 16, 1)), ("fhd", (1920, 1080, 32, 1)))
@@ -89,9 +98,10 @@ def main():
     from dsv2_tpu_torch import cli
     from dsv2_tpu_torch.codec import decoder, plane
     from dsv2_tpu_torch.codec.devsteps import blob_cap
-    from dsv2_tpu_torch.ops import (_kernels, filters, hme_gpu, hme_wave,
-                                    hzcc, scan_pl)
-    from dsv2_tpu_torch.parallel import batch
+    from dsv2_tpu_torch.ops import (_kernels, filters, hme_gang, hme_gpu,
+                                    hme_wave, hzcc, scan_pl)
+    from dsv2_tpu_torch.parallel import batch, dynbatch
+    from dsv2_tpu_torch.tools import probe_gang
     from dsv2_tpu_torch.utils import trace, y4m
 
     dev = torch.device("cuda")
@@ -104,6 +114,8 @@ def main():
             wf.launches[k] = 0
         for k in hme_gpu.launches:
             hme_gpu.launches[k] = 0
+        for k in probe_gang.launches:
+            probe_gang.launches[k] = 0
 
     # 1. device
     smi = subprocess.run(
@@ -505,7 +517,8 @@ def main():
     pdata = b"".join(out)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    hme_launches = dict(hme_gpu.launches)
+    hme_launches = {k: hme_gpu.launches[k]
+                    for k in ("hme_level", "hme_level0")}
     p_filter_launches = dict(wf.launches)
     sha = hashlib.sha256(pdata).hexdigest()
     assert sha == gold[pkey]["sha256"] and len(pdata) == gold[pkey][
@@ -529,7 +542,6 @@ def main():
     assert [c["has_tmv"] for c in fhd_hme] == [False, True], fhd_hme
     emit("hme_kernel_vs_plain_fhd", kernels=["hme_level", "hme_level0"],
          max_abs_err=max(c["max_abs_err"] for c in fhd_hme), cases=fhd_hme)
-    del recorded
 
     # 9. the filter kernel vs plain on the planes the FHD decodes fed it
     firsts = {}
@@ -568,6 +580,228 @@ def main():
         assert got["sha256"] == ref["sha256"], (argv[0], got)
         emit("cli", command=argv[0], stream=key, sha256=got["sha256"],
              golden=True)
+    # 11. the gang motion-search kernels (6/7) level by level: 8 seeded
+    # CIF lanes (each another frame, shift, noise and quant), without and
+    # with temporal candidates, every lane against kernels 4/5, 2 lanes (8
+    # where timed) against the plain version; and the inputs of FHD P
+    # frames 1 and 2 as 2 lanes against kernels 4/5 (under frame 2's
+    # WaveCfg: a launch's lanes share one). Timed: one launch for all lanes
+    # next to kernels 4/5 looping over the same lanes, at 1, 2 and 4
+    # blocks per warp.
+    gang_cases = []
+
+    def gang_vs(label, cfg, lanes, nplain, time_it=False):
+        """Each level through one gang launch for every lane, kernels 4/5
+        per lane and the plain version for the first `nplain` lanes, all
+        fed the gang's parent field; exact on every field and sum."""
+        n = len(lanes)
+        srcs, refs, ogrs = ([ln[k] for ln in lanes] for k in range(3))
+        chromas = [tuple(ln[3:7]) for ln in lanes]
+        tmv = torch.stack([torch.stack([ln[7], ln[8]]) for ln in lanes]
+                          ).contiguous()
+        quants = [int(ln[9]) for ln in lanes]
+        skts = [int(ln[10]) for ln in lanes]
+        gxy = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+        parent = torch.zeros((n, 2, cfg.nbv, cfg.nbh), dtype=torch.int32,
+                             device=dev)
+        err, levels = 0, []
+        for level in range(cfg.pyramid_levels, -1, -1):
+            lv = [x[level] for x in srcs], [x[level] for x in refs], \
+                [x[level] for x in ogrs]
+            if level:
+                def gang_fn(g=None):
+                    return hme_gpu.hme_gang_level(cfg, level, *lv, parent,
+                                                  tmv, gxy, quants, gang=g)
+
+                def pallas_fn():
+                    return [hme_gpu.hme_level(
+                        cfg, level, lv[0][i], lv[1][i], lv[2][i], parent[i],
+                        tmv[i], gxy[i], quants[i]) for i in range(n)]
+
+                def plain_fn(i):
+                    return torch.stack(hme_wave.refine_level_graph(
+                        cfg, level, lv[0][i], lv[1][i], lv[2][i],
+                        parent[i, 0], parent[i, 1], tmv[i, 0], tmv[i, 1],
+                        gxy[i, 0], gxy[i, 1], quants[i]))
+                got = gang_fn()
+                want = torch.stack(pallas_fn())
+                nbytes = n * (3 * lv[0][0].numel()
+                              + 4 * 6 * parent[0, 0].numel())
+            else:
+                def gang_fn(g=None):
+                    return hme_gpu.hme_gang_level0(cfg, *lv, chromas, parent,
+                                                   tmv, gxy, quants, skts,
+                                                   gang=g)
+
+                def pallas_fn():
+                    return [hme_gpu.hme_level0(
+                        cfg, lv[0][i], lv[1][i], lv[2][i], chromas[i],
+                        parent[i], tmv[i], gxy[i], quants[i], skts[i])
+                        for i in range(n)]
+
+                def plain_fn(i):
+                    st = hme_wave.refine_level0_graph(
+                        cfg, (lv[0][i],) + chromas[i][:2],
+                        (lv[1][i],) + chromas[i][2:], lv[2][i], parent[i, 0],
+                        parent[i, 1], tmv[i, 0], tmv[i, 1], gxy[i, 0],
+                        gxy[i, 1], quants[i], skts[i])
+                    return torch.cat([torch.stack(
+                        [st[k] for k in hme_wave.FIELDS0]
+                        + [st["fskip"].int()]).flatten(),
+                        torch.stack([st[k] for k in hme_wave.SUMS0])])
+                out, sums = gang_fn()
+                got = torch.cat([out.flatten(1), sums], 1)
+                want = torch.stack([torch.cat([o.flatten(), sm]) for o, sm
+                                    in pallas_fn()])
+                nbytes = n * (3 * lv[0][0].numel() + 4 * chromas[0][0].numel()
+                              + 4 * (4 + hme_gpu.NF0) * parent[0, 0].numel())
+            torch.cuda.synchronize()
+            e = int((got.long() - want.long()).abs().max())
+            if nplain:
+                pms, plain = host_ms(lambda: torch.stack(
+                    [plain_fn(i) for i in range(nplain)]))
+                e = max(e, int((got[:nplain].flatten(1).long()
+                                - plain.flatten(1).long()).abs().max()))
+            rec = dict(level=level, lanes=n, max_abs_err=e)
+            if time_it:
+                rec["ms_by_gang"] = {g: cuda_ms(lambda g=g: gang_fn(g), 3)
+                                     for g in (1, 2, 4)}
+                rec["ms"] = rec["ms_by_gang"][hme_gpu.GANG]
+                rec["pallas_ms"] = cuda_ms(pallas_fn, 3)
+                if nplain:
+                    rec["plain_ms"] = pms
+                    rec["plain_lanes"] = nplain
+                fw, fh = cfg.dims[level]
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    nbytes, n * 2 * 8 * fw * fh)
+            levels.append(rec)
+            err = max(err, e)
+            if level:
+                parent = got
+                gxy = hme_gang.global_motion_lanes(cfg, level, got)
+        rec = dict(case=label, nbh=cfg.nbh, nbv=cfg.nbv, has_tmv=cfg.has_tmv,
+                   max_abs_err=err, levels=levels)
+        gang_cases.append(rec)
+        assert err == 0, rec
+        return rec
+
+    for tmv_on in (False, True):
+        cfgd, lanes = golden.hme_lanes(cif_frames, cif_meta, 8,
+                                       has_tmv=tmv_on, device=dev)
+        gang_vs("cif_seeded_x8_tmv%d" % tmv_on, hme_wave.WaveCfg(**cfgd),
+                lanes, 8 if tmv_on else 2, time_it=tmv_on)
+    (_, in1), (cfg2, in2) = recorded
+    gang_vs("fhd_p_frames_1_2", cfg2, [in1, in2], 0, time_it=True)
+    del recorded
+    gang_err = max(c["max_abs_err"] for c in gang_cases)
+    emit("hme_gang_vs_plain", kernels=["hme_gang_level", "hme_gang_level0"],
+         gang=hme_gpu.GANG, max_abs_err=gang_err, cases=gang_cases)
+    cif_gang = gang_cases[1]["levels"]
+
+    # 12. main path, lockstep P encode (BASELINE config 1): the seeded
+    # synthetic CIF clip cut into 8 streams of 48 frames at -qp=60 -gop=48
+    # through cli.make_encoder + dynbatch.encode_streams_lockstep(width=8),
+    # hme_backend="gang"; every lane against its golden digest, then
+    # groups=2 x width 4, then kernels 4/5 ("pallas") on the first
+    # LS_PALLAS_FRAMES frames of each lane.
+    name, qp, gop, nlanes, per = golden.LOCKSTEP
+    ls_frames, ls_meta = cli.read_y4m(golden.input_path(name))
+    streams = [golden.lane_frames(ls_frames, i) for i in range(nlanes)]
+    del ls_frames
+    want_ls = [gold[golden.lane_key(i)] for i in range(nlanes)]
+    flush_lanes, ls_levels = [], set()
+    make_gang = hme_gang.make_motion_est
+
+    def counting_gang(cfg):
+        fn = make_gang(cfg)
+
+        def f(lanes):
+            flush_lanes.append(len(lanes))
+            ls_levels.add(cfg.pyramid_levels)
+            return fn(lanes)
+        return f
+
+    def lockstep(strs, backend, **kw):
+        def factory():
+            enc = cli.make_encoder(ls_meta, cli.default_enc_opts(qp=qp,
+                                                                 gop=gop),
+                                   device=dev)
+            enc.hme_backend = backend
+            return enc
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dynbatch.encode_streams_lockstep(strs, factory, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    warm_s, _ = lockstep([st[:LS_WARM_FRAMES] for st in streams], "gang",
+                         width=nlanes)
+    trace.enable(True)
+    trace.reset()
+    reset_counts()
+    hme_gang.make_motion_est = counting_gang
+    try:
+        dt, out = lockstep(streams, "gang", width=nlanes)
+    finally:
+        hme_gang.make_motion_est = make_gang
+    stages = trace.totals()
+    trace.enable(False)
+    ls_launches = {k: hme_gpu.launches[k]
+                   for k in ("hme_gang_level", "hme_gang_level0")}
+    ls_filter_launches = dict(wf.launches)
+    digests = [golden.digest(o) for o in out]
+    for i, (got, w) in enumerate(zip(digests, want_ls)):
+        assert got == {k: w[k] for k in ("sha256", "length")}, (i, got)
+    nflush = len(flush_lanes)
+    assert len(ls_levels) == 1, ls_levels
+    expect = {"hme_gang_level": nflush * ls_levels.pop(),
+              "hme_gang_level0": nflush}
+    assert flush_lanes == [nlanes] * (per - 1), flush_lanes
+    assert ls_launches == expect, (ls_launches, expect)
+    assert hme_gpu.launches["hme_level0"] == 0
+    emit("lockstep_p_encode", lanes=nlanes, frames_per_lane=per, gop=gop,
+         qp=qp, fps=nlanes * per / dt, seconds=dt, warm_seconds=warm_s,
+         warm_frames_per_lane=LS_WARM_FRAMES, golden=True,
+         sha256=[d["sha256"] for d in digests], hme_flushes=nflush,
+         lanes_per_flush=sorted(set(flush_lanes)), hme_launches=ls_launches,
+         hme_launches_expected=expect, filter_launches=ls_filter_launches,
+         stage_seconds=stages)
+    dt2, out2 = lockstep(streams, "gang", width=nlanes // 2, groups=2)
+    assert out2 == out, "groups=2 bytes differ"
+    emit("lockstep_p_encode_groups2", lanes=nlanes, groups=2,
+         width=nlanes // 2, fps=nlanes * per / dt2, seconds=dt2, equal=True)
+    n0 = hme_gpu.launches["hme_level0"]
+    dt3, out3 = lockstep([st[:LS_PALLAS_FRAMES] for st in streams], "pallas",
+                         width=nlanes)
+    for o3, o in zip(out3, out):
+        assert o.startswith(o3), "pallas lockstep bytes differ"
+    assert hme_gpu.launches["hme_level0"] - n0 == nlanes * (
+        LS_PALLAS_FRAMES - 1)
+    emit("lockstep_p_encode_pallas", lanes=nlanes,
+         frames_per_lane=LS_PALLAS_FRAMES, fps=nlanes * LS_PALLAS_FRAMES / dt3,
+         seconds=dt3, equal_to_gang_prefix=True)
+    del streams, out, out2, out3
+
+    # 13. the gang cost probe (kernel 8): its tool's run, each probe
+    # against its plain version, the times and the block/gang parity
+    reset_counts()
+    probe = probe_gang.run(dev, reps=20)
+    probe_launches = sum(probe_gang.launches.values())
+    assert all(probe_gang.launches.values()), probe_gang.launches
+    probe_err = max(r["max_abs_err"] for r in probe["probes"])
+    assert probe_err == 0, probe
+    pg_plane, pg_cx, pg_cy = probe_gang.inputs(device=dev)
+    pg_plain_ms, _ = host_ms(lambda: probe_gang.gang_plain(
+        "full", pg_plane, pg_cx, pg_cy))
+    pg_full = next(r for r in probe["probes"]
+                   if (r["variant"], r["mode"]) == ("gang", "full"))
+    # the plane read once, cx, cy and the sums; ~20 integer operations per
+    # pixel of each evaluation's 16x16 window
+    pg_bound = bound(pg_plane.numel() + 12 * probe_gang.NB,
+                     20 * 256 * probe_gang.NB * probe_gang.EVALS)
+    emit("gang_probe", launches=dict(probe_gang.launches),
+         plain_ms_gang_full=pg_plain_ms, **probe)
+
     assert not [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "dsv2_tpu")], \
         "the port imported jax or dsv2_tpu"
@@ -600,7 +834,24 @@ def main():
          "library_ms": None}
         for name, line, lv in (
             ("hme_level", 248, fhd_hme[0]["levels"][-2]),
-            ("hme_level0", 311, fhd_hme[0]["levels"][-1]))]}), flush=True)
+            ("hme_level0", 311, fhd_hme[0]["levels"][-1]))] + [
+        {"name": name, "route": "cuda",
+         "source": "dsv2_tpu_torch/csrc/hme_gang.cu",
+         "replaces": "dsv2_tpu/ops/hme_gang.py:%d" % line,
+         "launches": ls_launches[name], "max_abs_err": gang_err,
+         "ms": lv["ms"], "plain_ms": lv["plain_ms"],
+         "bound_ms": lv["bound_ms"], "bound_by": lv["bound_by"],
+         "library_ms": None}
+        for name, line, lv in (
+            ("hme_gang_level", 1057, cif_gang[-2]),
+            ("hme_gang_level0", 1139, cif_gang[-1]))] + [
+        {"name": "probe_gang", "route": "cuda",
+         "source": "dsv2_tpu_torch/csrc/probe_gang.cu",
+         "replaces": "tools/probe_gang.py:33",
+         "launches": probe_launches, "max_abs_err": probe_err,
+         "ms": pg_full["ms"], "plain_ms": pg_plain_ms,
+         "bound_ms": pg_bound[0], "bound_by": pg_bound[1],
+         "library_ms": None}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,11 @@ quantize -> in-loop inverse -> reconstruction, one frame), the input
 prep (`make_input_prep`: bordered planes + motion search pyramid) and
 the chain steps (`make_i_chain_step`, `make_p_chain_step`): the
 reconstruction goes through the in-loop filters, border extension and
-the pyramid without leaving the device.
+the pyramid without leaving the device. Under lockstep
+(parallel/dynbatch) `lanewise` makes each of them a builder that runs
+the lanes of a flush one after another; each lane then fetches its own
+outputs (`fetch_sparse_outs`: the twin's merged per-flush fetch exists
+for a TPU link's per-transfer cost and is not ported).
 
 Decode (device chain): dequantize -> inverse SBT -> (P) motion
 compensation and reconstruction -> in-loop filters -> border extension
@@ -247,6 +251,18 @@ def make_p_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
         return buf, smalls, vs, _chain_outputs(pcfg, levels, vis)
 
     return step
+
+
+def lanewise(make_step):
+    """Lockstep builder of a one-frame step: builder(cfg) -> fn(lanes),
+    which runs make_step(*cfg) once per lane of the flush, one after
+    another on the same device and kernels, and returns the per-lane
+    outputs as a list. (The twin vmaps the step over the lanes; one
+    filter and one vk launch per flush for all lanes is a later step.)"""
+    def builder(cfg):
+        step = make_step(*cfg)
+        return lambda lanes: [step(*args) for args in lanes]
+    return builder
 
 
 def fetch_sparse_outs(step_out):

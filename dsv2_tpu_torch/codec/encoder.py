@@ -164,7 +164,8 @@ class Encoder:
         self.prev_quant = 0
         self.stats = Stats()
         self.ref = None               # EncData of the reference frame
-        self.hme_backend = None       # None/"auto": see codec/hme.py
+        self.hme_backend = None       # None: DSV2_HME or "auto" (codec/hme)
+        self.dev_submit = None        # lockstep batcher hook
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -279,11 +280,14 @@ class Encoder:
         """Upload the visible planes once; the bordered planes and the
         pyramid are built on the device."""
         meta = self.meta
-        vis = [xfer.upload(np.ascontiguousarray(d.padded.view(c)),
-                           self.device) for c in range(3)]
-        return devsteps.make_input_prep(meta.width, meta.height,
-                                        meta.subsamp,
-                                        self.pyramid_levels)(*vis)
+        vis = tuple(xfer.upload(np.ascontiguousarray(d.padded.view(c)),
+                                self.device) for c in range(3))
+        cfg = (meta.width, meta.height, meta.subsamp, self.pyramid_levels)
+        if self.dev_submit is not None:
+            return self.dev_submit(("input_prep", cfg),
+                                   devsteps.lanewise(devsteps.make_input_prep),
+                                   vis, fetch=False)
+        return devsteps.make_input_prep(*cfg)(*vis)
 
     def _encode_one(self, d):
         """(ref: encode_one_frame, dsv_encoder.c:1184-1317)."""
@@ -531,8 +535,13 @@ class Encoder:
         if not (p.is_ref and self._devchain()):
             return devsteps.make_i_encode_step(*cfg)(xs, bd, q)
         fq, fthresh = self._filter_q(pcfg, d.quant)
-        step = devsteps.make_i_chain_step(*cfg, self.pyramid_levels)
-        return step(xs, bd, q, fq, fthresh, self.do_intra_filter)
+        cfg += (self.pyramid_levels,)
+        args = (xs, bd, q, fq, fthresh, self.do_intra_filter)
+        if self.dev_submit is not None:
+            return self.dev_submit(
+                ("i_chain", cfg), devsteps.lanewise(devsteps.make_i_chain_step),
+                args, fetch=True)
+        return devsteps.make_i_chain_step(*cfg)(*args)
 
     def _p_step(self, d, pcfg, inter_filter):
         """The P device step with the reference chain. The motion field
@@ -550,13 +559,16 @@ class Encoder:
         g = xfer.upload(grids, self.device)
         q = xfer.upload(np.array(d.quant, dtype=np.int32), self.device)
         fq, fthresh = self._filter_q(pcfg, d.quant)
-        step = devsteps.make_p_chain_step(
-            meta.width, meta.height, meta.subsamp, p.blk_w, p.blk_h,
-            p.lossless, p.do_psy, self.pyramid_levels, meta.inter_sharpen)
-        return step(d.dev["padded"], d.refdata.dev["recon"], g[0], g[1],
-                    g[2], g[3], g[4], g[5].to(torch.uint8), g[6] != 0,
-                    g[7] != 0, q, K.temporal_mc(d.fnum), fq, fthresh,
-                    1 if inter_filter else 0)
+        cfg = (meta.width, meta.height, meta.subsamp, p.blk_w, p.blk_h,
+               p.lossless, p.do_psy, self.pyramid_levels, meta.inter_sharpen)
+        args = (d.dev["padded"], d.refdata.dev["recon"], g[0], g[1], g[2],
+                g[3], g[4], g[5].to(torch.uint8), g[6] != 0, g[7] != 0, q,
+                K.temporal_mc(d.fnum), fq, fthresh, 1 if inter_filter else 0)
+        if self.dev_submit is not None:
+            return self.dev_submit(
+                ("p_chain", cfg), devsteps.lanewise(devsteps.make_p_chain_step),
+                args, fetch=True)
+        return devsteps.make_p_chain_step(*cfg)(*args)
 
     # -- P-frame machinery ----------------------------------------------------
 

@@ -3,9 +3,9 @@
 Each kernel source under `dsv2_tpu_torch/csrc/` has a plain C interface;
 it is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
 under `build/torch_kernels/` at first use — and again whenever the
-source is newer than the library — and loaded with ctypes. Nothing here
-runs at import time: a CPU-only installation imports this module freely
-and never builds.
+source, or a header of csrc/, is newer than the library — and loaded
+with ctypes. Nothing here runs at import time: a CPU-only installation
+imports this module freely and never builds.
 """
 import ctypes
 import os
@@ -28,7 +28,10 @@ _ENTRY = {"vk_chain": ("dsv2t_vk_chain", [_P, _P, _P, _P, _P, _I, _I, _P]),
           "wavefront_filter": ("dsv2t_wavefront_filter",
                                [_I, _P, _P, _P, _I, _P, _P]),
           "hme_level": ("dsv2t_hme_level", [_P] * 9),
-          "hme_level0": ("dsv2t_hme_level0", [_P] * 14)}
+          "hme_level0": ("dsv2t_hme_level0", [_P] * 14),
+          "hme_gang": ("dsv2t_hme_gang", [_I, _I, _I, _P, _P, _P, _P]),
+          "probe_gang": ("dsv2t_probe_gang",
+                         [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P])}
 # one source may hold several entry points
 _SOURCE = {"hme_level": "hme_search", "hme_level0": "hme_search"}
 _GEOM = ("pw", "ph", "tw", "th", "ntx", "nty", "L", "nd", "mr", "mc", "HP",
@@ -49,11 +52,15 @@ def _nvcc():
 
 def build(name):
     """Path of the shared library for csrc/<name>.cu, built if missing or
-    older than its source (written to a temporary name, then renamed, so
-    a concurrent loader never sees a half-written library)."""
+    older than its source or a header of csrc/ (written to a temporary
+    name, then renamed, so a concurrent loader never sees a half-written
+    library)."""
     src = os.path.join(CSRC, name + ".cu")
     so = os.path.join(BUILD_DIR, "lib%s.so" % name)
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    newest = max(os.path.getmtime(os.path.join(CSRC, f))
+                 for f in os.listdir(CSRC)
+                 if f == name + ".cu" or f.endswith(".cuh"))
+    if os.path.exists(so) and os.path.getmtime(so) >= newest:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (so, os.getpid())
@@ -179,3 +186,28 @@ def hme_level0(src, ref, ogr, chroma, parent, tmv, gxy, out, sums, geom):
     _run("hme_level0", src.device, *(_ptr(t) for t in (
         (src, ref, ogr) + tuple(chroma) + (parent, tmv, gxy, out, sums))),
          ctypes.c_void_p(geom.ctypes.data))
+
+
+def hme_gang(l0, tw, geom, ptrs, scal, dev):
+    """Launch csrc/hme_gang.cu for every stream lane of a flush on the
+    current stream: l0 picks the base level, tw the lanes per block; geom
+    the shared GEOM ints, ptrs (lanes, 12) int64 device pointers, scal
+    (lanes, 3) int32 (quant, skip_thresh, b2sr), all host numpy arrays;
+    tensors checked by the caller (ops/hme_gpu.hme_gang_level[0])."""
+    geom = np.ascontiguousarray(geom, dtype=np.int32)
+    ptrs = np.ascontiguousarray(ptrs, dtype=np.int64)
+    scal = np.ascontiguousarray(scal, dtype=np.int32)
+    _run("hme_gang", dev, int(l0), int(tw), len(scal),
+         ctypes.c_void_p(geom.ctypes.data), ctypes.c_void_p(ptrs.ctypes.data),
+         ctypes.c_void_p(scal.ctypes.data))
+
+
+def probe_gang(variant, mode, plane, cx, cy, out, nb, evals):
+    """Launch csrc/probe_gang.cu on the current stream: variant 0/1/2
+    (block, gang, scalar), mode 0/1/2 (full, read, compute); plane (HP,
+    WP) uint8, cx/cy (nb,) int32, out int32; checked by the caller
+    (dsv2_tpu_torch/tools/probe_gang.py)."""
+    hp, wp = plane.shape
+    _run("probe_gang", plane.device, int(variant), int(mode),
+         *(_ptr(t) for t in (plane, cx, cy, out)), int(nb), int(evals),
+         int(hp), int(wp))

@@ -1,5 +1,6 @@
 """The motion search on the card: launch wrappers of the hand-written
-CUDA kernels in csrc/hme_search.cu.
+CUDA kernels in csrc/hme_search.cu (one stream) and csrc/hme_gang.cu
+(every stream lane of a lockstep flush).
 
 The counterpart of `dsv2_tpu/ops/hme_pallas.py` (the TPU's Pallas
 kernels `_level_call` and `_level0_call`). `make_motion_est(cfg)` has the
@@ -8,7 +9,10 @@ tensors it is that plain version; for CUDA tensors each upper pyramid
 level is one `hme_level` launch and the base level one `hme_level0`
 launch, the global motion between them a few torch ops, so the search
 never syncs with the host. A CUDA tensor never reaches the plain
-version.
+version. `make_motion_est_lanes(cfg)` is its lockstep builder (key
+("hme_pl", cfg)): the lanes of a flush one after another.
+`hme_gang_level`/`hme_gang_level0` launch kernels 6/7 for a list of
+lanes (ops/hme_gang builds the search from them).
 
 Layout: the TPU kernels walk the anti-diagonals as a sequential grid,
 keep the last three diagonals in an SMEM ring and get every parent and
@@ -34,7 +38,13 @@ GEOM = ("nbh", "nbv", "blk_w", "blk_h", "vid_w", "vid_h", "hs", "vs",
         "fw", "fh", "W", "H", "CW", "CH", "quant", "skip_thresh", "psyf",
         "b2sr")
 
-launches = {"hme_level": 0, "hme_level0": 0}
+launches = {"hme_level": 0, "hme_level0": 0, "hme_gang_level": 0,
+            "hme_gang_level0": 0}
+# blocks per warp of the gang kernels (a block gets 32 // GANG lanes):
+# 1, 2 or 4. 1 was fastest at the lockstep cell's CIF levels 0-1 on an
+# H100 (chip_smoke.py phase hme_gang_vs_plain; PERF.md, kernels 6/7)
+GANG = 1
+MAX_LANES = 32     # lanes one gang launch takes (csrc/hme_gang.cu)
 
 
 def geometry(cfg, level, planes, chroma, quant, skip_thresh):
@@ -42,8 +52,6 @@ def geometry(cfg, level, planes, chroma, quant, skip_thresh):
     fw, fh = cfg.dims[level]
     H, W = planes[0].shape
     CH, CW = chroma[0].shape if chroma else (0, 0)
-    b2sr = ((256 * ((quant * quant) >> K.MAX_QP_BITS)
-             * (cfg.blk_w * cfg.blk_h)) // (cfg.vid_w * cfg.vid_h))
     vals = dict(nbh=cfg.nbh, nbv=cfg.nbv, blk_w=cfg.blk_w, blk_h=cfg.blk_h,
                 vid_w=cfg.vid_w, vid_h=cfg.vid_h,
                 hs=K.fmt_h_shift(cfg.subsamp), vs=K.fmt_v_shift(cfg.subsamp),
@@ -51,8 +59,14 @@ def geometry(cfg, level, planes, chroma, quant, skip_thresh):
                 levels=cfg.pyramid_levels, has_tmv=int(cfg.has_tmv),
                 skip_neg=int(cfg.skip_thresh_neg), level=level, fw=fw, fh=fh,
                 W=W, H=H, CW=CW, CH=CH, quant=quant, skip_thresh=skip_thresh,
-                psyf=cfg.psyf_all, b2sr=b2sr)
+                psyf=cfg.psyf_all, b2sr=_b2sr(cfg, quant))
     return np.array([vals[k] for k in GEOM], dtype=np.int32)
+
+
+def _b2sr(cfg, quant):
+    """The motion vector cost's bits-to-score ratio at `quant`."""
+    return ((256 * ((quant * quant) >> K.MAX_QP_BITS)
+             * (cfg.blk_w * cfg.blk_h)) // (cfg.vid_w * cfg.vid_h))
 
 
 def _check(cfg, level, planes, chroma, grids, out):
@@ -113,6 +127,101 @@ def hme_level0(cfg, src, ref, ogr, chroma, parent, tmv, gxy, quant,
     return out, sums
 
 
+def _gang_args(cfg, level, lanes, parent, tmv, gxy, out, sums, quants,
+               skip_threshs, gang):
+    """Checks of one gang launch; returns (geom, ptrs, scal). lanes: per
+    lane (luma planes, chroma planes); parent, tmv, out (L, NF, nbv, nbh),
+    gxy (L, 2), sums (L, 4) or None, int32 on the planes' device."""
+    n = len(lanes)
+    if not 1 <= n <= MAX_LANES:
+        raise ValueError("a gang launch takes 1 to %d lanes, got %d"
+                         % (MAX_LANES, n))
+    if gang not in (1, 2, 4):
+        raise ValueError("gang must be 1, 2 or 4 blocks per warp")
+    if len(quants) != n or len(skip_threshs) != n:
+        raise ValueError("one quant and skip threshold per lane")
+    planes0, chroma0 = lanes[0]
+    for planes, chroma in lanes:
+        _check(cfg, level, planes, chroma, (), out[0])
+        if planes[0].device != planes0[0].device:
+            raise ValueError("lanes on different devices")
+        if [tuple(p.shape) for p in planes + chroma] != [
+                tuple(p.shape) for p in planes0 + chroma0]:
+            raise ValueError("lanes' planes differ in shape")
+    for t in (parent, tmv, out, gxy) + ((sums,) if sums is not None else ()):
+        if (t.dtype != _I32 or not t.is_contiguous() or t.shape[0] != n
+                or t.device != planes0[0].device):
+            raise ValueError("per-lane grids must be contiguous int32 "
+                             "(lanes, ...) on the planes' device")
+    _check(cfg, level, list(planes0), list(chroma0), (parent[0], tmv[0]),
+           out[0])
+    if tuple(gxy.shape) != (n, 2):
+        raise ValueError("gxy must be (lanes, 2)")
+    geom = geometry(cfg, level, list(planes0), list(chroma0), 0, 0)
+    ptrs = np.zeros((n, 12), dtype=np.int64)
+    for i, (planes, chroma) in enumerate(lanes):
+        row = [p.data_ptr() for p in planes]
+        row += [p.data_ptr() for p in chroma] or [0] * 4
+        row += [parent[i].data_ptr(), tmv[i].data_ptr(), gxy[i].data_ptr(),
+                out[i].data_ptr(),
+                sums[i].data_ptr() if sums is not None else 0]
+        ptrs[i] = row
+    scal = np.array([(q, s, _b2sr(cfg, q))
+                     for q, s in zip(quants, skip_threshs)],
+                    dtype=np.int32).reshape(n, 3)
+    return geom, ptrs, scal
+
+
+def hme_gang_level(cfg, level, srcs, refs, ogrs, parent, tmv, gxy, quants,
+                   gang=None):
+    """One upper pyramid level of every lane on the card (kernel 6, one
+    launch for up to MAX_LANES lanes): srcs/refs/ogrs are the lanes' level
+    planes, parent and tmv (L, 2, nbv, nbh) int32, gxy (L, 2) int32,
+    quants L ints. Returns the (L, 2, nbv, nbh) int32 fields."""
+    from . import _kernels
+    n = len(srcs)
+    out = torch.zeros((n, 2, cfg.nbv, cfg.nbh), dtype=_I32,
+                      device=srcs[0].device)
+    for lo in range(0, n, MAX_LANES):
+        sl = slice(lo, lo + MAX_LANES)
+        lanes = [([s, r, o], []) for s, r, o in zip(srcs[sl], refs[sl],
+                                                     ogrs[sl])]
+        m = len(lanes)
+        geom, ptrs, scal = _gang_args(
+            cfg, level, lanes, parent[sl], tmv[sl], gxy[sl], out[sl], None,
+            quants[sl], [0] * m, gang or GANG)
+        _kernels.hme_gang(False, 32 // (gang or GANG), geom, ptrs, scal,
+                          srcs[0].device)
+        launches["hme_gang_level"] += 1
+    return out
+
+
+def hme_gang_level0(cfg, srcs, refs, ogrs, chromas, parent, tmv, gxy,
+                    quants, skip_threshs, gang=None):
+    """The base level of every lane on the card (kernel 7, one launch for
+    up to MAX_LANES lanes): chromas are the lanes' (src_u, src_v, ref_u,
+    ref_v). Returns ((L, NF0, nbv, nbh) int32 fields, (L, 4) int32
+    sums), as hme_level0 per lane."""
+    from . import _kernels
+    n = len(srcs)
+    dev = srcs[0].device
+    out = torch.zeros((n, NF0, cfg.nbv, cfg.nbh), dtype=_I32, device=dev)
+    sums = torch.zeros((n, 4), dtype=_I32, device=dev)
+    for lo in range(0, n, MAX_LANES):
+        sl = slice(lo, lo + MAX_LANES)
+        lanes = [([s, r, o], list(c)) for s, r, o, c in zip(
+            srcs[sl], refs[sl], ogrs[sl], chromas[sl])]
+        for _, c in lanes:
+            if len({tuple(p.shape) for p in c}) != 1:
+                raise ValueError("chroma planes differ in shape")
+        geom, ptrs, scal = _gang_args(
+            cfg, 0, lanes, parent[sl], tmv[sl], gxy[sl], out[sl], sums[sl],
+            quants[sl], skip_threshs[sl], gang or GANG)
+        _kernels.hme_gang(True, 32 // (gang or GANG), geom, ptrs, scal, dev)
+        launches["hme_gang_level0"] += 1
+    return out, sums
+
+
 def _device_search(cfg, src_planes, ref_planes, ogr_planes, src_u, src_v,
                    ref_u, ref_v, tmv_x, tmv_y, quant, skip_thresh):
     dev = src_planes[0].device
@@ -150,3 +259,24 @@ def make_motion_est(cfg):
         return _device_search(cfg, src_planes, *rest)
 
     return f
+
+
+def make_motion_est_lanes(cfg):
+    """Lockstep builder of key ("hme_pl", cfg): fn(lanes) -> the output
+    dicts of make_motion_est, one per lane, the lanes searched one after
+    another (kernels 4/5 on the card)."""
+    fn = make_motion_est(cfg)
+    return lambda lanes: [fn(*inputs) for inputs in lanes]
+
+
+def motion_est(enc, d):
+    """Search frame d against its reference with kernels 4/5 (backend
+    "pallas"); through the encoder's lockstep batcher when it has one."""
+    cfg, inputs = hw.prepare_motion_est(enc, d)
+    submit = getattr(enc, "dev_submit", None)
+    if submit is not None:
+        st = submit(("hme_pl", cfg), make_motion_est_lanes, inputs,
+                    fetch=True)
+    else:
+        st = make_motion_est(cfg)(*inputs)
+    hw.apply_motion_est(enc, d, st)

@@ -238,3 +238,116 @@ def test_p_encode_golden_cuda(cuda, key):
     want = golden.load()[key]
     assert golden.digest(data) == {k: want[k] for k in ("sha256", "length")}
     assert hme_gpu.launches["hme_level0"] > n0
+
+
+def _cpu(x):
+    if isinstance(x, tuple):
+        return tuple(_cpu(a) for a in x)
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+GANG_GEOMS = ["nano48x32_420_4f", "odd100x62_420_4f", "tiny64x48_422_4f",
+              "cif352x288_420_12f"]
+
+
+@pytest.mark.parametrize("name", GANG_GEOMS)
+@pytest.mark.parametrize("has_tmv", [False, True])
+def test_hme_gang_vs_plain(cuda, name, has_tmv):
+    """The gang kernels (6/7) for 2 lanes against the plain version lane by
+    lane on every field and sum (exact): one launch per level."""
+    from dsv2_tpu_torch.ops import hme_gang, hme_gpu, hme_wave
+    frames, meta = read_y4m(golden.input_path(name))
+    cfg, lanes = golden.hme_lanes(frames, meta, 2, has_tmv=has_tmv,
+                                  device=cuda)
+    wcfg = hme_wave.WaveCfg(**cfg)
+    n0 = dict(hme_gpu.launches)
+    got = hme_gang.make_motion_est(wcfg)(lanes)
+    torch.cuda.synchronize()
+    assert hme_gpu.launches["hme_gang_level"] == (n0["hme_gang_level"]
+                                                  + wcfg.pyramid_levels)
+    assert hme_gpu.launches["hme_gang_level0"] == n0["hme_gang_level0"] + 1
+    for i, inputs in enumerate(lanes):
+        want = hme_wave.make_motion_est(wcfg)(*_cpu(inputs))
+        for k in golden.HME_OUTPUTS:
+            assert got[k].is_cuda and got[k].dtype == want[k].dtype, k
+            assert torch.equal(got[k][i].cpu(), want[k]), (i, k)
+
+
+@pytest.mark.parametrize("name", GANG_GEOMS)
+@pytest.mark.parametrize("nlanes", [1, 3, 8])
+@pytest.mark.parametrize("gang", [1, 2, 4])
+def test_hme_gang_vs_pallas(cuda, name, nlanes, gang):
+    """1 to 8 lanes, 1, 2 or 4 blocks per warp, with and without temporal
+    candidates: every lane equals kernels 4/5 on its own inputs."""
+    from dsv2_tpu_torch.ops import hme_gang, hme_gpu, hme_wave
+    frames, meta = read_y4m(golden.input_path(name))
+    for has_tmv in (False, True):
+        cfg, lanes = golden.hme_lanes(frames, meta, nlanes, has_tmv=has_tmv,
+                                      device=cuda)
+        wcfg = hme_wave.WaveCfg(**cfg)
+        got = hme_gang.make_motion_est(wcfg, gang=gang)(lanes)
+        for i, inputs in enumerate(lanes):
+            want = hme_gpu.make_motion_est(wcfg)(*inputs)
+            for k in golden.HME_OUTPUTS:
+                assert torch.equal(got[k][i], want[k]), (has_tmv, i, k)
+
+
+def test_hme_gang_rejects(cuda):
+    from dsv2_tpu_torch.ops import hme_gpu, hme_wave
+    frames, meta = read_y4m(golden.input_path("nano48x32_420_4f"))
+    cfg, lanes = golden.hme_lanes(frames, meta, 2, device=cuda)
+    wcfg = hme_wave.WaveCfg(**cfg)
+    lv = wcfg.pyramid_levels
+    z = torch.zeros((2, 2, wcfg.nbv, wcfg.nbh), dtype=torch.int32,
+                    device=cuda)
+    gxy = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    srcs, refs, ogrs = ([ln[k][lv] for ln in lanes] for k in range(3))
+    with pytest.raises(ValueError):     # a lane's plane on the CPU
+        hme_gpu.hme_gang_level(wcfg, lv, srcs, refs, [ogrs[0], ogrs[1].cpu()],
+                               z, z, gxy, [900, 900])
+    with pytest.raises(ValueError):     # grids of the wrong lane count
+        hme_gpu.hme_gang_level(wcfg, lv, srcs, refs, ogrs, z[:1], z, gxy,
+                               [900, 900])
+    with pytest.raises(ValueError):     # no such gang width
+        hme_gpu.hme_gang_level(wcfg, lv, srcs, refs, ogrs, z, z, gxy,
+                               [900, 900], gang=3)
+
+
+@pytest.mark.parametrize("backend", ["gang", "pallas"])
+def test_lockstep_golden_cuda(cuda, backend):
+    """3 lockstep streams of tiny64x48_420_6f at -gop=2 on the card equal
+    the port's sequential encode of each (tests/test_torch_lockstep.py
+    holds that one to dsv2_tpu's)."""
+    from dsv2_tpu_torch import cli
+    from dsv2_tpu_torch.ops import hme_gpu
+    from dsv2_tpu_torch.parallel import dynbatch
+    frames, meta = read_y4m(golden.input_path("tiny64x48_420_6f"))
+    streams = [frames[0:2], frames[2:4], frames[4:6]]
+    want = [golden.encode(cli, s, meta, 60, gop=2, eos=False, device=cuda)
+            for s in streams]
+
+    def factory():
+        enc = cli.make_encoder(meta, cli.default_enc_opts(qp=60, gop=2),
+                               device=cuda)
+        enc.hme_backend = backend
+        return enc
+    n0 = dict(hme_gpu.launches)
+    got = dynbatch.encode_streams_lockstep(streams, factory, width=4)
+    assert got == want
+    key = "hme_gang_level0" if backend == "gang" else "hme_level0"
+    assert hme_gpu.launches[key] > n0[key]
+
+
+@pytest.mark.parametrize("nb", [16, 704])
+def test_probe_gang_vs_plain(cuda, nb):
+    """Every probe kernel (kernel 8) against its plain version, exact."""
+    from dsv2_tpu_torch.tools import probe_gang as pg
+    plane, cx, cy = pg.inputs(nb, device=cuda)
+    for mode in pg.MODES:
+        for probe, plain in ((pg.block, pg.block_plain),
+                             (pg.gang, pg.gang_plain)):
+            got = probe(mode, plane, cx, cy)
+            assert got.is_cuda
+            want = plain(mode, *(t.cpu() for t in (plane, cx, cy)))
+            assert torch.equal(got.cpu(), want), (probe.__name__, mode)
+    assert torch.equal(pg.scalar(plane).cpu(), pg.scalar_plain(plane.cpu()))

@@ -112,13 +112,22 @@ def test_stage_totals():
 
 def test_p_frames_raise():
     """P frames encode through the device motion search only: asking for
-    one of dsv2_tpu's other backends (host, gang) raises at the first P
-    frame; the default encodes (tests/test_torch_pencode.py)."""
+    one of dsv2_tpu's unported backends (host, wave) raises at the first P
+    frame; the default, "pallas" and "gang" encode
+    (tests/test_torch_pencode.py, tests/test_torch_lockstep.py)."""
+    _raises_at_first_p("host")
+
+
+def test_p_frames_raise_wave():
+    _raises_at_first_p("wave")
+
+
+def _raises_at_first_p(backend):
     from dsv2_tpu_torch import cli
     frames, meta = read_y4m(golden.input_path("nano48x32_420_4f"))
     enc = cli.make_encoder(meta, cli.default_enc_opts(qp=60, gop=8),
                            device="cpu")
-    enc.hme_backend = "host"
+    enc.hme_backend = backend
     enc.encode_frame(frames[0])          # the I frame needs no search
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         enc.encode_frame(frames[1])
@@ -274,6 +283,17 @@ assert cli.main(["d", "-y", "-y4m=1", "-inp=" + {pinp!r},
 assert cli.main(["e", "-y", "-y4m=1", "-qp=60", "-gop=4",
                  "-inp=" + golden.input_path("tiny64x48_422_4f"),
                  "-out=" + {out!r} + ".p"]) == 0
+from dsv2_tpu_torch.parallel import dynbatch
+from dsv2_tpu_torch.tools import probe_gang
+fr, m = read_y4m(golden.input_path(name))
+def factory():
+    enc = cli.make_encoder(m, cli.default_enc_opts(qp=60, gop=2))
+    enc.hme_backend = "gang"
+    return enc
+lanes = [fr[0:2], fr[2:4]]
+assert dynbatch.encode_streams_lockstep(lanes, factory, width=2) == [
+    golden.encode(cli, s, m, 60, gop=2, eos=False) for s in lanes]
+probe_gang.run("cpu", reps=1, nb=16)
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "dsv2_tpu")]
 print("PENC", golden.digest(open({out!r} + ".p", "rb").read())["sha256"])
@@ -283,9 +303,9 @@ print("DECODE", golden.digest(open({yout!r}, "rb").read())["sha256"])
 
 
 def test_jax_free_subprocess(tmp_path):
-    """The GPU machine has no JAX: the encode entry points (intra and P)
-    and the CLI decode run with jax and dsv2_tpu unimportable (a subprocess, since
-    this one already imported both)."""
+    """The GPU machine has no JAX: the encode entry points (intra, P and
+    lockstep), the CLI decode and the gang probe run with jax and dsv2_tpu
+    unimportable (a subprocess, since this one already imported both)."""
     out = str(tmp_path / "nano.dsv")
     pkey = golden.p_key(golden.P_CASES[0])
     code = JAX_FREE.format(repo=REPO, tools=os.path.join(REPO, "tools"),

@@ -83,4 +83,4 @@ def test_hme_backend_choice_raises():
     from dsv2_tpu_torch.codec import hme
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         hme.motion_est(SimpleNamespace(hme_backend="host"), None)
-    assert hme.resolve_backend(SimpleNamespace(hme_backend="auto")) == "device"
+    assert hme.resolve_backend(SimpleNamespace(hme_backend="auto")) == "pallas"

@@ -12,8 +12,13 @@ seeded). The P cases (P_CASES: tiny 4:2:2 at -gop=4, CIF at -gop=12, the
 first 8 FHD frames at -gop=8) also commit their streams as
 tests/golden/<key>.dsv (the decoder's inputs); P_DIGESTS are P cases
 kept as digests only (nano and odd 4:2:0, lossless 4:4:4, nano at
--effort=5). The port's tests and chip_smoke.py compare against these
-files; the machine with the GPU has no JAX.
+-effort=5). LOCKSTEP is the lockstep P cell (BASELINE config 1, as
+bench.p_lockstep cuts it): the synthetic CIF 352x288 4:2:0 384-frame
+clip cut into 8 streams of 48 frames at -qp=60 -gop=48; each lane's entry
+is the digest of `dsv2_tpu`'s sequential encode of its frames with no
+end-of-stream packet, which is that lane's lockstep output. The port's
+tests and chip_smoke.py compare against these files; the machine with
+the GPU has no JAX.
 
     python tools/torch_port_golden.py [--only KEY ...]
 
@@ -34,6 +39,11 @@ FIXTURES = os.path.join(REPO, "tests", "fixtures")
 SYNTH_DIR = os.path.join(REPO, "build", "torch_port")
 FHD = "fhd1920x1080_420_32f"
 FHD_SHAPE = (1920, 1080, 32)
+CIF_LS = "cif352x288_420_384f"
+# seeded synthetic inputs (tools/mkfixtures.write_y4m): name -> (w, h, frames)
+SYNTH = {FHD: FHD_SHAPE, CIF_LS: (352, 288, 384)}
+# (name, qp, gop, lanes, frames per lane) of the lockstep P cell
+LOCKSTEP = (CIF_LS, 60, 48, 8, 48)
 # (name, qp, gop, frames) of the committed P streams
 P_CASES = [("tiny64x48_422_4f", 60, 4, 4), ("cif352x288_420_12f", 60, 12, 12),
            (FHD, 60, 8, 8)]
@@ -66,6 +76,18 @@ def p_key(case):
     return key(case[0], case[1], case[2], *case[4:])
 
 
+def lane_key(i):
+    """Key of lane i of the lockstep cell."""
+    name, qp, gop = LOCKSTEP[:3]
+    return key(name, qp, gop) + "_lane%d" % i
+
+
+def lane_frames(frames, i, nfr=None):
+    """The frames of lockstep lane i (its first `nfr` if given)."""
+    per = LOCKSTEP[4]
+    return frames[i * per:i * per + (per if nfr is None else nfr)]
+
+
 def stream_path(k):
     """The committed stream of a P case."""
     return os.path.join(REPO, "tests", "golden", k + ".dsv")
@@ -77,9 +99,9 @@ def read_stream(k):
 
 
 def input_path(name):
-    """The y4m for a case; the synthetic FHD input is generated (seeded)
+    """The y4m for a case; a synthetic input (SYNTH) is generated (seeded)
     under build/ on first use."""
-    if name != FHD:
+    if name not in SYNTH:
         return os.path.join(FIXTURES, name + ".y4m")
     path = os.path.join(SYNTH_DIR, name + ".y4m")
     if not os.path.exists(path):
@@ -87,17 +109,18 @@ def input_path(name):
         import mkfixtures
         os.makedirs(SYNTH_DIR, exist_ok=True)
         tmp = path + ".%d.tmp" % os.getpid()
-        mkfixtures.write_y4m(tmp, *FHD_SHAPE)
+        mkfixtures.write_y4m(tmp, *SYNTH[name])
         os.replace(tmp, path)
     return path
 
 
 def encode(cli, frames, meta, qp, batch=None, chunk=16, gop=0, effort=None,
-           **enc_kw):
+           eos=True, **enc_kw):
     """The -qp=<qp> -gop=<gop> [-effort=<effort>] stream of `frames`
     through a CLI module's make_encoder (dsv2_tpu.cli or
     dsv2_tpu_torch.cli): sequential encode_frame calls, or the batched
-    path if `batch` (an encode_intra_batch) is given."""
+    path if `batch` (an encode_intra_batch) is given; with eos=False
+    without the end-of-stream packet (a lockstep lane's bytes)."""
     opts = dict(qp=qp, gop=gop)
     if effort is not None:
         opts["effort"] = effort
@@ -108,7 +131,8 @@ def encode(cli, frames, meta, qp, batch=None, chunk=16, gop=0, effort=None,
             out.extend(enc.encode_frame(fr))
     else:
         out.extend(batch(enc, frames, chunk=chunk))
-    out.extend(enc.end_of_stream())
+    if eos:
+        out.extend(enc.end_of_stream())
     return b"".join(out)
 
 
@@ -194,6 +218,21 @@ def hme_case(frames, meta, has_tmv=False, effort=10, quant=1200,
     return cfg, inputs
 
 
+def hme_lanes(frames, meta, n, has_tmv=False, effort=10, device="cpu"):
+    """(WaveCfg field dict, [inputs of lane 0..n-1]): hme_case inputs of n
+    lockstep lanes sharing one WaveCfg, each lane from another frame,
+    shift, noise seed and quant."""
+    lanes = []
+    for i in range(n):
+        cfg, inputs = hme_case(frames[i % len(frames):], meta,
+                               has_tmv=has_tmv, effort=effort,
+                               quant=600 + 170 * i,
+                               shift=(3 - i % 5, 2 - i % 3), seed=i,
+                               device=device)
+        lanes.append(inputs)
+    return cfg, lanes
+
+
 HME_OUTPUTS = ("fx", "fy", "flags", "err", "dc", "submask", "fskip", "terr",
                "ndiff", "nelig", "nintra")
 
@@ -223,6 +262,22 @@ def main(argv=None):
     table = load() if os.path.exists(GOLDEN) else {}
     todo = ([(n, q, 0, None, None) for n, q in cases()]
             + [c + (None,) for c in P_CASES] + P_DIGESTS)
+    name, qp, gop, lanes, per = LOCKSTEP
+    todo_lanes = [i for i in range(lanes)
+                  if not args.only or lane_key(i) in args.only]
+    if todo_lanes:
+        frames, meta = read_y4m(input_path(name))
+    for i in todo_lanes:
+        k = lane_key(i)
+        fr = lane_frames(frames, i)
+        table[k] = dict(digest(encode(cli, fr, meta, qp, gop=gop, eos=False)),
+                        input="synthetic %dx%d %d frames "
+                        "(tools/mkfixtures.write_y4m)" % SYNTH[name],
+                        args="-qp=%d -gop=%d" % (qp, gop), lane=i,
+                        frames="%d-%d" % (i * per, i * per + len(fr) - 1),
+                        eos=False)
+        print(k, table[k]["length"], table[k]["sha256"], flush=True)
+        _save(table)
     for name, qp, gop, nfr, effort in todo:
         k = key(name, qp, gop, effort)
         if args.only and k not in args.only:
@@ -232,8 +287,8 @@ def main(argv=None):
         data = encode(cli, frames, meta, qp, gop=gop, effort=effort)
         entry = digest(data)
         entry.update(input=os.path.relpath(input_path(name), REPO)
-                     if name != FHD else "synthetic %dx%d %d frames "
-                     "(tools/mkfixtures.write_y4m)" % FHD_SHAPE,
+                     if name not in SYNTH else "synthetic %dx%d %d frames "
+                     "(tools/mkfixtures.write_y4m)" % SYNTH[name],
                      args="-qp=%d -gop=%d" % (qp, gop)
                      + ("" if effort is None else " -effort=%d" % effort))
         if gop and effort is None and (name, qp, gop, nfr) in P_CASES:
@@ -245,10 +300,14 @@ def main(argv=None):
         table[k] = entry
         print(k, entry["length"], entry["sha256"], entry["decode"],
               flush=True)
-        os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-        with open(GOLDEN, "w") as f:
-            json.dump(table, f, indent=1, sort_keys=True)
-            f.write("\n")
+        _save(table)
+
+
+def _save(table):
+    os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
+    with open(GOLDEN, "w") as f:
+        json.dump(table, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 if __name__ == "__main__":
