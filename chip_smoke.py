@@ -17,7 +17,10 @@ tool run. Before that it builds every CUDA kernel of those paths from
 this checkout (one nvcc per source, all at once) and holds each against
 its plain PyTorch version: the vk chain on random and FHD scan inputs,
 the in-loop filter wavefront (three kinds) on seeded random planes at
-CIF and FHD geometry and on the planes the FHD decodes feed it, the two
+CIF and FHD geometry and on the planes the FHD decodes feed it (timed,
+with the cluster sizes 1, 2, 4 and 8 at FHD luma), and against the
+port's native C filters at 3840x2160 luma and intra and at 2560x1440 and
+3840x2160 4:4:4 chroma (layouts one CTA cannot hold), the two
 motion-search kernels on seeded CIF inputs and on the inputs of FHD P
 frames 1 and 2 (level by level), the two gang kernels level by level on
 8 seeded CIF lanes and on FHD P frames 1-2 as 2 lanes (against kernels
@@ -244,6 +247,8 @@ def main():
         rec = dict(case=label, kind=kind, plane=[lay.pw, lay.ph],
                    tile=[lay.tw, lay.th], diagonals=lay.nd, lanes=lay.L,
                    changed_px=int((got != src).sum()), max_abs_err=err)
+        plan = filters.wavefront_plan(lay, max_smem=_kernels.max_smem())
+        rec.update(cluster=plan.C, smem=plan.smem, threads=plan.threads)
         if time_it:
             work = src.clone()
 
@@ -300,6 +305,42 @@ def main():
             filter_case("random_" + label, call)
     emit("filter_kernel_vs_plain", kernel="wavefront_filter",
          max_abs_err=wf_err, cases=list(wf_cases))
+
+    # 4a. the layouts one CTA cannot hold whole (4:4:4 chroma at 1440p and
+    # 4K, on a cluster) and 4K luma and intra, against the native filters
+    large = []
+    for kind, w, h, shifts in (("intra", 3840, 2160, (1, 1)),
+                               ("luma", 3840, 2160, (1, 1)),
+                               ("chroma", 2560, 1440, (0, 0)),
+                               ("chroma", 3840, 2160, (0, 0))):
+        args = golden.filter_case(kind, w, h, 32, shifts, seed=w, nb=1)
+        want = golden.filter_native(kind, args)
+        calls = []
+        dargs = [a.to(dev) if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        with recording(calls):
+            got = getattr(filters, kind + "_filter_graph")(*dargs)
+        err = int((got.cpu().long() - want.long()).abs().max())
+        wf_err = max(wf_err, err)
+        (_, lay, src, props, scal), = calls
+        plan = filters.wavefront_plan(lay, max_smem=_kernels.max_smem())
+        work = src.clone()
+
+        def run():
+            work.copy_(src)
+            wf(kind, lay, work, props, scal)
+        rec = dict(case="native_%dx%d" % (w, h), kind=kind,
+                   plane=[lay.pw, lay.ph], tile=[lay.tw, lay.th],
+                   diagonals=lay.nd, lanes=lay.L, cluster=plan.C,
+                   smem=plan.smem, threads=plan.threads,
+                   changed_px=int((want != args[
+                       {"intra": 4, "luma": 7}.get(kind, 6)]).sum()),
+                   max_abs_err=err, ms=cuda_ms(run, 3))
+        large.append(rec)
+        assert err == 0 and rec["changed_px"] > 0, rec
+    assert [r["cluster"] for r in large] == [1, 1, 2, 4], large
+    emit("filter_kernel_vs_native_large", kernel="wavefront_filter",
+         max_abs_err=max(r["max_abs_err"] for r in large), cases=large)
 
     # 5. blob vs the host scan coder of the port's contract fallback,
     # every plane of 2 FHD frames
@@ -551,6 +592,25 @@ def main():
     for (kind, pw), call in sorted(firsts.items()):
         label = "fhd_decode_%s_%d" % (kind, pw)
         timed_wf[kind, pw] = filter_case(label, call, time_it=True)
+    # the FHD luma plane on clusters of 1, 2, 4 and 8 CTAs (the plan takes
+    # one CTA there); every size against the plain version's output
+    kind, lay, src, props, scal = firsts[("luma", meta.width)]
+    src, props, scal = src[:1], props[:1], scal[:1]
+    want = src.clone()
+    filters.wavefront_filter_plain(kind, lay, want, props, scal)
+    by_cluster = {}
+    for c in filters.WF_CLUSTERS:
+        work = src.clone()
+        _kernels.wavefront_filter(1, lay, work, props, scal, cluster=c)
+        err = int((work.long() - want.long()).abs().max())
+        wf_err = max(wf_err, err)
+        assert err == 0, ("cluster", c, err)
+
+        def run(c=c):
+            work.copy_(src)
+            _kernels.wavefront_filter(1, lay, work, props, scal, cluster=c)
+        by_cluster[c] = cuda_ms(run, 5)
+    timed_wf[("luma", meta.width)]["ms_by_cluster"] = by_cluster
     emit("filter_kernel_vs_plain_decode", kernel="wavefront_filter",
          max_abs_err=wf_err, cases=wf_cases[-len(firsts):])
 
@@ -808,6 +868,9 @@ def main():
 
     luma = timed[1]
     wmain = timed_wf[("intra", meta.width)]
+    wf_paths = {"decode": dec_launches,
+                "p_encode": sum(p_filter_launches.values()),
+                "lockstep_p_encode": sum(ls_filter_launches.values())}
     print(json.dumps({"kernels": [
         {"name": "vk_chain", "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/vk_chain.cu",
@@ -820,7 +883,8 @@ def main():
          "source": "dsv2_tpu_torch/csrc/wavefront_filter.cu",
          "replaces": "dsv2_tpu/ops/filters_pl.py:273",
          "also_replaces": "dsv2_tpu/ops/filters_pl.py:368",
-         "launches": dec_launches, "max_abs_err": wf_err,
+         "launches": sum(wf_paths.values()),
+         "launches_by_path": wf_paths, "max_abs_err": wf_err,
          "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
          "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],
          "library_ms": None}] + [

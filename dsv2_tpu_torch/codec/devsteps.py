@@ -214,6 +214,16 @@ def make_i_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
     return step
 
 
+def _chroma_filters(pcfg, vis, mvx, mvy, flags, q):
+    """The inter chroma filter of U and V in one launch: both planes share
+    the geometry, the motion field and q."""
+    mcc = pcfg.mc_cfg(1)
+    uv = filters.chroma_filter_graph(
+        pcfg.pdims[1][0], pcfg.pdims[1][1], pcfg.nbh, pcfg.nbv, mcc.bw,
+        mcc.bh, torch.stack([vis[1], vis[2]]), mvx, mvy, flags, q)
+    return uv[0], uv[1]
+
+
 @functools.lru_cache(maxsize=None)
 def make_p_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
                       levels, inter_sharpen):
@@ -243,11 +253,7 @@ def make_p_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
                 pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv,
                 blk_w, blk_h, inter_sharpen, vis[0], mvx, mvy, flags,
                 submask, fq, fthresh, do_filter, tmc)
-            for c in (1, 2):
-                mcc = pcfg.mc_cfg(c)
-                vis[c] = filters.chroma_filter_graph(
-                    pcfg.pdims[c][0], pcfg.pdims[c][1], pcfg.nbh, pcfg.nbv,
-                    mcc.bw, mcc.bh, vis[c], mvx, mvy, flags, q)
+            vis[1], vis[2] = _chroma_filters(pcfg, vis, mvx, mvy, flags, q)
         return buf, smalls, vs, _chain_outputs(pcfg, levels, vis)
 
     return step
@@ -465,11 +471,7 @@ def make_pd_chain_step(w, h, subsamp, blk_w, blk_h, lossless,
                 pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv,
                 blk_w, blk_h, inter_sharpen, vis[0], mvx, mvy, flags,
                 submask, fq, fthresh, do_filter, tmc)
-            for c in (1, 2):
-                mcc = pcfg.mc_cfg(c)
-                vis[c] = filters.chroma_filter_graph(
-                    pcfg.pdims[c][0], pcfg.pdims[c][1], pcfg.nbh, pcfg.nbv,
-                    mcc.bw, mcc.bh, vis[c], mvx, mvy, flags, q)
+            vis[1], vis[2] = _chroma_filters(pcfg, vis, mvx, mvy, flags, q)
         return _packed(vis), _chain(pcfg, vis)
 
     return step

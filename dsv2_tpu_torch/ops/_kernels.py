@@ -2,12 +2,14 @@
 
 Each kernel source under `dsv2_tpu_torch/csrc/` has a plain C interface;
 it is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
-under `build/torch_kernels/` at first use — and again whenever the
-source, or a header of csrc/, is newer than the library — and loaded
-with ctypes. Nothing here runs at import time: a CPU-only installation
+under `build/torch_kernels/` at first use and loaded with ctypes. The
+library's file name carries a hash of the source, the headers of csrc/
+and the nvcc flags, so a library built from other sources is never
+loaded. Nothing here runs at import time: a CPU-only installation
 imports this module freely and never builds.
 """
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -36,6 +38,7 @@ _ENTRY = {"vk_chain": ("dsv2t_vk_chain", [_P, _P, _P, _P, _P, _I, _I, _P]),
 _SOURCE = {"hme_level": "hme_search", "hme_level0": "hme_search"}
 _GEOM = ("pw", "ph", "tw", "th", "ntx", "nty", "L", "nd", "mr", "mc", "HP",
          "WP", "wh", "ww")
+_PLAN = ("R", "C", "J", "LC", "wstride", "rows", "threads", "smem")
 
 _lock = threading.Lock()
 _entries = {}
@@ -50,17 +53,24 @@ def _nvcc():
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _source_key(name):
+    """Hash of csrc/<name>.cu, every header of csrc/ and the nvcc flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(os.listdir(CSRC)):
+        if f == name + ".cu" or f.endswith(".cuh"):
+            h.update(f.encode())
+            with open(os.path.join(CSRC, f), "rb") as fh:
+                h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
 def build(name):
-    """Path of the shared library for csrc/<name>.cu, built if missing or
-    older than its source or a header of csrc/ (written to a temporary
-    name, then renamed, so a concurrent loader never sees a half-written
-    library)."""
+    """Path of the shared library for csrc/<name>.cu, built if no library
+    of these sources and flags exists (written to a temporary name, then
+    renamed, so a concurrent loader never sees a half-written library)."""
     src = os.path.join(CSRC, name + ".cu")
-    so = os.path.join(BUILD_DIR, "lib%s.so" % name)
-    newest = max(os.path.getmtime(os.path.join(CSRC, f))
-                 for f in os.listdir(CSRC)
-                 if f == name + ".cu" or f.endswith(".cuh"))
-    if os.path.exists(so) and os.path.getmtime(so) >= newest:
+    so = os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, _source_key(name)))
+    if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (so, os.getpid())
@@ -110,50 +120,54 @@ def vk_chain(thr, s0, nnz, out, vkend):
         raise RuntimeError("vk_chain launch failed: cudaError %d" % rc)
 
 
-def _limits():
-    """(max threads, max opt-in shared bytes per block) the wavefront
-    launch takes on the current device (one card per process)."""
+def max_smem():
+    """The opt-in shared bytes per block the wavefront launch takes on the
+    current device (one card per process)."""
     if not _wavefront_limits:
         fn = getattr(ctypes.CDLL(build("wavefront_filter")),
                      "dsv2t_wavefront_limits")
         fn.restype = _I
-        fn.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
-        nt, sm = _I(0), _I(0)
-        rc = fn(ctypes.byref(nt), ctypes.byref(sm))
+        fn.argtypes = [ctypes.POINTER(_I)]
+        sm = _I(0)
+        rc = fn(ctypes.byref(sm))
         if rc != 0:
             raise RuntimeError("wavefront limits query failed: cudaError %d"
                                % rc)
-        _wavefront_limits.append((nt.value, sm.value))
+        _wavefront_limits.append(sm.value)
     return _wavefront_limits[0]
 
 
-def wavefront_filter(kind, lay, plane, props, scal):
+def wavefront_geom(lay, nprops, plan):
+    """The int32 geometry csrc/wavefront_filter.cu takes: the layout, NP
+    and the plan (ops/filters.wavefront_plan)."""
+    return np.array([getattr(lay, k) for k in _GEOM] + [nprops]
+                    + [getattr(plan, k) for k in _PLAN], dtype=np.int32)
+
+
+def wavefront_filter(kind, lay, plane, props, scal, cluster=None):
     """Launch csrc/wavefront_filter.cu on the current stream: kind 0/1/2
     (intra/luma/chroma), lay an ops/filters._Lay, plane (B, HP, WP),
     props (B, NP, nty, ntx) and scal (B, 8) contiguous int32 CUDA tensors
     on one device, checked by the caller (ops/filters.wavefront_filter).
-    Raises on a layout the kernel does not take."""
-    import numpy as np
+    The plan (`cluster` CTAs per plane, or the fewest that fit) comes
+    from ops/filters.wavefront_plan, which raises on a layout no plan
+    takes. The kernel works on a uint8 copy of the plane (its values lie
+    in [0, 255]), copied back after the launch. Returns the plan."""
     import torch
+    from . import filters
     with torch.cuda.device(plane.device):
-        max_threads, max_smem = _limits()
-        threads = -(-lay.L // 32) * 32
-        smem = lay.L * ((lay.wh * lay.ww) | 1) * 4
-        if threads > max_threads or smem > max_smem:
-            raise ValueError(
-                "wavefront layout too large for the kernel: %d lanes of "
-                "%dx%d windows need %d threads and %d B of shared memory "
-                "(limits %d, %d)" % (lay.L, lay.wh, lay.ww, threads, smem,
-                                     max_threads, max_smem))
-        geom = np.array([getattr(lay, k) for k in _GEOM]
-                        + [props.shape[1]], dtype=np.int32)
+        plan = filters.wavefront_plan(lay, cluster, max_smem())
+        geom = wavefront_geom(lay, props.shape[1], plan)
+        u8 = plane.to(torch.uint8)
         stream = torch.cuda.current_stream(plane.device).cuda_stream
         rc = entry("wavefront_filter")(
-            int(kind), plane.data_ptr(), props.data_ptr(), scal.data_ptr(),
+            int(kind), u8.data_ptr(), props.data_ptr(), scal.data_ptr(),
             int(plane.shape[0]), geom.ctypes.data, stream)
-    if rc != 0:
-        raise RuntimeError("wavefront_filter launch failed: cudaError %d"
-                           % rc)
+        if rc != 0:
+            raise RuntimeError("wavefront_filter launch failed: cudaError "
+                               "%d (%s)" % (rc, plan))
+        plane.copy_(u8)
+    return plan
 
 
 def _ptr(t):

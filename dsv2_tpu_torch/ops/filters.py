@@ -22,8 +22,11 @@ are reproduced with an anti-diagonal wavefront over ``d = i + 2*j``:
 The twin keeps the plane skewed so that each diagonal is one contiguous
 strip (the TPU has no cheap gather); here the plane stays unskewed and
 the plain version gathers each diagonal's windows with index tensors.
-`wavefront_filter` dispatches: the plain version for a CPU tensor, the
-CUDA kernel for a CUDA tensor (or an error), never a fallback.
+The CUDA kernel takes the skew back inside shared memory: each plane row
+keeps a ring of the skewed columns of the moving strip, sized by
+`wavefront_plan`. `wavefront_filter` dispatches: the plain version for a
+CPU tensor, the CUDA kernel for a CUDA tensor (or an error), never a
+fallback.
 
 Parity oracles: `dsv2_tpu`'s filters (XLA and Pallas interpret mode) and
 the port's native C filters (native/dsv2n.c dsvn_*_filter).
@@ -66,15 +69,98 @@ class _Lay(NamedTuple):
 def _layout(pw, ph, tw, th, ntx, nty):
     """The twin's `_layout` without the skew: same lanes, diagonals and
     margins. HP/WP bound every window: rows reach mr + nty*th + 3, cols
-    mc + ntx*tw + 3 (ntx*tw < pw + tw)."""
+    mc + ntx*tw + 3 (ntx*tw < pw + tw). WP is a multiple of 4, so the
+    kernel moves plane rows in 16-byte words."""
     L = max(1, min(nty, (ntx + 1) // 2))
     nd = (ntx - 1) + 2 * (nty - 1) + 1
     mr = -(-8 // th) * th
     mc = 8
     HP = mr + max(ph, nty * th) + 8
-    WP = mc + pw + tw + 16
+    WP = -(-(mc + pw + tw + 16) // 4) * 4
     return _Lay(pw, ph, tw, th, ntx, nty, L, nd, mr, mc, HP, WP,
                 th + 8, tw + 8)
+
+
+SMEM_OPTIN = 232448     # opt-in shared bytes per block on an H100
+WF_MAX_THREADS = 512    # csrc/wavefront_filter.cu kMaxThreads
+WF_PREFETCH = 12        # csrc/wavefront_filter.cu kPrefetch (words)
+WF_CLUSTERS = (1, 2, 4, 8)
+
+
+class WavefrontPlan(NamedTuple):
+    """Launch plan of csrc/wavefront_filter.cu for one layout."""
+    R: int           # ring width: skewed columns kept per plane row
+    storage: str     # plane, ring and window element type in the kernel
+    C: int           # CTAs per plane (a thread-block cluster when > 1)
+    J: int           # tile rows per CTA
+    LC: int          # lane windows per CTA
+    wstride: int     # bytes per lane window
+    rows: int        # ring rows of the largest CTA
+    threads: int     # threads per CTA
+    smem: int        # dynamic shared bytes per CTA
+
+
+def _check_layout(lay):
+    """Raise ValueError unless `lay` is a layout `_layout` can produce
+    with tiles of whole 4-pixel words no larger than a block (every codec
+    layout is)."""
+    want_L = max(1, min(lay.nty, (lay.ntx + 1) // 2))
+    want_nd = (lay.ntx - 1) + 2 * (lay.nty - 1) + 1
+    bad = [why for ok, why in (
+        (lay.ntx >= 1 and lay.nty >= 1, "an empty tile grid"),
+        (lay.tw >= 4 and lay.th >= 4 and lay.tw % 4 == 0
+         and lay.th % 4 == 0, "tiles not whole 4-pixel words"),
+        (lay.tw <= K.MAX_BLOCK_SIZE and lay.th <= K.MAX_BLOCK_SIZE,
+         "tiles larger than a block"),
+        (lay.wh == lay.th + 8 and lay.ww == lay.tw + 8, "window dims"),
+        (lay.mr >= 8 and lay.mr % lay.th == 0, "top margin"),
+        (lay.mc >= 8 and lay.mc % 4 == 0, "left margin"),
+        (lay.L == want_L and lay.nd == want_nd, "lanes or diagonals"),
+        (lay.HP >= lay.mr + lay.nty * lay.th + 8, "padded rows"),
+        (lay.WP >= lay.mc + lay.ntx * lay.tw + 4 and lay.WP % 4 == 0,
+         "padded cols")) if not ok]
+    if bad:
+        raise ValueError("malformed wavefront layout (%s): %s"
+                         % (", ".join(bad), lay))
+
+
+def wavefront_plan(lay, cluster=None, max_smem=SMEM_OPTIN):
+    """Shared-memory plan of the CUDA wavefront for layout `lay`: every
+    plane row keeps a uint8 ring of R = 6*tw+8 skewed columns (the strip
+    of 5*tw+8 a diagonal's windows cover plus the tw columns of the next
+    one); each lane of a diagonal a private uint8 window. A plane whose
+    ring and windows exceed one CTA's `max_smem` bytes is split by tile
+    rows over a cluster of C CTAs: the smallest C of 1, 2, 4, 8 that fits
+    (or `cluster` itself). Raises ValueError on a malformed layout or one
+    no cluster fits."""
+    _check_layout(lay)
+    R = 6 * lay.tw + 8
+    ws = lay.wh * lay.ww
+    if (ws // 4) % 2 == 0:
+        ws += 4      # an odd word stride: lanes' windows on distinct banks
+    for C in (cluster,) if cluster else WF_CLUSTERS:
+        if C not in WF_CLUSTERS:
+            raise ValueError("no cluster of %r CTAs" % (C,))
+        J = -(-lay.nty // C)
+        if (C - 1) * J >= lay.nty:
+            if cluster:
+                raise ValueError("%d tile rows do not fill %d CTAs"
+                                 % (lay.nty, C))
+            continue
+        span = J * lay.th
+        rows = lay.HP if C == 1 else max(
+            lay.mr + span, span, lay.HP - lay.mr - (C - 1) * span)
+        LC = min(lay.L, J)
+        smem = 4 * (rows * (R // 4) + rows // lay.th + 1) + LC * ws
+        fill = -(-rows * (lay.tw // 4) // WF_PREFETCH)
+        threads = min(WF_MAX_THREADS, 32 * -(-max(LC, fill) // 32))
+        if smem <= max_smem:
+            return WavefrontPlan(R, "uint8", C, J, LC, ws, rows, threads,
+                                 smem)
+    raise ValueError("wavefront layout %dx%d, tiles %dx%d: no cluster of "
+                     "up to %d CTAs holds it in %d B each"
+                     % (lay.pw, lay.ph, lay.tw, lay.th, WF_CLUSTERS[-1],
+                        max_smem))
 
 
 def _tile_maps(pw, ph, nbh, nbv):
@@ -449,8 +535,9 @@ def wavefront_filter(kind, lay, plane, props, scal):
     """Run the in-loop filter wavefront of `kind` in place on plane (B, HP,
     WP) int32: the CUDA kernel (csrc/wavefront_filter.cu) for a CUDA
     tensor, the plain version for a CPU tensor. A CUDA tensor gets the
-    kernel or an error. `wavefront_filter.launches[kind]` counts kernel
-    launches."""
+    kernel or an error; the kernel holds the plane as uint8, so its values
+    must lie in [0, 255], as every codec plane's do (the filters keep them
+    there). `wavefront_filter.launches[kind]` counts kernel launches."""
     if kind not in KINDS:
         raise ValueError("unknown filter kind %r" % (kind,))
     nb = plane.shape[0]
@@ -498,13 +585,15 @@ def _scalars(nb, device, *vals):
 
 def _run(kind, lay, vis_u8, props, *scal):
     """Pad the batch of visible planes into the layout, run the wavefront,
-    crop and cast back to uint8."""
+    crop and cast back to uint8. props broadcast over the planes' leading
+    dimensions (U and V share one motion field)."""
     lead = vis_u8.shape[:-2]
     vis = vis_u8.reshape((-1, lay.ph, lay.pw))
     nb = vis.shape[0]
     plane = torch.zeros((nb, lay.HP, lay.WP), dtype=_I32, device=vis.device)
     plane[:, lay.mr:lay.mr + lay.ph, lay.mc:lay.mc + lay.pw] = vis
-    props = props.reshape((nb,) + props.shape[-3:]).to(_I32).contiguous()
+    props = props.to(_I32).expand(lead + props.shape[-3:]).reshape(
+        (nb,) + props.shape[-3:]).contiguous()
     wavefront_filter(kind, lay, plane, props,
                      _scalars(nb, vis.device, *scal))
     out = plane[:, lay.mr:lay.mr + lay.ph, lay.mc:lay.mc + lay.pw]
@@ -562,7 +651,8 @@ def luma_filter_graph(pw, ph, nbh, nbv, blk_w, blk_h, inter_sharpen,
 def chroma_filter_graph(pw, ph, nbh, nbv, bw, bh, vis_u8,
                         mvx, mvy, flags, q):
     """Inter chroma filter, block-granular (ref: bmc.c:604-659). bw/bh:
-    chroma block pixel dims."""
+    chroma block pixel dims. vis_u8 may stack planes that share the motion
+    grids (U and V: (2, ph, pw) with (nbv, nbh) grids) into one launch."""
     if nbh <= 0 or nbv <= 0 or pw < 8 or ph < 8:
         return vis_u8
     lay = _layout(pw, ph, bw, bh, nbh, nbv)

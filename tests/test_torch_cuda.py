@@ -114,7 +114,9 @@ def _filter_inputs(kind, w, h, blk, nb, seed):
 
 @pytest.mark.parametrize("nb", [1, 3])
 @pytest.mark.parametrize("kind", ["intra", "luma", "chroma"])
-@pytest.mark.parametrize("w,h,blk", [(352, 288, 16), (640, 360, 32)])
+@pytest.mark.parametrize("w,h,blk", [(352, 288, 16), (640, 360, 32),
+                                     (100, 62, 16), (64, 500, 32),
+                                     (352, 16, 16)])
 def test_filter_kernel_vs_plain(cuda, kind, nb, w, h, blk):
     from dsv2_tpu_torch.ops import filters
     fn = getattr(filters, kind + "_filter_graph")
@@ -131,22 +133,93 @@ def test_filter_kernel_vs_plain(cuda, kind, nb, w, h, blk):
                                       (7 if kind == "luma" else 6)])
 
 
+# layouts the codec makes that one CTA's shared memory cannot hold whole
+# (4:4:4 chroma at 1440p and 4K runs on a cluster) and 4K luma/intra, held
+# against the port's native C filters (raster order, on the host)
+LARGE = [("intra", 3840, 2160, 32, (1, 1), 1), ("luma", 3840, 2160, 32,
+                                                (1, 1), 1),
+         ("chroma", 2560, 1440, 32, (0, 0), 2),
+         ("chroma", 3840, 2160, 32, (0, 0), 4)]
+
+
+@pytest.mark.parametrize("kind,w,h,blk,shifts,clusters", LARGE,
+                         ids=["%s-%dx%d" % c[:3] for c in LARGE])
+def test_filter_kernel_large_vs_native(cuda, kind, w, h, blk, shifts,
+                                       clusters):
+    from dsv2_tpu_torch.ops import _kernels, filters
+    args = golden.filter_case(kind, w, h, blk, shifts, seed=w, nb=1)
+    want = golden.filter_native(kind, args)
+    plans = []
+    wf = filters.wavefront_filter
+
+    def rec(kind_, lay, plane, props, scal):
+        plans.append(filters.wavefront_plan(
+            lay, max_smem=_kernels.max_smem()))
+        return wf(kind_, lay, plane, props, scal)
+    n0 = filters.wavefront_filter.launches[kind]
+    filters.wavefront_filter = rec
+    try:
+        got = getattr(filters, kind + "_filter_graph")(
+            *(a.to(cuda) if isinstance(a, torch.Tensor) else a
+              for a in args))
+        torch.cuda.synchronize()
+    finally:
+        filters.wavefront_filter = wf
+    assert wf.launches[kind] == n0 + 1
+    assert [p.C for p in plans] == [clusters]
+    assert torch.equal(got.cpu(), want)
+    assert not torch.equal(want, args[{"intra": 4, "luma": 7}.get(kind, 6)])
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["intra", "luma", "chroma"])
+def test_filter_kernel_clusters(cuda, kind, cluster):
+    """Each cluster size on a layout that fits one CTA: equal to the
+    native filters."""
+    from dsv2_tpu_torch.ops import _kernels, filters
+    args = golden.filter_case(kind, 640, 360, 16, seed=cluster, nb=2)
+    want = golden.filter_native(kind, args)
+    wf = filters.wavefront_filter
+    plans = []
+
+    def forced(kind_, lay, plane, props, scal):
+        plans.append(_kernels.wavefront_filter(
+            filters.KINDS.index(kind_), lay, plane, props, scal,
+            cluster=cluster))
+        return plane
+    filters.wavefront_filter = forced
+    try:
+        got = getattr(filters, kind + "_filter_graph")(
+            *(a.to(cuda) if isinstance(a, torch.Tensor) else a
+              for a in args))
+        torch.cuda.synchronize()
+    finally:
+        filters.wavefront_filter = wf
+    assert [p.C for p in plans] == [cluster]
+    assert torch.equal(got.cpu(), want)
+
+
 def test_filter_kernel_rejects(cuda):
+    """Malformed inputs raise before any launch."""
     from dsv2_tpu_torch.ops import filters
-    lay = filters._layout(1024, 1024, 128, 128, 8, 8)   # 296 KB of windows
-    plane = torch.zeros((1, lay.HP, lay.WP), dtype=torch.int32, device=cuda)
-    props = torch.zeros((1, 5, 8, 8), dtype=torch.int32, device=cuda)
-    scal = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        filters.wavefront_filter("chroma", lay, plane, props, scal)
     lay = filters._layout(64, 48, 4, 4, 15, 11)
     plane = torch.zeros((1, lay.HP, lay.WP), dtype=torch.int32, device=cuda)
     props = torch.zeros((1, 1, 11, 15), dtype=torch.int32, device=cuda)
+    scal = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    n0 = dict(filters.wavefront_filter.launches)
     with pytest.raises(ValueError):
         filters.wavefront_filter("intra", lay, plane, props.cpu(), scal)
     with pytest.raises(ValueError):
         filters.wavefront_filter("intra", lay, plane.transpose(1, 2)
                                  .contiguous().transpose(1, 2), props, scal)
+    with pytest.raises(ValueError):
+        filters.wavefront_filter("intra", lay, plane.long(), props, scal)
+    with pytest.raises(ValueError):
+        filters.wavefront_filter("luma", lay, plane, props, scal)
+    with pytest.raises(ValueError, match="malformed"):   # 6-pixel tiles
+        bad = lay._replace(tw=6, ww=14)
+        filters.wavefront_filter("intra", bad, plane, props, scal)
+    assert filters.wavefront_filter.launches == n0
 
 
 @pytest.mark.parametrize("key", ["tiny64x48_422_4f@qp60_gop4",
@@ -161,8 +234,9 @@ def test_decode_p_golden_cuda(cuda, key):
                            decoder=decoder.Decoder(device=cuda))
     want = golden.load()[key]["decode"]
     assert golden.digest(y) == want
-    for k in ("luma", "chroma"):
-        assert filters.wavefront_filter.launches[k] > n0[k]
+    n = {k: filters.wavefront_filter.launches[k] - n0[k]
+         for k in ("luma", "chroma")}
+    assert n["luma"] > 0 and n["chroma"] == n["luma"]   # U+V: one launch
 
 
 def test_decode_intra_golden_cuda(cuda):

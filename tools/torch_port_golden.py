@@ -233,6 +233,97 @@ def hme_lanes(frames, meta, n, has_tmv=False, effort=10, device="cpu"):
     return cfg, lanes
 
 
+def filter_case(kind, w, h, blk, shifts=(1, 1), seed=0, nb=1):
+    """Seeded public-API arguments (CPU tensors) of one batched in-loop
+    filter call of `kind` on nb planes: a w x h 4:4:4-sized luma geometry
+    with blk x blk blocks; chroma planes and blocks shifted down by
+    shifts (h, v) (the chroma format). Planes are gradients with mild
+    noise and steps at 8x8 cells, the bottom third pure noise (tile
+    energies in every filter's working range); motion fields hold intra,
+    skip, EPRM and small-vector blocks."""
+    import numpy as np
+    import torch
+    from dsv2_tpu_torch.core import constants as K
+
+    rng = np.random.default_rng(seed)
+    nbh, nbv = -(-w // blk), -(-h // blk)
+    bw = bh = blk
+    if kind == "chroma":
+        w, h, bw, bh = (w >> shifts[0], h >> shifts[1], blk >> shifts[0],
+                        blk >> shifts[1])
+    yy, xx = np.mgrid[0:h, 0:w]
+    cells = rng.integers(-24, 25, (nb, -(-h // 8), -(-w // 8)))
+    steps = np.kron(cells, np.ones((1, 8, 8), np.int64))[:, :h, :w]
+    vis = np.clip(xx // 3 + yy // 2 + 64 + steps
+                  + rng.integers(-3, 4, (nb, h, w)), 0, 255)
+    vis[:, 2 * h // 3:] = rng.integers(0, 256, (nb, h - 2 * h // 3, w))
+    n = (nb, nbv, nbh)
+    mvx, mvy = rng.integers(-40, 41, n), rng.integers(-40, 41, n)
+    tiny = rng.integers(0, 3, n) == 0
+    mvx[tiny] = rng.integers(-2, 3, int(tiny.sum()))
+    mvy[tiny] = rng.integers(-2, 3, int(tiny.sum()))
+    r = rng.integers(0, 100, n)
+    flags = ((r < 20).astype(np.int64) << K.MV_BIT_INTRA
+             | ((r >= 20) & (r < 40)).astype(np.int64) << K.MV_BIT_SKIP
+             | (rng.integers(0, 4, n) == 0).astype(np.int64)
+             << K.MV_BIT_EPRM)
+    sub = rng.integers(0, 16, n)
+    fq = rng.integers(600, 1600, nb)
+
+    def t(a, dt=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dt)
+    vis = t(vis, torch.uint8)
+    mv = (t(mvx), t(mvy), t(flags))
+    if kind == "intra":
+        return (w, h, nbh, nbv, vis, t(rng.integers(0, 64, n), torch.uint8),
+                t(fq), t(rng.integers(100, 200, nb)))
+    if kind == "luma":
+        return (w, h, nbh, nbv, bw, bh, 1, vis) + mv + (
+            t(sub), t(fq), t(rng.integers(100, 200, nb)), 1,
+            t(rng.integers(0, 2, nb)))
+    return (w, h, nbh, nbv, bw, bh, vis) + mv + (
+        t(rng.integers(100, 3000, nb)),)
+
+
+def filter_native(kind, args):
+    """The port's native C filter (raster order, on the host) over every
+    plane of a filter_case call: the expected (nb, h, w) uint8 planes."""
+    import numpy as np
+    import torch
+    from dsv2_tpu_torch import native
+
+    def np_(x, dt=None):
+        a = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        return np.ascontiguousarray(a if dt is None else a.astype(dt))
+    w, h, nbh, nbv = args[:4]
+    if kind == "intra":
+        vis, bd, fq, fth = args[4:]
+    elif kind == "luma":
+        bw, bh, sharpen, vis, mvx, mvy, flags, sub, fq, fth, df, tmc = \
+            args[4:]
+    else:
+        bw, bh, vis, mvx, mvy, flags, q = args[4:]
+    out = np_(vis).copy()
+    for p in range(out.shape[0]):
+        ref = np.ascontiguousarray(out[p])
+        if kind == "intra":
+            native.intra_filter(ref, w, h, w, np_(bd[p]).reshape(-1), nbh,
+                                nbv, int(fq[p]), int(fth[p]), 0, 1)
+        else:
+            mv = [np_(a[p], dt).reshape(-1) for a, dt in
+                  ((mvx, np.int16), (mvy, np.int16), (flags, np.uint32))]
+            if kind == "luma":
+                native.luma_filter(ref, w, h, w, *mv,
+                                   np_(sub[p], np.uint8).reshape(-1), nbh,
+                                   nbv, bw, bh, int(fq[p]), int(fth[p]), 0,
+                                   int(df), int(tmc[p]), int(sharpen))
+            else:
+                native.chroma_filter(ref, w, h, w, *mv, nbh, nbv, bw, bh,
+                                     int(q[p]), 0)
+        out[p] = ref
+    return torch.from_numpy(out)
+
+
 HME_OUTPUTS = ("fx", "fy", "flags", "err", "dc", "submask", "fskip", "terr",
                "ndiff", "nelig", "nintra")
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the torch port's FHD intra encode spends its time, on one GPU.
 
-    python3 tools/torch_profile.py [--out DIR]
+    python3 tools/torch_profile.py [--out DIR] [--wavefront | --phases]
 
 Input: the seeded synthetic clip of chip_smoke.py's main path (1920x1080
 4:2:0, 32 frames, -qp=60 -gop=0, chunk 16). Prints one JSON line each:
@@ -24,6 +24,26 @@ Input: the seeded synthetic clip of chip_smoke.py's main path (1920x1080
            kernel and copy intervals, the busy share with the profiler
            on, and the ten kernels with the most device time. The full
            table goes to DIR/torch_profile_table.txt.
+
+With --wavefront it prints only:
+
+  wavefront  the in-loop filter kernel (csrc/wavefront_filter.cu) per
+           kind on seeded planes (tools/torch_port_golden.filter_case) at
+           FHD 4:2:0 (luma, intra; chroma with 8x8 blocks), 3840x2160
+           luma, and 2560x1440 and 3840x2160 4:4:4 chroma: device ms (CUDA
+           events, mean of 5 launches after a warm-up) on every cluster
+           size the layout takes, the plan, and whether the result equals
+           the native C filters.
+
+With --phases it prints only:
+
+  wavefront_phases  clock cycles per diagonal that each warp of CTA 0
+           spends in each phase of the filter kernel (next diagonal's
+           loads issued, columns written back, window copies, steps,
+           first barrier, lane write-backs, next columns stored, second
+           barrier), from a copy of csrc/wavefront_filter.cu with clock64
+           stamps added, built under build/torch_profile/, on the planes
+           of --wavefront at FHD and 2560x1440 4:4:4.
 
 Needs CUDA and nvcc; writes under build/ and DIR (default chiprun_out/).
 """
@@ -128,15 +148,186 @@ def kernel_busy_ms(prof):
     return busy / 1e3, sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
+def wavefront_study():
+    """Time the filter wavefront kernel per kind, layout and cluster."""
+    import torch
+    import torch_port_golden as golden
+    from dsv2_tpu_torch.ops import _kernels, filters
+
+    dev = torch.device("cuda")
+    for kind, w, h, blk, shifts in (
+            ("luma", 1920, 1080, 32, (1, 1)), ("intra", 1920, 1080, 32,
+                                                (1, 1)),
+            ("chroma", 1920, 1080, 16, (1, 1)),
+            ("luma", 3840, 2160, 32, (1, 1)),
+            ("chroma", 2560, 1440, 32, (0, 0)),
+            ("chroma", 3840, 2160, 32, (0, 0))):
+        args = golden.filter_case(kind, w, h, blk, shifts, seed=w, nb=1)
+        want = golden.filter_native(kind, args)
+        calls = []
+        wf = filters.wavefront_filter
+
+        def rec(kind_, lay, plane, props, scal):
+            calls.append((lay, plane.clone(), props, scal))
+            return wf(kind_, lay, plane, props, scal)
+        filters.wavefront_filter = rec
+        try:
+            got = getattr(filters, kind + "_filter_graph")(
+                *(a.to(dev) if isinstance(a, torch.Tensor) else a
+                  for a in args))
+        finally:
+            filters.wavefront_filter = wf
+        (lay, src, props, scal), = calls
+        plan = filters.wavefront_plan(lay, max_smem=_kernels.max_smem())
+        work = src.clone()
+        ms = {}
+        for c in filters.WF_CLUSTERS:
+            try:
+                filters.wavefront_plan(lay, c, _kernels.max_smem())
+            except ValueError:
+                continue
+
+            def run(c=c):
+                work.copy_(src)
+                _kernels.wavefront_filter(filters.KINDS.index(kind), lay,
+                                          work, props, scal, cluster=c)
+            ms[c] = dev_ms(run)
+        emit("wavefront", kind=kind, plane=[lay.pw, lay.ph],
+             tile=[lay.tw, lay.th], diagonals=lay.nd, lanes=lay.L,
+             plan=plan._asdict(), ms_by_cluster=ms, ms=ms[plan.C],
+             us_per_diagonal=1e3 * ms[plan.C] / lay.nd,
+             equal_native=bool(torch.equal(got.cpu(), want)),
+             device=torch.cuda.get_device_name(0))
+
+
+PHASES = ("pf_issue", "leave_wb", "copy", "step", "bar1", "writeback",
+          "pf_store", "bar2")
+
+
+def _stamped_source():
+    """csrc/wavefront_filter.cu with a clock64 stamp at the end of each
+    phase (acc_[k] gathers the cycles since the previous stamp), written
+    by each warp's first thread of CTA 0 to g_prof at the end."""
+    from dsv2_tpu_torch.ops import _kernels
+    with open(os.path.join(_kernels.CSRC, "wavefront_filter.cu")) as f:
+        src = f.read()
+
+    def stamp(k):
+        return ("{ unsigned long long now_ = clock64(); acc_[%d] += now_ - "
+                "last_; last_ = now_; }\n" % k)
+    edits = [  # (anchor, text, after the anchor?)
+        ("namespace {\n", "__device__ unsigned long long g_prof[16 * 8];\n",
+         False),
+        ("  uint32_t pf[kPrefetch];\n", "  unsigned long long acc_[8] = {};"
+         " unsigned long long last_ = clock64();\n", True),
+        ("    const int sin = s0 + 3 * tw + 8;\n", "    " + stamp(0), True),
+        ("    const int j0 = first_lane(g, d, jlo);\n", "    " + stamp(1),
+         False),
+        ("      if constexpr (KIND == kIntra) intra_step", "      " + stamp(2),
+         False),
+        ("      if constexpr (KIND == kChroma) chroma_step(W, g, pr, i, j, "
+         "sc);\n", "      " + stamp(3), True),
+        ("    front_sync<CL>();   // every window of diagonal d is read\n",
+         "    " + stamp(4), True),
+        ("    if (next) {\n      // the columns of diagonal d+1 into",
+         "    " + stamp(5), False),
+        ("    front_sync<CL>();   // diagonal d is in the ring\n",
+         "    " + stamp(6), False),
+        ("    front_sync<CL>();   // diagonal d is in the ring\n",
+         "    " + stamp(7), True),
+        ("  // the last strip back to the plane", "  if ((tid & 31) == 0 && "
+         "blockIdx.x == 0) for (int q = 0; q < 8; ++q) g_prof[(tid >> 5) * 8"
+         " + q] = acc_[q];\n", False)]
+    for anchor, text, after in edits:
+        assert src.count(anchor) == 1, anchor
+        src = src.replace(anchor, anchor + text if after else text + anchor)
+    return src + ('\nextern "C" int dsv2t_prof_read(unsigned long long* o) '
+                  '{\n  return (int)cudaMemcpyFromSymbol(o, g_prof, '
+                  'sizeof(g_prof));\n}\n')
+
+
+def wavefront_phases():
+    """Cycles per diagonal of each phase of the filter kernel, per warp of
+    CTA 0, on the --wavefront planes."""
+    import ctypes
+    import numpy as np
+    import torch
+    import torch_port_golden as golden
+    from dsv2_tpu_torch.ops import _kernels, filters
+
+    out = os.path.join(REPO, "build", "torch_profile")
+    os.makedirs(out, exist_ok=True)
+    cu, so = (os.path.join(out, "wf_phases" + e) for e in (".cu", ".so"))
+    with open(cu, "w") as f:
+        f.write(_stamped_source())
+    subprocess.run([_kernels._nvcc()] + _kernels.NVCC_FLAGS + ["-o", so, cu],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    fn, rd = lib.dsv2t_wavefront_filter, lib.dsv2t_prof_read
+    fn.restype = rd.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    rd.argtypes = [ctypes.c_void_p]
+    dev = torch.device("cuda")
+    for kind, w, h, blk, shifts in (
+            ("luma", 1920, 1080, 32, (1, 1)), ("intra", 1920, 1080, 32,
+                                                (1, 1)),
+            ("chroma", 1920, 1080, 16, (1, 1)),
+            ("chroma", 2560, 1440, 32, (0, 0))):
+        args = golden.filter_case(kind, w, h, blk, shifts, seed=w, nb=1)
+        calls = []
+        wf = filters.wavefront_filter
+
+        def rec(kind_, lay, plane, props, scal):
+            calls.append((lay, plane.clone(), props, scal))
+            return wf(kind_, lay, plane, props, scal)
+        filters.wavefront_filter = rec
+        try:
+            getattr(filters, kind + "_filter_graph")(
+                *(a.to(dev) if isinstance(a, torch.Tensor) else a
+                  for a in args))
+        finally:
+            filters.wavefront_filter = wf
+        (lay, src, props, scal), = calls
+        plan = filters.wavefront_plan(lay, max_smem=_kernels.max_smem())
+        geom = _kernels.wavefront_geom(lay, props.shape[1], plan)
+        for _ in range(2):
+            work = src.to(torch.uint8)
+            rc = fn(filters.KINDS.index(kind), work.data_ptr(),
+                    props.data_ptr(), scal.data_ptr(), 1, geom.ctypes.data,
+                    torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            assert rc == 0, rc
+        buf = np.zeros(16 * 8, np.uint64)
+        assert rd(buf.ctypes.data) == 0
+        per = buf[:plan.threads // 32 * 8].reshape(-1, 8) / lay.nd
+        emit("wavefront_phases", kind=kind, plane=[lay.pw, lay.ph],
+             tile=[lay.tw, lay.th], diagonals=lay.nd, plan=plan._asdict(),
+             cycles_per_diagonal_warp0=dict(zip(PHASES, per[0].tolist())),
+             cycles_per_diagonal_last_warp=dict(zip(PHASES,
+                                                    per[-1].tolist())),
+             cycles_per_diagonal_max=dict(zip(PHASES,
+                                              per.max(0).tolist())),
+             device=torch.cuda.get_device_name(0))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
+    ap.add_argument("--wavefront", action="store_true",
+                    help="only the filter wavefront kernel study")
+    ap.add_argument("--phases", action="store_true",
+                    help="only the filter kernel's cycles per phase")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         sys.exit("torch_profile: needs an NVIDIA GPU")
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tools"))
+    if args.wavefront:
+        return wavefront_study()
+    if args.phases:
+        return wavefront_phases()
     import torch_port_golden as golden
     from dsv2_tpu_torch import cli
     from dsv2_tpu_torch.codec.devsteps import blob_cap
