@@ -12,9 +12,13 @@ frames, through cli.make_encoder + encode_frame; the CLIs (`e` at
 -gop=0 and -gop=12, `d`) in subprocesses; lockstep CIF P encode (8
 streams x 48 frames at -qp=60 -gop=48, BASELINE config 1) through
 parallel/dynbatch.encode_streams_lockstep with the gang motion search,
-then with groups=2 and with kernels 4/5; and the gang cost probe's
-tool run. Before that it builds every CUDA kernel of those paths from
-this checkout (one nvcc per source, all at once) and holds each against
+then with groups=2, with kernels 4/5, and in one group of width 3 (the
+flushes split into launches of at most 3 lanes); and the gang cost
+probe's tool run. Also an FHD high-quality stream (3 frames at -qp=90
+-gop=0) encoded by the port and decoded with the dense scan upload, and
+20 launches of kernels 5 and 7 on the same inputs that must agree.
+Before that it builds every CUDA kernel of those paths from this
+checkout (one nvcc per source, all at once) and holds each against
 its plain PyTorch version: the vk chain on random and FHD scan inputs,
 the in-loop filter wavefront (three kinds) on seeded random planes at
 CIF and FHD geometry and on the planes the FHD decodes feed it (timed,
@@ -47,6 +51,8 @@ KERNELS = ("vk_chain", "wavefront_filter", "hme_search", "hme_gang",
 P_FRAMES, P_GOP = 8, 8
 LS_WARM_FRAMES = 2      # frames per lane of the lockstep warm run
 LS_PALLAS_FRAMES = 16   # frames per lane of the lockstep run on kernels 4/5
+LS_NARROW = (3, 8)      # (width, frames per lane) of the narrow lockstep run
+REPEATS = 20            # launches of kernels 5 and 7 that must agree
 # seeded random filter inputs: (label, (width, height, luma block, chroma
 # shift)) — CIF and FHD 4:2:0 geometry
 RANDOM_GEOMS = (("cif", (352, 288, 16, 1)), ("fhd", (1920, 1080, 32, 1)))
@@ -99,7 +105,7 @@ def main():
     sys.path.insert(0, os.path.join(REPO, "tools"))
     import torch_port_golden as golden
     from dsv2_tpu_torch import cli
-    from dsv2_tpu_torch.codec import decoder, plane
+    from dsv2_tpu_torch.codec import decoder, devsteps, plane
     from dsv2_tpu_torch.codec.devsteps import blob_cap
     from dsv2_tpu_torch.ops import (_kernels, filters, hme_gang, hme_gpu,
                                     hme_wave, hzcc, scan_pl)
@@ -435,6 +441,35 @@ def main():
             dec_launches += sum(rec["filter_launches"].values())
         emit("decode_p", **rec)
 
+    # 8z. an FHD high-quality stream whose scans the compact upload cannot
+    # carry (3 frames at -qp=90 -gop=0): encoded by the port, then decoded
+    # on the device chain with the dense scan upload
+    dname, dqp, dgop, dnfr = next(c for c in golden.DENSE_CASES
+                                  if c[0] == golden.FHD)
+    dkey = golden.key(dname, dqp, dgop)
+    dframes, _ = cli.read_y4m(golden.input_path(dname))
+    ddata = golden.encode(cli, dframes[:dnfr], meta, dqp,
+                          batch=batch.encode_intra_batch, chunk=CHUNK,
+                          gop=dgop, device=dev)
+    del dframes
+    assert golden.digest(ddata) == {k: gold[dkey][k]
+                                    for k in ("sha256", "length")}, dkey
+    uploads = []
+    scan_upload = devsteps.scan_upload
+
+    def counting_upload(*a):
+        up = scan_upload(*a)
+        uploads.append(up[1])
+        return up
+    devsteps.scan_upload = counting_upload
+    try:
+        rec = decode_run(ddata, dkey, dnfr)
+    finally:
+        devsteps.scan_upload = scan_upload
+    assert uploads and all(uploads), uploads
+    emit("decode_dense", dense_pictures=sum(uploads), qp=dqp, **rec)
+    del ddata
+
     # 8a. the motion-search kernels vs their plain version (on the card),
     # level by level, on seeded CIF inputs without and with temporal
     # candidates; below also on the inputs of FHD P frames 1 and 2. (After
@@ -583,6 +618,22 @@ def main():
     assert [c["has_tmv"] for c in fhd_hme] == [False, True], fhd_hme
     emit("hme_kernel_vs_plain_fhd", kernels=["hme_level", "hme_level0"],
          max_abs_err=max(c["max_abs_err"] for c in fhd_hme), cases=fhd_hme)
+
+    def repeat_equal(fn):
+        """REPEATS runs of fn() (a dict of tensors) give identical output:
+        the dataflow scheduler hands blocks to workers in another order
+        each run, so a race would show as a difference."""
+        first = {k: v.clone() for k, v in fn().items()}
+        for _ in range(REPEATS - 1):
+            got = fn()
+            assert all(torch.equal(got[k], v) for k, v in first.items())
+        torch.cuda.synchronize()
+        return REPEATS
+
+    cfg2, in2 = recorded[1]
+    emit("hme_repeats", kernel="hme_level0", case="fhd_p_frame2",
+         identical_runs=repeat_equal(
+             lambda: hme_gpu.make_motion_est(cfg2)(*in2)))
 
     # 9. the filter kernel vs plain on the planes the FHD decodes fed it
     firsts = {}
@@ -757,6 +808,13 @@ def main():
     emit("hme_gang_vs_plain", kernels=["hme_gang_level", "hme_gang_level0"],
          gang=hme_gpu.GANG, max_abs_err=gang_err, cases=gang_cases)
     cif_gang = gang_cases[1]["levels"]
+    cfgd, lanes = golden.hme_lanes(cif_frames, cif_meta, 8, has_tmv=True,
+                                   device=dev)
+    gcfg = hme_wave.WaveCfg(**cfgd)
+    emit("hme_repeats", kernel="hme_gang_level0", case="cif_seeded_x8",
+         identical_runs=repeat_equal(
+             lambda: hme_gang.make_motion_est(gcfg)(lanes)))
+    del lanes
 
     # 12. main path, lockstep P encode (BASELINE config 1): the seeded
     # synthetic CIF clip cut into 8 streams of 48 frames at -qp=60 -gop=48
@@ -840,7 +898,24 @@ def main():
     emit("lockstep_p_encode_pallas", lanes=nlanes,
          frames_per_lane=LS_PALLAS_FRAMES, fps=nlanes * LS_PALLAS_FRAMES / dt3,
          seconds=dt3, equal_to_gang_prefix=True)
-    del streams, out, out2, out3
+    # 12b. one group narrower than the streams: the 8 lanes at width 3,
+    # each flush run as launches of at most 3 lanes
+    width, nfr = LS_NARROW
+    flush_lanes.clear()
+    hme_gang.make_motion_est = counting_gang
+    try:
+        dt4, out4 = lockstep([st[:nfr] for st in streams], "gang",
+                             width=width)
+    finally:
+        hme_gang.make_motion_est = make_gang
+    for o4, o in zip(out4, out):
+        assert o.startswith(o4), "narrow lockstep bytes differ"
+    assert max(flush_lanes) == width and sum(flush_lanes) == nlanes * (
+        nfr - 1), flush_lanes
+    emit("lockstep_p_encode_narrow", lanes=nlanes, width=width,
+         frames_per_lane=nfr, fps=nlanes * nfr / dt4, seconds=dt4,
+         lanes_per_launch=sorted(set(flush_lanes)), equal_to_gang_prefix=True)
+    del streams, out, out2, out3, out4
 
     # 13. the gang cost probe (kernel 8): its tool's run, each probe
     # against its plain version, the times and the block/gang parity

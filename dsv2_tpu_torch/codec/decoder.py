@@ -2,7 +2,8 @@
 
 Port of `dsv2_tpu/codec/decoder.py` (ref: src/dsv_decoder.c). Host side:
 packet/header parsing, block metadata and motion deserialization, the
-native entropy scan, and the compact scan upload. Device side, one call
+native entropy scan, and the scan upload (compact, or the dense int32
+scans of a picture the compact form cannot carry). Device side, one call
 chain per picture (codec/devsteps.py): dequantization, inverse subband
 transform, motion-compensated prediction and reconstruction, the in-loop
 filters (ops/filters.py, a hand-written CUDA wavefront on the card) and
@@ -10,9 +11,10 @@ border extension into the device reference chain; only the visible
 planes come back, once per chunk of frames.
 
 Not ported (ROADMAP item 18): the twin's host chain — its recovery from
-corrupt planes and its dense path for scans outside the compact-upload
-contract — and the decoder-arena steps for degenerate geometries. Such a
-stream raises NotImplementedError; it never falls back quietly.
+corrupt planes — and the decoder-arena steps for degenerate geometries.
+Such a stream raises NotImplementedError; it never falls back quietly.
+(Where the twin takes its host chain for scans outside the compact
+upload, the port stays on the device chain with the dense scans.)
 """
 import numpy as np
 import torch
@@ -209,12 +211,13 @@ class Decoder:
             vs.append(v)
             lls.append(np.int32(ll))
         from . import devsteps
-        cvs = devsteps.compact_vs(pcfg, vs, lossless)
+        cvs, dense = devsteps.scan_upload(pcfg, vs, lossless)
         job = dict(fno=fno, has_ref=has_ref, is_ref=is_ref, meta=meta,
                    pcfg=pcfg, blk_w=blk_w, blk_h=blk_h, quant=quant,
                    lossless=lossless, do_filter=do_filter,
                    blockdata=blockdata, bd_grid=bd_grid, mf=mf,
-                   vs=vs, cvs=cvs, lls=lls, bad_planes=bad_planes)
+                   vs=vs, cvs=cvs, dense=dense, lls=lls,
+                   bad_planes=bad_planes)
         return DEC_OK, job, fno
 
     def _execute_job(self, job):
@@ -223,10 +226,6 @@ class Decoder:
             raise NotImplementedError(
                 "corrupt plane(s) %s: recovery is the host chain, %s"
                 % (job["bad_planes"], UNPORTED))
-        if job["cvs"] is None:
-            raise NotImplementedError(
-                "a scan with more than %d values outside the compact upload "
-                "needs the dense host path, %s" % (64, UNPORTED))
         if self._use_arena:
             raise NotImplementedError(
                 "%dx%d: degenerate transform levels need the decoder "
@@ -276,11 +275,13 @@ class Decoder:
         if job["has_ref"]:
             mv = tuple(up(g) for g in _mv_grids(job["mf"]))
             tmc = up(np.int32(K.temporal_mc(job["fno"])))
-            step = devsteps.make_pd_chain_step(*cfg, meta.inter_sharpen)
+            step = devsteps.make_pd_chain_step(*cfg, meta.inter_sharpen,
+                                               job["dense"])
             packed, chain = step(*args, tuple(self.ref_dev["recon"]), *mv,
                                  tmc, *scal)
         else:
-            packed, chain = devsteps.make_id_chain_step(*cfg)(*args, *scal)
+            packed, chain = devsteps.make_id_chain_step(
+                *cfg, job["dense"])(*args, *scal)
         if job["is_ref"]:
             self.ref_dev = chain
 
@@ -299,12 +300,13 @@ class Decoder:
         from . import devsteps
         meta = jobs[0]["meta"]
         up = self._up
-        if isinstance(jobs[0]["cvs"][0], tuple):
+        dense = jobs[0]["dense"]   # one per chunk: it is part of the key
+        if dense:
+            vs = tuple(up(np.stack([j["cvs"][c] for j in jobs]))
+                       for c in range(3))
+        else:
             vs = tuple(tuple(up(np.stack([j["cvs"][c][k] for j in jobs]))
                              for k in range(len(jobs[0]["cvs"][c])))
-                       for c in range(3))
-        else:   # lossless: compact_vs passes dense vectors through
-            vs = tuple(up(np.stack([j["cvs"][c] for j in jobs]))
                        for c in range(3))
         bd = up(np.stack([j["bd_grid"] for j in jobs]))
         q = up(np.asarray([j["quant"] for j in jobs], np.int32))
@@ -320,13 +322,14 @@ class Decoder:
                      zip(*(_mv_grids(j["mf"]) for j in jobs))]
             tmc = up(np.asarray([K.temporal_mc(j["fno"]) for j in jobs],
                                 np.int32))
-            fn = devsteps.make_pd_chain_multi(*cfg, meta.inter_sharpen)
+            fn = devsteps.make_pd_chain_multi(*cfg, meta.inter_sharpen,
+                                              dense)
             packed, chain = fn(vs, bd, q, lls, tuple(self.ref_dev["recon"]),
                                *grids, tmc, fq, fthresh, df)
             self.ref_dev = chain
             return packed
-        return devsteps.make_id_chain_multi(*cfg)(vs, bd, q, lls, fq,
-                                                  fthresh, df)
+        return devsteps.make_id_chain_multi(*cfg, dense)(vs, bd, q, lls, fq,
+                                                         fthresh, df)
 
 
 def from_reference(job, ref_recon, device=None):
@@ -355,8 +358,9 @@ def from_reference(job, ref_recon, device=None):
                blockdata=np.array(job["blockdata"]),
                bd_grid=np.array(job["bd_grid"]),
                lls=[np.int32(x) for x in job["lls"]],
-               bad_planes=list(job["bad_planes"]),
-               cvs=devsteps.compact_vs(pcfg, vs, job["lossless"]))
+               bad_planes=list(job["bad_planes"]))
+    out["cvs"], out["dense"] = devsteps.scan_upload(pcfg, vs,
+                                                    job["lossless"])
     chain = {"recon": [torch.from_numpy(np.array(p, np.uint8)).to(device)
                        for p in ref_recon]}
     return out, chain
@@ -417,10 +421,10 @@ def decode_stream_chunked(stream, chunk=None, decoder=None, resident=None):
     def jkey(job, kind):
         m = job["meta"]
         return (kind, m.width, m.height, m.subsamp, job["blk_w"],
-                job["blk_h"], job["lossless"], m.inter_sharpen)
+                job["blk_h"], job["lossless"], m.inter_sharpen, job["dense"])
 
     def kind_of(job):
-        if (dec._use_arena or job["bad_planes"] or job["cvs"] is None):
+        if dec._use_arena or job["bad_planes"]:
             return None
         if job["has_ref"]:
             # every chunked P must advance the chain; a non-ref P or a

@@ -23,12 +23,13 @@ for a TPU link's per-transfer cost and is not ported).
 
 Decode (device chain): dequantize -> inverse SBT -> (P) motion
 compensation and reconstruction -> in-loop filters -> border extension
-into the device reference chain, plus the compact scan upload
-(`compact_vs` on the host, `_expand_vs` on the device). The intra steps
-take a leading frame dimension (the twin's vmap over K frames is that
-dimension here); the P steps take one frame, and the K-frame P chain is
-a Python loop with the reference kept on the device (the twin's
-lax.scan). The decoder-arena steps are not ported (ROADMAP item 18).
+into the device reference chain, plus the scan upload (`scan_upload`:
+`compact_vs` on the host and `_expand_vs` on the device, or the dense
+vectors). The intra steps take a leading frame dimension (the twin's
+vmap over K frames is that dimension here); the P steps take one frame,
+and the K-frame P chain is a Python loop with the reference kept on the
+device (the twin's lax.scan). The decoder-arena steps are not ported
+(ROADMAP item 18).
 """
 import functools
 
@@ -389,12 +390,25 @@ def compact_vs(pcfg, vs, lossless):
     return tuple(out)
 
 
-def _expand_vs(vs, lossless):
+def scan_upload(pcfg, vs, lossless):
+    """(vectors, dense): what the decoder's device chain uploads for one
+    picture's scans. compact_vs's form where it has one; the dense int32
+    vectors (dense True) for a lossless picture or where compact_vs gives
+    None, a plane with more than _NFIX HF values outside int8 (high
+    quality streams at the CLI's default CRF or -qp >= 85)."""
+    cvs = compact_vs(pcfg, vs, lossless)
+    if cvs is None or lossless:
+        return tuple(np.asarray(v, np.int32) for v in vs), True
+    return cvs, False
+
+
+def _expand_vs(vs, dense):
     """Device side of compact_vs: sign-extend the int8 tail and patch the
-    fixups, over leading frame dimensions. The twin's scatter drops the
-    out-of-range positions (mode="drop"); torch has no such mode, so they
-    are sent to one scratch slot past the tail, cut off afterwards."""
-    if lossless:
+    fixups, over leading frame dimensions; dense vectors (scan_upload)
+    pass through. The twin's scatter drops the out-of-range positions
+    (mode="drop"); torch has no such mode, so they are sent to one
+    scratch slot past the tail, cut off afterwards."""
+    if dense:
         return vs
     out = []
     for (llv, hf, fpos, fval) in vs:
@@ -423,13 +437,14 @@ def _chain(pcfg, vis):
                       for c in range(3)]}
 
 
-def _id_visible(pcfg, lossless, vs, bd, q, lls, fq, fthresh, do_filter):
+def _id_visible(pcfg, lossless, dense, vs, bd, q, lls, fq, fthresh,
+                do_filter):
     """Intra decode + intra dering filter -> visible planes (shared body
     of the single-frame chain step and the K-frame step)."""
     meta = pcfg.meta
     base = make_i_decode_step(meta.width, meta.height, meta.subsamp,
                               pcfg.blk_w, pcfg.blk_h, lossless)
-    vis = _visible(pcfg, base(_expand_vs(vs, lossless), bd, q, lls))
+    vis = _visible(pcfg, base(_expand_vs(vs, dense), bd, q, lls))
     if not lossless:
         vis[0] = filters.intra_filter_graph(
             pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv, vis[0],
@@ -438,16 +453,17 @@ def _id_visible(pcfg, lossless, vs, bd, q, lls, fq, fthresh, do_filter):
 
 
 @functools.lru_cache(maxsize=None)
-def make_id_chain_step(w, h, subsamp, blk_w, blk_h, lossless):
+def make_id_chain_step(w, h, subsamp, blk_w, blk_h, lossless, dense):
     """Intra decode + device reference chain: recon -> intra dering filter
     -> border extension. step(vs, bd, q, lls, fq, fthresh, do_filter) ->
     (packed visible payload uint8, {"recon": bordered planes}) (ref:
-    dsv_decoder.c:512-549 + bmc.c:390-457)."""
+    dsv_decoder.c:512-549 + bmc.c:390-457); vs in scan_upload's form,
+    dense vectors if `dense`."""
     pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, False, lossless)
 
     def step(vs, bd, q, lls, fq, fthresh, do_filter):
-        vis = _id_visible(pcfg, lossless, vs, bd, q, lls, fq, fthresh,
-                          do_filter)
+        vis = _id_visible(pcfg, lossless, dense, vs, bd, q, lls, fq,
+                          fthresh, do_filter)
         return _packed(vis), _chain(pcfg, vis)
 
     return step
@@ -455,16 +471,17 @@ def make_id_chain_step(w, h, subsamp, blk_w, blk_h, lossless):
 
 @functools.lru_cache(maxsize=None)
 def make_pd_chain_step(w, h, subsamp, blk_w, blk_h, lossless,
-                       inter_sharpen):
+                       inter_sharpen, dense):
     """P decode + device reference chain: recon -> in-loop luma/chroma
     filters -> border extension, one frame; refs are the previous frame's
-    chain planes (ref: dsv_decoder.c:512-549 + bmc.c:459-659)."""
+    chain planes (ref: dsv_decoder.c:512-549 + bmc.c:459-659); vs in
+    scan_upload's form, dense vectors if `dense`."""
     pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, True, lossless)
     base = make_p_decode_step(w, h, subsamp, blk_w, blk_h, lossless)
 
     def step(vs, bd, q, lls, refs, mvx, mvy, flags, submask, dc, tmc,
              fq, fthresh, do_filter):
-        vis = _visible(pcfg, base(_expand_vs(vs, lossless), bd, q, lls,
+        vis = _visible(pcfg, base(_expand_vs(vs, dense), bd, q, lls,
                                   refs, mvx, mvy, flags, submask, dc, tmc))
         if not lossless:
             vis[0] = filters.luma_filter_graph(
@@ -479,13 +496,13 @@ def make_pd_chain_step(w, h, subsamp, blk_w, blk_h, lossless,
 
 @functools.lru_cache(maxsize=None)
 def make_pd_chain_multi(w, h, subsamp, blk_w, blk_h, lossless,
-                        inter_sharpen):
+                        inter_sharpen, dense):
     """K-frame P decode: the single-frame chain step over stacked per-frame
     inputs (leading dimension K), the reference threaded from frame to
     frame on the device. Returns ((K, npix) payload, {"recon": the last
     frame's chain})."""
     single = make_pd_chain_step(w, h, subsamp, blk_w, blk_h, lossless,
-                                inter_sharpen)
+                                inter_sharpen, dense)
 
     def step(vs, bd, q, lls, refs, mvx, mvy, flags, submask, dc, tmc,
              fq, fthresh, do_filter):
@@ -506,7 +523,7 @@ def make_pd_chain_multi(w, h, subsamp, blk_w, blk_h, lossless,
 
 
 @functools.lru_cache(maxsize=None)
-def make_id_chain_multi(w, h, subsamp, blk_w, blk_h, lossless):
+def make_id_chain_multi(w, h, subsamp, blk_w, blk_h, lossless, dense):
     """K-frame intra decode of independent (non-ref) frames: the leading
     dimension K is the batch of every op, the intra filter runs the K
     luma planes in one wavefront, and the reference chain is not built
@@ -514,7 +531,7 @@ def make_id_chain_multi(w, h, subsamp, blk_w, blk_h, lossless):
     pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, False, lossless)
 
     def step(vs, bd, q, lls, fq, fthresh, do_filter):
-        return _packed(_id_visible(pcfg, lossless, vs, bd, q, lls, fq,
-                                   fthresh, do_filter))
+        return _packed(_id_visible(pcfg, lossless, dense, vs, bd, q, lls,
+                                   fq, fthresh, do_filter))
 
     return step

@@ -1,7 +1,7 @@
 // The per-block motion search of the encoder's wavefront (hierarchical,
 // over anti-diagonals), shared by the Hopper kernels of csrc/hme_search.cu
-// (kernels 4/5: one stream, a warp per block) and csrc/hme_gang.cu (kernels
-// 6/7: every stream lane of a lockstep flush, G blocks per warp).
+// (kernels 4/5: one stream) and csrc/hme_gang.cu (kernels 6/7: every
+// stream lane of a lockstep flush).
 //
 // Semantics (plain version: dsv2_tpu_torch/ops/hme_wave.py, held equal to
 // dsv2_tpu's XLA wave): a block depends on its left, top and top-left
@@ -22,16 +22,38 @@
 // so every decision is uniform in the tile; tiles of one warp may diverge,
 // so every collective names only the tile's lanes). Each tile reads its
 // neighbours, parents and temporal candidates from the grids itself
-// (same-level grids through __ldcg: other tiles wrote them); the half-pel
-// grid of a subpel search lives in the tile's slice of shared memory.
-// walk_level is the CTA's loop over the diagonals of one level: the tiles
-// take the blocks of a diagonal in turn, a barrier between diagonals.
+// (same-level grids through __ldcg: other tiles wrote them). The tile's
+// slice of shared memory holds the block's source window for the whole
+// search and, at the base level (kTileBytes), the half-pel grid of a
+// subpel search and the windows a phase stages (stage_k: every load of a
+// window issued before any is used, one round trip to memory instead of
+// one per loop iteration).
+//
+// The chain of one block's search is kept short: the metrics that do not
+// depend on each other are computed in one pass with independent
+// accumulators and interleaved reductions, then the reference's order
+// rules are applied to the scores (the candidates' duplicate skip and
+// first strict minimum, the refine's first improvement in kRect order,
+// the subpel picks, the intra subblock loop); the integer square root is
+// the float root plus an exact integer correction. And the search is split
+// around the neighbours: block_pre (the psy features, every candidate that
+// is not a neighbour's vector, the good-enough metric) and, at the base
+// level, the probes of the first subpel refine run before the block waits
+// for its left, top and top-left blocks; block_post and the decisions
+// after.
+//
+// walk_level (kernels 4/6) is the CTA's loop over the diagonals of one
+// upper level: the tiles take the blocks of a diagonal in turn, a barrier
+// between diagonals. level0_dag (kernels 5/7) runs the base level's blocks
+// through the dataflow scheduler of csrc/hme_sched.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "hme_sched.cuh"
 
 namespace {
 
@@ -43,8 +65,20 @@ namespace {
 #define HGS 35          // half-pel grid side (34 + a zero row/column)
 #define FULL 0xFFFFFFFFu
 
-constexpr int kMaxThreads = 512;  // a CTA: up to 128 registers a thread
-constexpr int kHgBytes = 1232;  // HGS * HGS rounded up to 16
+constexpr int kMaxThreads = 512;  // a walk_level CTA: 128 registers a thread
+constexpr int kDagThreads = 128;  // a level0_dag CTA: at most 4 warps
+// warps per SM a level0_dag launch takes by default: 2 were fastest at FHD
+// level 0 and on 8 CIF lanes on an H100 (1, 2, 4, 8 and 16 tried with
+// tools/torch_profile.py --hme; PERF.md, kernels 5/7)
+constexpr int kDagWarpsPerSm = 2;
+constexpr int kHgBytes = 1232;    // HGS * HGS rounded up to 16
+constexpr int kSrcBytes = 32 * 32;  // the block's source window
+constexpr int kStageBytes = 4 * 32 * 32;  // the windows one phase stages
+// a base-level tile's shared slice: half-pel grid, source, staged windows
+constexpr int kTileBytes = kHgBytes + kSrcBytes + kStageBytes;
+constexpr int kWalkTileBytes = kSrcBytes;  // an upper-level tile's
+constexpr int kCandBatch = 8;     // candidates scored in one pass
+constexpr int kStageUnroll = 8;   // loads a lane issues per window at once
 
 struct G {  // the wrapper's GEOM order (ops/hme_gpu.py)
   int nbh, nbv, blk_w, blk_h, vid_w, vid_h, hs, vs, effort, lossless, levels,
@@ -66,9 +100,14 @@ struct Lv {
   int* out;           // (NF, nbv, nbh)
 };
 
-// a window: its first sample, the plane stride, its static height and
-// log2 of its static (power-of-two) width
+// a window of a plane in device memory: its first sample, the plane
+// stride, its static height and log2 of its static (power-of-two) width
 struct Win {
+  const uint8_t* p;
+  int s, h, lw;
+};
+// a window copied into the tile's shared memory (same fields)
+struct SWin {
   const uint8_t* p;
   int s, h, lw;
 };
@@ -100,19 +139,24 @@ __device__ __forceinline__ Win win(const Plane& pl, int x, int y, int h,
 __device__ __forceinline__ int at(const Win& a, int r, int c) {
   return __ldg(a.p + (size_t)r * a.s + c);
 }
+__device__ __forceinline__ int at(const SWin& a, int r, int c) {
+  return a.p[r * a.s + c];
+}
+// a sample of a window in shared memory (S) or device memory
+template <bool S>
+__device__ __forceinline__ int ld(const uint8_t* p) {
+  if constexpr (S) return *p;
+  else return __ldg(p);
+}
 
-__device__ unsigned isqrt_u32(unsigned n) {
-  unsigned pos = 1u << 30, res = 0, rem = n;
-  while (pos) {
-    unsigned dif = res + pos;
-    res >>= 1;
-    if (rem >= dif) {
-      rem -= dif;
-      res += pos;
-    }
-    pos >>= 2;
-  }
-  return res;
+// floor(sqrt(n)) for every uint32 n (ref: hme.c:100-124): the float root
+// is within 1 of it (the conversion and the root each round by a relative
+// 2^-24 of a root below 2^16), and one integer step each way makes it
+// exact (tests/test_torch_cuda.py checks all 2^32 inputs on the card)
+__device__ __forceinline__ unsigned isqrt_u32(unsigned n) {
+  unsigned r = min((unsigned)__fsqrt_rn(__uint2float_rn(n)), 65535u);
+  if (r * r > n) return r - 1;
+  return (unsigned long long)(r + 1) * (r + 1) <= n ? r + 1 : r;
 }
 
 __device__ __forceinline__ int metric_return(unsigned acc, int bw, int bh) {
@@ -145,7 +189,7 @@ __device__ __forceinline__ int grid_at(const int* f, const G& g, int x, int y) {
   y = min(max(y, 0), g.nbv - 1);
   return f[y * g.nbh + x];
 }
-// same-level fields, written by other warps of the CTA: bypass L1
+// same-level fields, written by other tiles: bypass L1
 __device__ __forceinline__ int out_at(const Lv& L, const G& g, int fld, int x,
                                       int y) {
   x = min(max(x, 0), g.nbh - 1);
@@ -167,6 +211,34 @@ struct Res {
   int bx, by, bw, bh, dx, dy, best, good, lax, lay, mbias, var_src, avg_src,
       ew, tw, aw, px, py;
 };
+
+// one 2x2 quad of a source: its samples, mean and texture
+struct Quad {
+  int a1, a2, a3, a4, s0, ta;
+};
+__device__ __forceinline__ Quad quad_of(int a1, int a2, int a3, int a4) {
+  return Quad{a1, a2, a3, a4, uavg4(a1, a2, a3, a4),
+              uavg4(iabs(a1 - a2), iabs(a2 - a3), iabs(a3 - a4),
+                    iabs(a4 - a1))};
+}
+template <class A>
+__device__ __forceinline__ Quad quad_at(const A& a, int j, int i) {
+  return quad_of(at(a, 2 * j, 2 * i), at(a, 2 * j, 2 * i + 1),
+                 at(a, 2 * j + 1, 2 * i), at(a, 2 * j + 1, 2 * i + 1));
+}
+// the reference's 2x2-quad metric term of quad q against (b1..b4)
+__device__ __forceinline__ unsigned quad_metr(const Quad& q, int b1, int b2,
+                                              int b3, int b4, int ew, int tw,
+                                              int aw) {
+  const int s1 = uavg4(b1, b2, b3, b4);
+  const int se = uavg4(iabs(q.a1 - b1), iabs(q.a2 - b2), iabs(q.a3 - b3),
+                       iabs(q.a4 - b4));
+  const int tb = uavg4(iabs(b1 - b2), iabs(b2 - b3), iabs(b3 - b4),
+                       iabs(b4 - b1));
+  return ((unsigned)(se * se) << ew) +
+         ((unsigned)((q.ta - tb) * (q.ta - tb)) << tw) +
+         ((unsigned)((q.s0 - s1) * (q.s0 - s1)) << aw);
+}
 
 // a sample of the (68, 68) quarter-pel grid (ref: hme.c:815-837)
 __device__ __forceinline__ int qv(const uint8_t* hg, int y, int x) {
@@ -196,14 +268,17 @@ struct Tile {
   static __device__ __forceinline__ unsigned mask() {
     return TW == 32 ? FULL : ((1u << TW) - 1) << (threadIdx.x & 31 & ~(TW - 1));
   }
-  // tile reductions: every lane of the tile gets the result
-  static __device__ __forceinline__ unsigned wsum(unsigned v) {
+  // tile reductions, K sums at once (their reductions interleave): every
+  // lane of the tile gets the results
+  template <int K, class V>
+  static __device__ __forceinline__ void wsum_k(V (&v)[K]) {
 #pragma unroll
-    for (int o = TW / 2; o; o >>= 1) v += __shfl_xor_sync(mask(), v, o, TW);
-    return v;
+    for (int o = TW / 2; o; o >>= 1)
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(mask(), v[k], o, TW);
   }
-  static __device__ __forceinline__ int wsumi(int v) {
-    return (int)wsum((unsigned)v);
+  static __device__ __forceinline__ int bcast0(int v) {
+    return __shfl_sync(mask(), v, 0, TW);
   }
   static __device__ __forceinline__ unsigned tile_ballot(bool p) {
     return __ballot_sync(mask(), p) & mask();
@@ -213,94 +288,189 @@ struct Tile {
   }
   static __device__ __forceinline__ void tile_sync() { __syncwarp(mask()); }
 
-  static __device__ int sse(const Win& a, const Win& b, int bw, int bh) {
-    if (bw == 0 || bh == 0) return I32MAX;
-    unsigned acc = 0;
-    FOR_CELLS(a.h, a.lw, bw, bh, r, c) {
-      int d = at(a, r, c) - at(b, r, c);
-      acc += (unsigned)(d * d);
+
+  // Copies K windows of one shape (h x 2^lw bytes) into shared memory,
+  // window k at buf + k * (h << lw), and returns their views in v. The
+  // loads carry no branch (an index past the window reads its last cell)
+  // and U of them per lane and window are issued before any is stored, so
+  // one round trip to memory brings U * TW cells of every window: a loop
+  // that loads a cell and uses it waits a round trip per iteration.
+  template <int K, int U = kStageUnroll>
+  static __device__ void stage_k(const Win (&w)[K], uint8_t* buf, SWin (&v)[K]) {
+    const int lw = w[0].lw, n = w[0].h << lw, wm = (1 << lw) - 1;
+    tile_sync();  // every lane is done reading the buffer's last contents
+    for (int p0 = 0; p0 < n; p0 += U * TW) {
+      int x[K][U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = min(p0 + u * TW + lane(), n - 1);
+#pragma unroll
+        for (int k = 0; k < K; ++k) x[k][u] = at(w[k], p >> lw, p & wm);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = p0 + u * TW + lane();
+        if (p < n) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) buf[k * n + p] = (uint8_t)x[k][u];
+        }
+      }
     }
-    return (int)wsum(acc);
+    tile_sync();
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = SWin{buf + k * n, 1 << lw, w[0].h, lw};
   }
 
-  // the reference's 2x2-quad metric accumulator (ref: hme.c:126-196)
-  static __device__ unsigned metr_acc(const Win& a, const Win& b, int bw, int bh,
-                                      int ew, int tw, int aw) {
-    unsigned acc = 0;
+  // sums of squared differences of K windows rp[k] (stride rs; in shared
+  // memory if RS) against a (ref: hme.c:198-242), one pass
+  template <bool RS = false, int K, class A>
+  static __device__ void sse_k(const A& a, const uint8_t* const (&rp)[K], int rs,
+                               int bw, int bh, int (&out)[K]) {
+    unsigned acc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = 0;
+    FOR_CELLS(a.h, a.lw, bw, bh, r, c) {
+      const int v = at(a, r, c);
+      const size_t o = (size_t)r * rs + c;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int d = v - ld<RS>(rp[k] + o);
+        acc[k] += (unsigned)(d * d);
+      }
+    }
+    wsum_k(acc);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      out[k] = (bw == 0 || bh == 0) ? I32MAX : (int)acc[k];
+  }
+
+  // the reference's 2x2-quad metric accumulators (ref: hme.c:126-196) of
+  // K windows rp[k] (stride rs; in shared memory if RS) against one
+  // source a, one pass
+  template <bool RS = false, int K, class A>
+  static __device__ void metr_acc_k(const A& a, const uint8_t* const (&rp)[K],
+                                    int rs, int bw, int bh, int ew, int tw, int aw,
+                                    unsigned (&acc)[K]) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = 0;
     FOR_CELLS(a.h >> 1, a.lw - 1, bw >> 1, bh >> 1, j, i) {
-      int a1 = at(a, 2 * j, 2 * i), a2 = at(a, 2 * j, 2 * i + 1);
-      int a3 = at(a, 2 * j + 1, 2 * i), a4 = at(a, 2 * j + 1, 2 * i + 1);
-      int b1 = at(b, 2 * j, 2 * i), b2 = at(b, 2 * j, 2 * i + 1);
-      int b3 = at(b, 2 * j + 1, 2 * i), b4 = at(b, 2 * j + 1, 2 * i + 1);
-      int s0 = uavg4(a1, a2, a3, a4), s1 = uavg4(b1, b2, b3, b4);
-      int se = uavg4(iabs(a1 - b1), iabs(a2 - b2), iabs(a3 - b3),
-                     iabs(a4 - b4));
-      int ta = uavg4(iabs(a1 - a2), iabs(a2 - a3), iabs(a3 - a4),
-                     iabs(a4 - a1));
-      int tb = uavg4(iabs(b1 - b2), iabs(b2 - b3), iabs(b3 - b4),
-                     iabs(b4 - b1));
-      acc += (unsigned)(se * se) << ew;
-      acc += (unsigned)((ta - tb) * (ta - tb)) << tw;
-      acc += (unsigned)((s0 - s1) * (s0 - s1)) << aw;
+      const Quad q = quad_at(a, j, i);
+      const size_t o = (size_t)(2 * j) * rs + 2 * i;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const uint8_t* b = rp[k] + o;
+        acc[k] += quad_metr(q, ld<RS>(b), ld<RS>(b + 1), ld<RS>(b + rs),
+                            ld<RS>(b + rs + 1), ew, tw, aw);
+      }
     }
-    return wsum(acc);
+    wsum_k(acc);
   }
 
-  static __device__ int metr(const Win& a, const Win& b, int bw, int bh, int ew,
+  template <bool RS = false, int K, class A>
+  static __device__ void metr_k(const A& a, const uint8_t* const (&rp)[K], int rs,
+                                int bw, int bh, int ew, int tw, int aw,
+                                int (&out)[K]) {
+    unsigned acc[K];
+    metr_acc_k<RS>(a, rp, rs, bw, bh, ew, tw, aw, acc);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      out[k] = (bw == 0 || bh == 0) ? I32MAX : metric_return(acc[k], bw, bh);
+  }
+
+  template <class A>
+  static __device__ int metr(const A& a, const Win& b, int bw, int bh, int ew,
                              int tw, int aw) {
-    if (bw == 0 || bh == 0) return I32MAX;
-    return metric_return(metr_acc(a, b, bw, bh, ew, tw, aw), bw, bh);
+    const uint8_t* rp[1] = {b.p};
+    int out[1];
+    metr_k(a, rp, b.s, bw, bh, ew, tw, aw, out);
+    return out[0];
   }
 
-  static __device__ __forceinline__ int hier(int level, const Win& a, const Win& b,
-                                             int bw, int bh, int ew, int tw, int aw) {
-    return level > 1 ? sse(a, b, bw, bh) : metr(a, b, bw, bh, ew, tw, aw);
+  // the search metric of the level: sse above level 1, the quad metric at
+  // levels 0 and 1
+  template <int K, class A>
+  static __device__ __forceinline__ void hier_k(int level, const A& a,
+                                                const uint8_t* const (&rp)[K],
+                                                int rs, int bw, int bh, int ew,
+                                                int tw, int aw, int (&out)[K]) {
+    if (level > 1)
+      sse_k(a, rp, rs, bw, bh, out);
+    else
+      metr_k(a, rp, rs, bw, bh, ew, tw, aw, out);
   }
 
-  // block features (ref: hme.c:492-749)
-  static __device__ void feat_detail(const Win& a, int bw, int bh, int& detail,
-                                     int& avg, int& tex) {
-    int s = 0, sh = 0, sv = 0;
-    FOR_CELLS(a.h, a.lw, bw, bh, r, c) {
-      int v = at(a, r, c);
-      s += v;
-      if (c + 1 < bw) sh += iabs(at(a, r, c + 1) - v);
-      if (r + 1 < bh) sv += iabs(at(a, r + 1, c) - v);
+  // block features (ref: hme.c:492-749) of K windows of one shape: two
+  // passes (sums and variations, then the deviation from the mean), each
+  // with its K reductions interleaved; without VAR only the first (avg,
+  // tex)
+  template <int K, bool VAR = true, class A>
+  static __device__ void feat_detail_k(const A (&a)[K], int bw, int bh,
+                                       int (&detail)[K], int (&avg)[K],
+                                       int (&tex)[K]) {
+    int s[3 * K];  // per window: sum, horizontal and vertical variation
+#pragma unroll
+    for (int k = 0; k < 3 * K; ++k) s[k] = 0;
+    FOR_CELLS(a[0].h, a[0].lw, bw, bh, r, c) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int v = at(a[k], r, c);
+        s[3 * k] += v;
+        if (c + 1 < bw) s[3 * k + 1] += iabs(at(a[k], r, c + 1) - v);
+        if (r + 1 < bh) s[3 * k + 2] += iabs(at(a[k], r + 1, c) - v);
+      }
     }
-    s = wsumi(s);
-    sh = wsumi(sh);
-    sv = wsumi(sv);
-    avg = s / max(bw * bh, 1);
-    int var = 0;
-    FOR_CELLS(a.h, a.lw, bw, bh, r, c) var += iabs(at(a, r, c) - avg);
-    var = wsumi(var);
-    int mx = max(sh, sv);
-    detail = (var >> 1) + max(mx - (var >> 1), 0);
-    tex = mx;
+    wsum_k(s);
+    int var[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      avg[k] = s[3 * k] / max(bw * bh, 1);
+      tex[k] = max(s[3 * k + 1], s[3 * k + 2]);
+      var[k] = 0;
+    }
+    if (!VAR) return;
+    FOR_CELLS(a[0].h, a[0].lw, bw, bh, r, c) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) var[k] += iabs(at(a[k], r, c) - avg[k]);
+    }
+    wsum_k(var);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      detail[k] = (var[k] >> 1) + max(tex[k] - (var[k] >> 1), 0);
   }
 
-  static __device__ int feat_qtex(const Win& a, int bw, int bh) {
-    unsigned sh = 0, sv = 0;
+  template <class A>
+  static __device__ void feat_detail(const A& a, int bw, int bh, int& detail,
+                                     int& avg, int& tex) {
+    const A a1[1] = {a};
+    int d[1], m[1], t[1];
+    feat_detail_k(a1, bw, bh, d, m, t);
+    detail = d[0];
+    avg = m[0];
+    tex = t[0];
+  }
+
+  template <class A>
+  static __device__ int feat_qtex(const A& a, int bw, int bh) {
+    unsigned s[2] = {0, 0};
     FOR_CELLS(a.h, a.lw, bw, bh, r, c) {
       int q = at(a, r, c) >> 4;
       if (c + 1 < bw) {
         int d = q - (at(a, r, c + 1) >> 4);
-        sh += (unsigned)(d * d);
+        s[0] += (unsigned)(d * d);
       }
       if (r + 1 < bh) {
         int d = (at(a, r + 1, c) >> 4) - q;
-        sv += (unsigned)(d * d);
+        s[1] += (unsigned)(d * d);
       }
     }
-    sh = wsum(sh);
-    sv = wsum(sv);
-    return (int)isqrt_u32(max(sh, sv)) / max((bw + bh + 1) >> 1, 1);
+    wsum_k(s);
+    return (int)isqrt_u32(max(s[0], s[1])) / max((bw + bh + 1) >> 1, 1);
   }
 
   // 16-bin histogram counted with ballots: every lane ends with all counts;
   // the trip count is uniform in the warp
-  template <bool QUADS>
-  static __device__ void hist16(const Win& a, int bw, int bh, int q16, int* hist) {
+  template <bool QUADS, class A>
+  static __device__ void hist16(const A& a, int bw, int bh, int q16, int* hist) {
     const int lw = QUADS ? a.lw - 1 : a.lw, h = QUADS ? a.h >> 1 : a.h;
     const int cw = QUADS ? bw >> 1 : bw, ch = QUADS ? bh >> 1 : bh;
   #pragma unroll
@@ -322,7 +492,8 @@ struct Tile {
     }
   }
 
-  static __device__ int feat_hvar(const Win& a, int bw, int bh, int avg) {
+  template <class A>
+  static __device__ int feat_hvar(const A& a, int bw, int bh, int avg) {
     int hist[16];
     hist16<false>(a, bw, bh, (8 << 16) / max(avg, 1), hist);
     const int area = max(bw * bh, 1);
@@ -337,7 +508,8 @@ struct Tile {
     return (int)((hv * 256u) / (unsigned)(16 * area * area));
   }
 
-  static __device__ int feat_peaks(const Win& a, int bw, int bh, int avg) {
+  template <class A>
+  static __device__ int feat_peaks(const A& a, int bw, int bh, int avg) {
     int hist[16];
     hist16<true>(a, bw, bh, (8 << 16) / max(avg, 1), hist);
     int tot = 0, mx = 0;
@@ -356,30 +528,50 @@ struct Tile {
     return n;
   }
 
-  static __device__ int masked_avg(const Win& a, int bw, int bh) {
-    int s = 0;
-    FOR_CELLS(a.h, a.lw, bw, bh, r, c) s += at(a, r, c);
-    return wsumi(s) / max(bw * bh, 1);
+  // the masked means of K windows of one shape, one pass
+  template <int K>
+  static __device__ void masked_avg_k(const Win (&a)[K], int bw, int bh,
+                                      int (&out)[K]) {
+    int s[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) s[k] = 0;
+    FOR_CELLS(a[0].h, a[0].lw, bw, bh, r, c) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) s[k] += at(a[k], r, c);
+    }
+    wsum_k(s);
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = s[k] / max(bw * bh, 1);
   }
 
   // Greedy walk with retry (ref: hme.c:1300-1370), the plain version's
-  // _refine_loop for one block.
-  static __device__ void refine(const G& g, const Lv& L, const Win& sw, Res& r,
+  // _refine_loop for one block. The five probes of a pass are scored at
+  // once (a probe outside the frame on its clamped window, never used);
+  // then the pass takes the first improvement in kRect order, as the
+  // reference's sequential probes do.
+  template <class A>
+  static __device__ void refine(const G& g, const Lv& L, const A& sw, Res& r,
                                 int qthresh) {
     const int level = g.level, step = 1 << level;
     int m[4] = {I32MAX, I32MAX, I32MAX, I32MAX};
     bool done = false;
     while (!done) {
       const int bx0 = r.dx, by0 = r.dy;
+      const uint8_t* rp[5];
+#pragma unroll
+      for (int k = 0; k < 5; ++k)
+        rp[k] = win(L.ref, r.bx + bx0 + kRectX[k], r.by + by0 + kRectY[k],
+                    g.blk_h, g.blk_w).p;
+      int raw5[5];
+      hier_k(level, sw, rp, L.ref.W, r.bw, r.bh, r.ew, r.tw, r.aw, raw5);
       bool improved = false;
+#pragma unroll
       for (int k = 0; k < 5; ++k) {
         const int tvx = bx0 + kRectX[k], tvy = by0 + kRectY[k];
         if (improved ||
             invalid_block(r.bx + tvx, r.by + tvy, r.bw, r.bh, 0, g.fw, g.fh))
           continue;
-        const int raw =
-            hier(level, sw, win(L.ref, r.bx + tvx, r.by + tvy, g.blk_h, g.blk_w),
-                 r.bw, r.bh, r.ew, r.tw, r.aw);
+        const int raw = raw5[k];
         const int sc = wadd(raw, mv_cost(g, r.px, r.py, tvx * step * 4,
                                          tvy * step * 4, level > 1));
         if (k >= 1) m[k - 1] = raw;
@@ -404,10 +596,12 @@ struct Tile {
       const int tvy = r.dy + (m[2] <= m[3] ? 1 : -1);
       bool better = false;
       if (!invalid_block(r.bx + tvx, r.by + tvy, r.bw, r.bh, 0, g.fw, g.fh)) {
-        const int sc = wadd(
-            hier(level, sw, win(L.ref, r.bx + tvx, r.by + tvy, g.blk_h, g.blk_w),
-                 r.bw, r.bh, r.ew, r.tw, r.aw),
-            mv_cost(g, r.px, r.py, tvx * step * 4, tvy * step * 4, level > 1));
+        const uint8_t* rp1[1] = {
+            win(L.ref, r.bx + tvx, r.by + tvy, g.blk_h, g.blk_w).p};
+        int raw1[1];
+        hier_k(level, sw, rp1, L.ref.W, r.bw, r.bh, r.ew, r.tw, r.aw, raw1);
+        const int sc = wadd(raw1[0], mv_cost(g, r.px, r.py, tvx * step * 4,
+                                             tvy * step * 4, level > 1));
         better = r.best > sc;
         if (better) {
           r.dx = tvx;
@@ -419,9 +613,74 @@ struct Tile {
     }
   }
 
-  // Candidate search + refine of block (i, j) (ref: hme.c:1413-1630); false
-  // when the block starts outside the level's plane.
-  static __device__ bool block_search(const G& g, const Lv& L, int i, int j, Res& r) {
+  // The candidates of a block's search between block_pre and block_post.
+  struct Cand {
+    int n, dep;            // slots; the first of the neighbour-dependent ones
+    int pending;           // neighbour slots left to block_post (0 or ndep)
+    bool pred;             // block_pre computed the median predictor
+    int cx[26], cy[26];    // each slot's vector, scaled to the level
+    bool use[26];          // usable (cok, inside the frame)
+    int raw[26];           // metric of a usable slot's vector (block_pre's)
+    int zos;               // the good-enough metric vs the source reference
+  };
+  // the neighbour-dependent slots: the scaled median predictor at level 0,
+  // then the left, top and top-left vectors
+  static __device__ __forceinline__ int ndep(int level) {
+    return level == 0 ? 4 : 3;
+  }
+
+  // median predictor (ref: dsv.c:373-400)
+  static __device__ void predictor(const G& g, const Lv& L, int i, int j,
+                                   Res& r) {
+    int lx = 0, ly = 0, tx = 0, ty = 0, cx = 0, cy = 0;
+    if (i > 0) {
+      lx = out_at(L, g, 0, i - 1, j);
+      ly = out_at(L, g, 1, i - 1, j);
+    }
+    if (j > 0) {
+      tx = out_at(L, g, 0, i, j - 1);
+      ty = out_at(L, g, 1, i, j - 1);
+    }
+    if (i > 0 && j > 0) {
+      cx = out_at(L, g, 0, i - 1, j - 1);
+      cy = out_at(L, g, 1, i - 1, j - 1);
+    }
+    r.px = pred3(lx, tx, cx);
+    r.py = pred3(ly, ty, cy);
+  }
+
+  // the neighbour-dependent slots' vectors (unscaled) and usability from
+  // slot c.dep on (needs the predictor)
+  static __device__ void neighbour_slots(const G& g, const Lv& L, int i,
+                                         int j, const Res& r, Cand& c) {
+    const int step = 1 << g.level;
+    int s = c.dep;
+    if (g.level == 0) {
+      c.cx[s] = sar_r2(r.px);
+      c.cy[s] = sar_r2(r.py);
+      c.use[s++] = true;
+    }
+    const int sdx[3] = {-1, 0, -1}, sdy[3] = {0, -1, -1};
+    for (int k = 0; k < 3; ++k) {
+      const int xi = i + sdx[k] * step, yj = j + sdy[k] * step;
+      const bool ok = xi >= 0 && yj >= 0;
+      c.cx[s] = sar_r2(ok ? out_at(L, g, 0, xi, yj) : 0);
+      c.cy[s] = sar_r2(ok ? out_at(L, g, 1, xi, yj) : 0);
+      c.use[s++] = ok;
+    }
+  }
+
+  // What the search of block (i, j) (ref: hme.c:1413-1630) can do before
+  // this level's neighbours are done: the source window into buf (the
+  // tile's kSrcBytes of shared memory; its view in sw), the psy weights,
+  // and the metrics of every candidate that does not depend on the
+  // neighbours, and of the good-enough test. With deps (the neighbours
+  // are already in the grids: an upper level's walk) the neighbours'
+  // candidates join the same pass. False when the block starts outside
+  // the level's plane.
+  static __device__ bool block_pre(const G& g, const Lv& L, int i, int j,
+                                   uint8_t* buf, Res& r, SWin& sw, Cand& c,
+                                   bool deps) {
     const int level = g.level, step = 1 << level;
     const int yw = g.blk_w, yh = g.blk_h, fw = g.fw, fh = g.fh;
     r.bx = (i * yw) >> level;
@@ -430,7 +689,12 @@ struct Tile {
     r.bw = min(max(fw - r.bx, 0), yw);
     r.bh = min(max(fh - r.by, 0), yh);
     const int bw = r.bw, bh = r.bh;
-    const Win sw = win(L.src, r.bx, r.by, yh, yw);
+    {
+      const Win w1[1] = {win(L.src, r.bx, r.by, yh, yw)};
+      SWin v1[1];
+      stage_k(w1, buf, v1);
+      sw = v1[0];
+    }
     const int gx = __ldg(L.gxy), gy = __ldg(L.gxy + 1);
 
     // psy weights + motion bias (ref: hme.c:1424-1481)
@@ -459,33 +723,20 @@ struct Tile {
       if (detail > 24 * bw * bh) r.aw = 0;
     }
 
-    // median predictor (ref: dsv.c:373-400)
-    {
-      int lx = 0, ly = 0, tx = 0, ty = 0, cx = 0, cy = 0;
-      if (i > 0) {
-        lx = out_at(L, g, 0, i - 1, j);
-        ly = out_at(L, g, 1, i - 1, j);
-      }
-      if (j > 0) {
-        tx = out_at(L, g, 0, i, j - 1);
-        ty = out_at(L, g, 1, i, j - 1);
-      }
-      if (i > 0 && j > 0) {
-        cx = out_at(L, g, 0, i - 1, j - 1);
-        cy = out_at(L, g, 1, i - 1, j - 1);
-      }
-      r.px = pred3(lx, tx, cx);
-      r.py = pred3(ly, ty, cy);
-    }
-
-    // candidates (ref: hme.c:1443-1528), in slot order
-    int cx[26], cy[26];
-    bool cok[26];
+    // candidates (ref: hme.c:1443-1528), in slot order; the neighbours'
+    // slots [dep, dep + ndep) are filled by block_post
+    int* cx = c.cx;
+    int* cy = c.cy;
+    bool* cok = c.use;
     int n = 0;
     r.lax = r.lay = 0;
     cx[n] = 0;
     cy[n] = 0;
     cok[n++] = true;
+    c.dep = n;
+    c.pending = 0;
+    c.pred = deps;
+    if (deps) predictor(g, L, i, j, r);
     if (level < g.levels) {
       const int pmask = ~((step << 1) - 1);
       const int pi = i & pmask, pj = j & pmask;
@@ -532,19 +783,12 @@ struct Tile {
       cx[n] = r.lax;
       cy[n] = r.lay;
       cok[n++] = true;
-      if (level == 0) {
-        cx[n] = sar_r2(r.px);
-        cy[n] = sar_r2(r.py);
-        cok[n++] = true;
-      }
-      const int sdx[3] = {-1, 0, -1}, sdy[3] = {0, -1, -1};
-      for (int k = 0; k < 3; ++k) {
-        const int xi = i + sdx[k] * step, yj = j + sdy[k] * step;
-        const bool ok = xi >= 0 && yj >= 0;
-        cx[n] = sar_r2(ok ? out_at(L, g, 0, xi, yj) : 0);
-        cy[n] = sar_r2(ok ? out_at(L, g, 1, xi, yj) : 0);
-        cok[n++] = ok;
-      }
+      c.dep = n;
+      n += ndep(level);
+      if (deps)
+        neighbour_slots(g, L, i, j, r, c);
+      else
+        c.pending = ndep(level);
       if (g.has_tmv) {
         const int* TX = L.tmv;
         const int* TY = L.tmv + g.nbv * g.nbh;
@@ -565,22 +809,95 @@ struct Tile {
         cok[n++] = inl[k];
       }
     }
+    c.n = n;
 
-    // scale to the level; first strict minimum over the slots, value-equal
-    // duplicates of an earlier used slot skipped (ref: hme.c:1522-1566)
-    bool use[26];
-    int best_score = I32MAX, bdx = 0, bdy = 0, score_zero = I32MAX;
+    // scale to the level and score the usable slots' distinct vectors,
+    // kCandBatch at a time; a slot's score is its vector's
+    const int d1 = c.dep + c.pending;
+    int ux[26], uy[26], nu = 0;
     for (int s = 0; s < n; ++s) {
+      if (s == c.dep) s = d1;
+      if (s >= n) break;
       const int dx = cx[s] >> level, dy = cy[s] >> level;
       cx[s] = dx;
       cy[s] = dy;
-      use[s] = cok[s] && !invalid_block(r.bx + dx, r.by + dy, bw, bh, 0, fw, fh);
-      if (!use[s]) continue;
+      cok[s] = cok[s] && !invalid_block(r.bx + dx, r.by + dy, bw, bh, 0, fw, fh);
+      if (!cok[s]) continue;
+      int u = 0;
+      while (u < nu && !(ux[u] == dx && uy[u] == dy)) ++u;
+      c.raw[s] = u;  // its vector's index, its score below
+      if (u == nu) {
+        ux[nu] = dx;
+        uy[nu++] = dy;
+      }
+    }
+    int uraw[26];
+    for (int u0 = 0; u0 < nu; u0 += kCandBatch) {
+      const uint8_t* rp[kCandBatch];
+#pragma unroll
+      for (int k = 0; k < kCandBatch; ++k) {
+        const int u = min(u0 + k, nu - 1);
+        rp[k] = win(L.ref, r.bx + ux[u], r.by + uy[u], yh, yw).p;
+      }
+      int raw[kCandBatch];
+      hier_k(level, sw, rp, L.ref.W, bw, bh, r.ew, r.tw, r.aw, raw);
+#pragma unroll
+      for (int k = 0; k < kCandBatch; ++k)
+        if (u0 + k < nu) uraw[u0 + k] = raw[k];
+    }
+    for (int s = 0; s < n; ++s)
+      if ((s < c.dep || s >= d1) && cok[s]) c.raw[s] = uraw[c.raw[s]];
+    c.zos = metr(sw, win(L.ogr, r.bx, r.by, yh, yw), bw, bh, r.ew, r.tw,
+                 r.aw);
+    return true;
+  }
+
+  // The rest of the search of block (i, j), once its left, top and
+  // top-left neighbours of this level are in the grids: the median
+  // predictor, the neighbours' candidates, the first strict minimum over
+  // the slots with value-equal duplicates of an earlier usable slot
+  // skipped (ref: hme.c:1522-1566), the good-enough test and the refine.
+  static __device__ void block_post(const G& g, const Lv& L, int i, int j,
+                                    const SWin& sw, Res& r, Cand& c) {
+    const int level = g.level, step = 1 << level;
+    const int yw = g.blk_w, yh = g.blk_h, fw = g.fw, fh = g.fh;
+    const int bw = r.bw, bh = r.bh;
+
+    // the neighbours' slots, scored in one pass, unless block_pre had them
+    int dscore[4] = {I32MAX, I32MAX, I32MAX, I32MAX};
+    if (!c.pred) predictor(g, L, i, j, r);
+    if (c.pending) {
+      neighbour_slots(g, L, i, j, r, c);
+      const uint8_t* rp[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int t = c.dep + min(k, ndep(level) - 1);
+        const int dx = c.cx[t] >> level, dy = c.cy[t] >> level;
+        if (k < ndep(level)) {
+          c.cx[t] = dx;
+          c.cy[t] = dy;
+          c.use[t] = c.use[t] &&
+                     !invalid_block(r.bx + dx, r.by + dy, bw, bh, 0, fw, fh);
+        }
+        rp[k] = win(L.ref, r.bx + c.cx[t], r.by + c.cy[t], yh, yw).p;
+      }
+      hier_k(level, sw, rp, L.ref.W, bw, bh, r.ew, r.tw, r.aw, dscore);
+    }
+
+    // first strict minimum over the slots, value-equal duplicates of an
+    // earlier usable slot skipped (ref: hme.c:1522-1566)
+    int ux[26], uy[26], nu = 0;
+    int best_score = I32MAX, bdx = 0, bdy = 0, score_zero = I32MAX;
+    for (int s = 0; s < c.n; ++s) {
+      if (!c.use[s]) continue;
+      const int dx = c.cx[s], dy = c.cy[s];
       bool dup = false;
-      for (int t = 0; t < s; ++t) dup = dup || (use[t] && cx[t] == dx && cy[t] == dy);
+      for (int t = 0; t < nu; ++t) dup = dup || (ux[t] == dx && uy[t] == dy);
       if (dup) continue;
-      const int raw = hier(level, sw, win(L.ref, r.bx + dx, r.by + dy, yh, yw),
-                           bw, bh, r.ew, r.tw, r.aw);
+      ux[nu] = dx;
+      uy[nu++] = dy;
+      const bool dep = s >= c.dep && s < c.dep + c.pending;
+      const int raw = dep ? dscore[s - c.dep] : c.raw[s];
       if (s == 0) score_zero = raw;
       int sc = wadd(raw, mv_cost(g, r.px, r.py, dx * step * 4, dy * step * 4,
                                  level > 1));
@@ -595,32 +912,44 @@ struct Tile {
     // good-enough vs the source reference (ref: hme.c:1569-1584)
     int qthresh = (g.quant * bw * bh) >> 11;
     if (iabs(bdx) <= 1 && iabs(bdy) <= 1) qthresh *= 2;
-    const int zos = metr(sw, win(L.ogr, r.bx, r.by, yh, yw), bw, bh, r.ew, r.tw,
-                         r.aw);
     r.good = 0;
-    if (zos < qthresh) {
+    if (c.zos < qthresh) {
       r.dx = r.dy = 0;
       r.best = level == 0 ? score_zero : 0;
       r.good = 1;
-      return true;
+      return;
     }
     r.dx = bdx;
     r.dy = bdy;
     r.best = best_score;
     refine(g, L, sw, r, qthresh);
-    return true;
   }
 
   // The half-pel grid (34 x 34, a zero row/column past it) of a 21x21
-  // window whose (1, 1) sample is the probe origin, into the warp's shared
+  // window whose (1, 1) sample is the probe origin, into the tile's shared
   // slice hg (ref: hme.c:787-815). The quarter-pel samples are derived from
-  // it when read (qv).
-  static __device__ void hpel_grid(const Plane& pl, int x, int y, uint8_t* hg) {
+  // it when read (qv). The window is staged in wbuf first, all its loads
+  // issued before any is stored.
+  static __device__ void hpel_grid(const Plane& pl, int x, int y, uint8_t* hg,
+                                   uint8_t* wbuf) {
     const int y0 = min(max(y + BRD, 0), pl.H - 21);
     const int x0 = min(max(x + BRD, 0), pl.W - 21);
     const uint8_t* p = pl.p + (size_t)y0 * pl.W + x0;
-    tile_sync();  // every lane is done reading the previous grid
-    auto px = [&](int r, int c) { return (int)__ldg(p + (size_t)r * pl.W + c); };
+    constexpr int kN = 21 * 21, kPer = (kN + TW - 1) / TW;
+    int v[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int q = min(u * TW + lane(), kN - 1);
+      v[u] = __ldg(p + (size_t)(q / 21) * pl.W + q % 21);
+    }
+    tile_sync();  // every lane is done reading the previous grid and window
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int q = u * TW + lane();
+      if (q < kN) wbuf[q] = (uint8_t)v[u];
+    }
+    tile_sync();
+    auto px = [&](int r, int c) { return (int)wbuf[r * 21 + c]; };
     auto hb = [&](int r, int i) {
       return 5 * (px(r, i + 1) + px(r, i + 2)) - (px(r, i) + px(r, i + 3));
     };
@@ -645,54 +974,51 @@ struct Tile {
     tile_sync();
   }
 
-  // (ref: hme.c:244-269): srcsp vs q[4 + t1::4, 4 + t0::4]
-  static __device__ int qpsad(const Win& a, const uint8_t* hg, int t0, int t1, int ew,
-                              int tw, int aw) {
-    unsigned acc = 0;
+  // (ref: hme.c:244-269): srcsp vs q[4 + t1::4, 4 + t0::4], for the 7
+  // subpel probes (t0[k], t1[k]) in one pass
+  static __device__ void qpsad7(const Win& a, const uint8_t* hg, const int (&t0)[7],
+                                const int (&t1)[7], int ew, int tw, int aw,
+                                int (&out)[7]) {
+    unsigned acc[7];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) acc[k] = 0;
     for (int q = lane(); q < 64; q += TW) {
       const int j = q >> 3, i = q & 7;
-      const int y = 4 + t1 + 8 * j, x = 4 + t0 + 8 * i;
-      int a1 = at(a, 2 * j, 2 * i), a2 = at(a, 2 * j, 2 * i + 1);
-      int a3 = at(a, 2 * j + 1, 2 * i), a4 = at(a, 2 * j + 1, 2 * i + 1);
-      int b1 = qv(hg, y, x), b2 = qv(hg, y, x + 4);
-      int b3 = qv(hg, y + 4, x), b4 = qv(hg, y + 4, x + 4);
-      int s0 = uavg4(a1, a2, a3, a4), s1 = uavg4(b1, b2, b3, b4);
-      int se = uavg4(iabs(a1 - b1), iabs(a2 - b2), iabs(a3 - b3),
-                     iabs(a4 - b4));
-      int ta = uavg4(iabs(a1 - a2), iabs(a2 - a3), iabs(a3 - a4),
-                     iabs(a4 - a1));
-      int tb = uavg4(iabs(b1 - b2), iabs(b2 - b3), iabs(b3 - b4),
-                     iabs(b4 - b1));
-      acc += (unsigned)(se * se) << ew;
-      acc += (unsigned)((ta - tb) * (ta - tb)) << tw;
-      acc += (unsigned)((s0 - s1) * (s0 - s1)) << aw;
+      const Quad qa = quad_at(a, j, i);
+#pragma unroll
+      for (int k = 0; k < 7; ++k) {
+        const int y = 4 + t1[k] + 8 * j, x = 4 + t0[k] + 8 * i;
+        acc[k] += quad_metr(qa, qv(hg, y, x), qv(hg, y, x + 4),
+                            qv(hg, y + 4, x), qv(hg, y + 4, x + 4), ew, tw, aw);
+      }
     }
-    return metric_return(wsum(acc), 16, 16);
+    wsum_k(acc);
+#pragma unroll
+    for (int k = 0; k < 7; ++k) out[k] = metric_return(acc[k], 16, 16);
   }
 
-  // subpel refine around full-pel (fpx, fpy) (ref: hme.c:1051-1164)
-  static __device__ void subpel(const G& g, const Lv& L, const Res& r, const Win& sw,
-                                int fpx, int fpy, int best_fp, uint8_t* hg, int& ret,
-                                int& sx, int& sy) {
-    sx = sy = 0;
-    if (best_fp == 0) {
-      ret = best_fp;
-      return;
-    }
+  // The probes of a subpel refine around full-pel (fpx, fpy) (ref:
+  // hme.c:1051-1164), which need no neighbour: the four neighbour windows
+  // staged in stage and their sse scored in one pass, the direction pick,
+  // and the seven quarter-pel probes scored in one pass.
+  struct Sub {
+    int t0[7], t1[7], qps[7];
+  };
+  static __device__ void subpel_probe(const G& g, const Lv& L, const Res& r,
+                                      const SWin& sw, int fpx, int fpy,
+                                      uint8_t* hg, uint8_t* stage, Sub& sp) {
     const int bx = r.bx, by = r.by, bw = r.bw, bh = r.bh;
-    const int yarea = bw * bh;
-    const int dx4[4] = {1, -1, 0, 0}, dy4[4] = {0, 0, 1, -1};
+    const Win w4[4] = {win(L.ref, bx + fpx + 1, by + fpy, g.blk_h, g.blk_w),
+                       win(L.ref, bx + fpx - 1, by + fpy, g.blk_h, g.blk_w),
+                       win(L.ref, bx + fpx, by + fpy + 1, g.blk_h, g.blk_w),
+                       win(L.ref, bx + fpx, by + fpy - 1, g.blk_h, g.blk_w)};
+    SWin s4[4];
+    stage_k(w4, stage, s4);
+    const uint8_t* rp[4] = {s4[0].p, s4[1].p, s4[2].p, s4[3].p};
     int quad[4];
-    for (int k = 0; k < 4; ++k)
-      quad[k] = sse(sw, win(L.ref, bx + fpx + dx4[k], by + fpy + dy4[k],
-                            g.blk_h, g.blk_w),
-                    bw, bh);
-    const int area_ratio = (8 * 16 * 16) / max(yarea, 1);
-    const int iarea_ratio = (8 * yarea) / (16 * 16);
-    int best = (int)(((unsigned)best_fp * (unsigned)area_ratio) >> 3);
+    sse_k<true>(sw, rp, s4[0].s, bw, bh, quad);
     const int xx = bx + ((bw >> 1) - 8), yy = by + ((bh >> 1) - 8);
-    hpel_grid(L.ref, xx + fpx - 2, yy + fpy - 2, hg);
-    const Win sp = win(L.src, xx, yy, 16, 16);
+    hpel_grid(L.ref, xx + fpx - 2, yy + fpy - 2, hg, stage);
     // primary/secondary direction pick (ref: hme.c:1108-1133)
     int prix = 0, priy = quad[3] >= quad[2] ? 1 : -1;
     int secx = quad[1] >= quad[0] ? 1 : -1, secy = 0;
@@ -705,12 +1031,35 @@ struct Tile {
     const int dgx = prix + secx, dgy = priy + secy;
     const int t0s[7] = {2 * prix, prix, 2 * secx, secx, 2 * dgx, dgx, prix + dgx};
     const int t1s[7] = {2 * priy, priy, 2 * secy, secy, 2 * dgy, dgy, priy + dgy};
-    int msc = I32MAX, mt0 = 0, mt1 = 0;
+#pragma unroll
     for (int k = 0; k < 7; ++k) {
-      const int t0 = t0s[k], t1 = t1s[k];
+      sp.t0[k] = t0s[k];
+      sp.t1[k] = t1s[k];
+    }
+    qpsad7(win(L.src, xx, yy, 16, 16), hg, t0s, t1s, r.ew, r.tw, r.aw, sp.qps);
+  }
+
+  // The rest of that subpel refine, once the median predictor (px, py) is
+  // known: the probes' scores with their vector cost and the picks
+  static __device__ void subpel_pick(const G& g, const Res& r, int fpx,
+                                     int fpy, int best_fp, const Sub& sp,
+                                     int& ret, int& sx, int& sy) {
+    sx = sy = 0;
+    if (best_fp == 0) {
+      ret = best_fp;
+      return;
+    }
+    const int yarea = r.bw * r.bh;
+    const int area_ratio = (8 * 16 * 16) / max(yarea, 1);
+    const int iarea_ratio = (8 * yarea) / (16 * 16);
+    int best = (int)(((unsigned)best_fp * (unsigned)area_ratio) >> 3);
+    int msc = I32MAX, mt0 = 0, mt1 = 0;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      const int t0 = sp.t0[k], t1 = sp.t1[k];
       if (g.effort < 8 && ((t0 | t1) & 1)) continue;  // half-pel only
-      const int sc = wadd(qpsad(sp, hg, t0, t1, r.ew, r.tw, r.aw),
-                          mv_cost(g, r.px, r.py, fpx * 4 + t0, fpy * 4 + t1, 0));
+      const int sc = wadd(sp.qps[k], mv_cost(g, r.px, r.py, fpx * 4 + t0,
+                                             fpy * 4 + t1, 0));
       if (sc < msc) {
         msc = sc;
         mt0 = t0;
@@ -725,55 +1074,86 @@ struct Tile {
     ret = (int)(((unsigned)best * (unsigned)iarea_ratio) >> 3);
   }
 
-  // one plane of yuv_max_subblock_err (ref: hme.c:369-409)
+  // one plane of yuv_max_subblock_err (ref: hme.c:369-409): the four
+  // quadrants' quad metrics in one pass over all their quads
   static __device__ unsigned max_sub(const Plane& pa, const Plane& pb, int x0, int y0,
                                      int rx, int ry, int qw, int qh, int bw2, int bh2,
                                      const Res& r) {
-    unsigned m = 0;
+    const Win a0 = win(pa, x0, y0, qh, qw), a1 = win(pa, x0 + bw2, y0, qh, qw),
+              a2 = win(pa, x0, y0 + bh2, qh, qw),
+              a3 = win(pa, x0 + bw2, y0 + bh2, qh, qw);
+    const Win b0 = win(pb, rx, ry, qh, qw), b1 = win(pb, rx + bw2, ry, qh, qw),
+              b2 = win(pb, rx, ry + bh2, qh, qw),
+              b3 = win(pb, rx + bw2, ry + bh2, qh, qw);
+    const int lw = a0.lw - 1, ln = lw + __ffs(qh >> 1) - 1;  // log2 quads
+    unsigned acc[4] = {0, 0, 0, 0};
+    for (int p = lane(); p < (4 << ln); p += TW) {
+      const int k = p >> ln, j = (p >> lw) & ((qh >> 1) - 1),
+                i = p & ((1 << lw) - 1);
+      if (j >= (bh2 >> 1) || i >= (bw2 >> 1)) continue;
+      const Win a{k == 0 ? a0.p : k == 1 ? a1.p : k == 2 ? a2.p : a3.p, a0.s,
+                  qh, a0.lw};
+      const Win b{k == 0 ? b0.p : k == 1 ? b1.p : k == 2 ? b2.p : b3.p, b0.s,
+                  qh, b0.lw};
+      const unsigned v = quad_metr(quad_at(a, j, i), at(b, 2 * j, 2 * i),
+                                   at(b, 2 * j, 2 * i + 1), at(b, 2 * j + 1, 2 * i),
+                                   at(b, 2 * j + 1, 2 * i + 1), r.ew, r.tw, r.aw);
+      acc[0] += k == 0 ? v : 0;
+      acc[1] += k == 1 ? v : 0;
+      acc[2] += k == 2 ? v : 0;
+      acc[3] += k == 3 ? v : 0;
+    }
+    wsum_k(acc);
+    return max(max(acc[0], acc[1]), max(acc[2], acc[3]));
+  }
+
+  // err_intra with psy (0, 1, 2) (ref: hme.c:839-889) of the four
+  // subblocks k (source a[k], reference b[k], means avg_sb[k] and
+  // avg_src[k]) in one pass
+  template <class A>
+  static __device__ void err_intra4(const A (&a)[4], const A (&b)[4], int bw,
+                                    int bh, const int (&avg_sb)[4],
+                                    const int (&avg_src)[4], unsigned ratio,
+                                    unsigned (&isb)[4], unsigned (&isrc)[4],
+                                    unsigned (&inter)[4]) {
+    unsigned s[12];  // per subblock: isb, isrc, inter
+#pragma unroll
+    for (int k = 0; k < 12; ++k) s[k] = 0;
+    FOR_CELLS(a[0].h >> 1, a[0].lw - 1, bw >> 1, bh >> 1, j, i) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const Quad q = quad_at(a[k], j, i);
+        const int a1 = q.a1, a2 = q.a2, a3 = q.a3, a4 = q.a4, s0 = q.s0;
+        const int ta = q.ta, sb = avg_sb[k], sr = avg_src[k];
+        int b1 = at(b[k], 2 * j, 2 * i), b2 = at(b[k], 2 * j, 2 * i + 1);
+        int b3 = at(b[k], 2 * j + 1, 2 * i), b4 = at(b[k], 2 * j + 1, 2 * i + 1);
+        int s1 = uavg4(b1, b2, b3, b4);
+        int tb = uavg4(iabs(b1 - b2), iabs(b2 - b3), iabs(b3 - b4),
+                       iabs(b4 - b1));
+        int ae = uavg4(iabs(a1 - b1), iabs(a2 - b2), iabs(a3 - b3),
+                       iabs(a4 - b4));
+        s[3 * k + 2] += ((unsigned)(ae * ae) * ratio) >> 5;
+        s[3 * k + 2] += (unsigned)((ta - tb) * (ta - tb)) << 1;
+        s[3 * k + 2] += (unsigned)((s0 - s1) * (s0 - s1)) << 2;
+        ae = uavg4(iabs(a1 - sb), iabs(a2 - sb), iabs(a3 - sb), iabs(a4 - sb));
+        s[3 * k] += (unsigned)(ae * ae) + ((unsigned)(ta * ta) << 1) +
+                    ((unsigned)((s0 - sb) * (s0 - sb)) << 3);
+        ae = uavg4(iabs(a1 - sr), iabs(a2 - sr), iabs(a3 - sr), iabs(a4 - sr));
+        s[3 * k + 1] += (unsigned)(ae * ae) + ((unsigned)(ta * ta) << 1) +
+                        ((unsigned)((s0 - sr) * (s0 - sr)) << 3);
+      }
+    }
+    wsum_k(s);
+#pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int f = k & 1, gq = k >> 1;
-      m = max(m, metr_acc(win(pa, x0 + f * bw2, y0 + gq * bh2, qh, qw),
-                          win(pb, rx + f * bw2, ry + gq * bh2, qh, qw), bw2, bh2,
-                          r.ew, r.tw, r.aw));
+      isb[k] = s[3 * k];
+      isrc[k] = s[3 * k + 1];
+      inter[k] = (s[3 * k + 2] * ratio) >> 5;
     }
-    return m;
   }
 
-  // err_intra with psy (0, 1, 2) (ref: hme.c:839-889)
-  static __device__ void err_intra(const Win& a, const Win& b, int bw, int bh,
-                                   int avg_sb, int avg_src, unsigned ratio,
-                                   unsigned& isb, unsigned& isrc, unsigned& inter) {
-    isb = isrc = inter = 0;
-    FOR_CELLS(a.h >> 1, a.lw - 1, bw >> 1, bh >> 1, j, i) {
-      int a1 = at(a, 2 * j, 2 * i), a2 = at(a, 2 * j, 2 * i + 1);
-      int a3 = at(a, 2 * j + 1, 2 * i), a4 = at(a, 2 * j + 1, 2 * i + 1);
-      int b1 = at(b, 2 * j, 2 * i), b2 = at(b, 2 * j, 2 * i + 1);
-      int b3 = at(b, 2 * j + 1, 2 * i), b4 = at(b, 2 * j + 1, 2 * i + 1);
-      int s0 = uavg4(a1, a2, a3, a4), s1 = uavg4(b1, b2, b3, b4);
-      int ta = uavg4(iabs(a1 - a2), iabs(a2 - a3), iabs(a3 - a4),
-                     iabs(a4 - a1));
-      int tb = uavg4(iabs(b1 - b2), iabs(b2 - b3), iabs(b3 - b4),
-                     iabs(b4 - b1));
-      int ae = uavg4(iabs(a1 - b1), iabs(a2 - b2), iabs(a3 - b3),
-                     iabs(a4 - b4));
-      inter += ((unsigned)(ae * ae) * ratio) >> 5;
-      inter += (unsigned)((ta - tb) * (ta - tb)) << 1;
-      inter += (unsigned)((s0 - s1) * (s0 - s1)) << 2;
-      ae = uavg4(iabs(a1 - avg_sb), iabs(a2 - avg_sb), iabs(a3 - avg_sb),
-                 iabs(a4 - avg_sb));
-      isb += (unsigned)(ae * ae) + ((unsigned)(ta * ta) << 1) +
-             ((unsigned)((s0 - avg_sb) * (s0 - avg_sb)) << 3);
-      ae = uavg4(iabs(a1 - avg_src), iabs(a2 - avg_src), iabs(a3 - avg_src),
-                 iabs(a4 - avg_src));
-      isrc += (unsigned)(ae * ae) + ((unsigned)(ta * ta) << 1) +
-              ((unsigned)((s0 - avg_src) * (s0 - avg_src)) << 3);
-    }
-    isb = wsum(isb);
-    isrc = wsum(isrc);
-    inter = (wsum(inter) * ratio) >> 5;
-  }
-
-  static __device__ void eprm_clips(const Win& s, const Win& rf, int bw, int bh,
+  template <class A, class B>
+  static __device__ void eprm_clips(const A& s, const B& rf, int bw, int bh,
                                     int avg_src, int avg_ref, bool& ci, bool& cd,
                                     bool& cr) {
     ci = cd = cr = false;
@@ -790,25 +1170,39 @@ struct Tile {
 
   // The base level of one block: search + subpel + mode decisions + intra
   // tests + flags (ref: hme.c:1598-1833; plain: hme_wave.level0_block).
-  // Lane 0 writes the block's grid entries; every lane adds its stats to
-  // st[4] (identical in the warp).
+  // What needs no neighbour of this level (block_pre, the probes of the
+  // first subpel refine, at the parents' vector) runs before wait(), which
+  // returns once the left, top and top-left blocks are in the grids. Lane
+  // 0 writes the block's grid entries; every lane adds its stats to st[4]
+  // (identical in the tile). smem: the tile's kTileBytes.
+  template <class Wait>
   static __device__ void level0_block(const G& g, const Lv& L, int i, int j,
-                                      uint8_t* hg, int* st) {
+                                      uint8_t* smem, int* st, Wait&& wait) {
+    uint8_t* hg = smem;
+    uint8_t* stage = smem + kHgBytes + kSrcBytes;
     Res r;
-    if (!block_search(g, L, i, j, r)) return;
+    SWin sw;
+    Cand c;
+    Sub s1;
+    const bool in = block_pre(g, L, i, j, smem + kHgBytes, r, sw, c, false);
+    const bool cond1 = in && g.effort >= 4 &&
+                       !invalid_block(r.bx + r.lax, r.by + r.lay, r.bw, r.bh,
+                                      4, g.fw, g.fh);
+    if (cond1) subpel_probe(g, L, r, sw, r.lax, r.lay, hg, stage, s1);
+    wait();
+    if (!in) return;
+    block_post(g, L, i, j, sw, r, c);
     const int yw = g.blk_w, yh = g.blk_h, fw = g.fw, fh = g.fh;
     const int bx = r.bx, by = r.by, bw = r.bw, bh = r.bh;
     const int yarea = bw * bh, area1 = max(yarea, 1);
     const int skipt = (g.quant * g.quant) >> 19;
-    const Win sw = win(L.src, bx, by, yh, yw);
     int best = (r.dx == r.lax && r.dy == r.lay) ? wadd(r.best, r.mbias) : r.best;
     const int best_fp = best;
     int sub_x = 0, sub_y = 0, fpelx = r.dx, fpely = r.dy;
     if (g.effort >= 4) {
-      const bool cond1 = !invalid_block(bx + r.lax, by + r.lay, bw, bh, 4, fw, fh);
       int ret1 = 0, sx1 = 0, sy1 = 0;
       if (cond1) {
-        subpel(g, L, r, sw, r.lax, r.lay, best_fp, hg, ret1, sx1, sy1);
+        subpel_pick(g, r, r.lax, r.lay, best_fp, s1, ret1, sx1, sy1);
         best = ret1;
       }
       const bool found1 = cond1 && (sx1 != 0 || sy1 != 0);
@@ -816,7 +1210,9 @@ struct Tile {
                          !invalid_block(bx + r.dx, by + r.dy, bw, bh, 4, fw, fh);
       if (cond2) {
         int ret2, sx2, sy2;
-        subpel(g, L, r, sw, r.dx, r.dy, best_fp, hg, ret2, sx2, sy2);
+        Sub s2;
+        subpel_probe(g, L, r, sw, r.dx, r.dy, hg, stage, s2);
+        subpel_pick(g, r, r.dx, r.dy, best_fp, s2, ret2, sx2, sy2);
         best = ret2;
         sub_x = sx2;
         sub_y = sy2;
@@ -836,7 +1232,13 @@ struct Tile {
     const int ratio =
         is_subpel ? (int)(((unsigned)best << 5) / (unsigned)max(best_fp, 1)) : 32;
     const unsigned ratio_u = (unsigned)ratio;
-    const Win rfw = win(L.ref, bx + fpelx, by + fpely, yh, yw);
+    SWin rfw;  // the reference block, staged
+    {
+      const Win w1[1] = {win(L.ref, bx + fpelx, by + fpely, yh, yw)};
+      SWin v1[1];
+      stage_k(w1, stage, v1);
+      rfw = v1[0];
+    }
     const int ogrerr = metr(sw, win(L.ogr, bx + fpelx, by + fpely, yh, yw), bw,
                             bh, r.ew, r.tw, r.aw);
     int ogrmad = fdiv(wadd(ogrerr, area1 / 2), area1);
@@ -855,10 +1257,16 @@ struct Tile {
     const int cbw = bw >> g.hs, cbh = bh >> g.vs;
     const int cw_max = yw >> g.hs, ch_max = yh >> g.vs;
     const int chroma_ratio = ((cbw * cbh) << 4) / area1;
-    const int uavg_src = masked_avg(win(L.su, cbx, cby, ch_max, cw_max), cbw, cbh);
-    const int vavg_src = masked_avg(win(L.sv, cbx, cby, ch_max, cw_max), cbw, cbh);
-    const int uavg_ref = masked_avg(win(L.ru, cbmx, cbmy, ch_max, cw_max), cbw, cbh);
-    const int vavg_ref = masked_avg(win(L.rv, cbmx, cbmy, ch_max, cw_max), cbw, cbh);
+    int cavg[4];  // src u, src v, ref u, ref v
+    {
+      const Win cw4[4] = {win(L.su, cbx, cby, ch_max, cw_max),
+                          win(L.sv, cbx, cby, ch_max, cw_max),
+                          win(L.ru, cbmx, cbmy, ch_max, cw_max),
+                          win(L.rv, cbmx, cbmy, ch_max, cw_max)};
+      masked_avg_k(cw4, cbw, cbh, cavg);
+    }
+    const int uavg_src = cavg[0], vavg_src = cavg[1];
+    const int uavg_ref = cavg[2], vavg_ref = cavg[3];
     const bool greyish = iabs(uavg_src - 128) < 8 && iabs(vavg_src - 128) < 8;
     const int avg_y_dif = iabs(avg_src - avg_ref);
     const int avg_c_dif =
@@ -926,10 +1334,11 @@ struct Tile {
         xth = max(wadd(xth, -wmul(wmul(yarea, neidif), 2)), 0);
         xth = (int)(((unsigned)xth * (unsigned)g.quant) >> 12);
         xth = min(max(xth, 32), yarea * 4);
-        int d_, a_, utex, vtex;
-        feat_detail(win(L.su, cbx, cby, ch_max, cw_max), cbw, cbh, d_, a_, utex);
-        feat_detail(win(L.sv, cbx, cby, ch_max, cw_max), cbw, cbh, d_, a_, vtex);
-        c_pre = c_pre && (utex > carea || vtex > carea);
+        const Win uv[2] = {win(L.su, cbx, cby, ch_max, cw_max),
+                           win(L.sv, cbx, cby, ch_max, cw_max)};
+        int d_[2], a_[2], tex[2];  // only the textures: no second pass
+        feat_detail_k<2, false>(uv, cbw, cbh, d_, a_, tex);
+        c_pre = c_pre && (tex[0] > carea || tex[1] > carea);
         const int xthc = (chroma_ratio * xth) >> 4;
         noxy = y_pre && ((b0 * ratio_u) >> 5) < (unsigned)(4 * xth);
         noxc = c_pre && ((b1 * ratio_u) >> 5) < (unsigned)xthc &&
@@ -953,21 +1362,41 @@ struct Tile {
       int detail_src = wadd(ipolvar, fdiv(ipolvar, max(neidif, 1)));
       int avg_tot = 0, nsub = 0;
       unsigned err_sub = 0, err_src = 0;
+      // every subblock's features and errors at once (none depends on the
+      // decisions), then the reference's loop over them
+      SWin md[4], sd[4];
+      int det[8], av[8], t_[8], dc[4];
+      unsigned esub[4], esrc[4], einter[4];
+      if (!skip_all) {
+        Win w8[8];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int f = k & 1, gq = k >> 1;
+          w8[k] = win(L.ref, bx + fpelx + f * sbw, by + fpely + gq * sbh, qh,
+                      qw);
+          w8[4 + k] = win(L.src, bx + f * sbw, by + gq * sbh, qh, qw);
+        }
+        SWin v8[8];
+        stage_k<8, 2>(w8, stage, v8);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          md[k] = v8[k];
+          sd[k] = v8[4 + k];
+        }
+        feat_detail_k(v8, sbw, sbh, det, av, t_);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dc[k] = (av[4 + k] + avg_src * 3 + 2) >> 2;
+        const int avg_sub4[4] = {av[0], av[1], av[2], av[3]};
+        err_intra4(sd, md, sbw, sbh, avg_sub4, dc, ratio_u, esub, esrc, einter);
+      }
       for (int k = 0; k < 4 && !skip_all; ++k) {
-        const int f = k & 1, gq = k >> 1;
-        const Win sd = win(L.src, bx + f * sbw, by + gq * sbh, qh, qw);
-        const Win md = win(L.ref, bx + fpelx + f * sbw, by + fpely + gq * sbh,
-                           qh, qw);
-        int d_, avg_sub, t_, local_detail, avg_local;
-        feat_detail(md, sbw, sbh, d_, avg_sub, t_);
-        feat_detail(sd, sbw, sbh, local_detail, avg_local, t_);
+        const int avg_sub = av[k], local_detail = det[4 + k];
+        const int avg_local = av[4 + k];
         const int dcd = iabs(avg_local - avg_sub) + 2;
         if ((unsigned)local_detail >
             (((unsigned)wmul(wmul(dcd, dcd), yarea) * ratio_u) >> 5))
           continue;
-        const int dc = (avg_local + avg_src * 3 + 2) >> 2;
-        unsigned se_sub, se_src, inter;
-        err_intra(sd, md, sbw, sbh, avg_sub, dc, ratio_u, se_sub, se_src, inter);
+        const unsigned se_sub = esub[k], se_src = esrc[k], inter = einter[k];
         const int lo = wadd(wadd(detail_src, local_detail), 1) >> 1;
         const int lerp =
             wadd(wmul(lo, 32 - g.psyf), wmul(detail_src, g.psyf)) >> 5;
@@ -976,7 +1405,7 @@ struct Tile {
           submask |= 1 << k;
           err_src += se_src;
           err_sub += se_sub;
-          avg_tot += se_sub < se_src ? avg_sub : dc;
+          avg_tot += se_sub < se_src ? avg_sub : dc[k];
           ++nsub;
           detail_src = fdiv(wmul(detail_src, 4), 5);
         }
@@ -993,16 +1422,26 @@ struct Tile {
                            (unsigned)thr > 64u || (iabs(mvx) < 4 && iabs(mvy) < 4);
       if (!blocked) {
         const int ramp = wmul(avg_src, avg_src) >> 8;
+        // the means of every subblock's four planes in one pass
+        Win w16[16];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int f = k & 1, gq = k >> 1;
+          w16[4 * k] = win(L.su, cbx + f * sbw, cby + gq * sbh, qh, qw);
+          w16[4 * k + 1] = win(L.sv, cbx + f * sbw, cby + gq * sbh, qh, qw);
+          w16[4 * k + 2] = win(L.ru, cbmx + f * sbw, cbmy + gq * sbh, qh, qw);
+          w16[4 * k + 3] = win(L.rv, cbmx + f * sbw, cbmy + gq * sbh, qh, qw);
+        }
+        int av[16];  // per subblock: us, vs, ur, vr
+        masked_avg_k(w16, sbw, sbh, av);
         int add = 0;
+#pragma unroll
         for (int k = 0; k < 4; ++k) {
           if (submask & (1 << k)) continue;
-          const int f = k & 1, gq = k >> 1;
-          const int us = masked_avg(win(L.su, cbx + f * sbw, cby + gq * sbh, qh, qw), sbw, sbh);
-          const int vs = masked_avg(win(L.sv, cbx + f * sbw, cby + gq * sbh, qh, qw), sbw, sbh);
-          const int ur = masked_avg(win(L.ru, cbmx + f * sbw, cbmy + gq * sbh, qh, qw), sbw, sbh);
-          const int vr = masked_avg(win(L.rv, cbmx + f * sbw, cbmy + gq * sbh, qh, qw), sbw, sbh);
-          const int dif =
-              wmul(wadd(wmul(us - ur, us - ur), wmul(vs - vr, vs - vr)), ramp) >> 8;
+          const int* a = av + 4 * k;
+          const int dif = wmul(wadd(wmul(a[0] - a[2], a[0] - a[2]),
+                                    wmul(a[1] - a[3], a[1] - a[3])),
+                               ramp) >> 8;
           if ((unsigned)dif > (unsigned)thr) add += 1 << k;
         }
         submask |= add;
@@ -1045,30 +1484,30 @@ struct Tile {
 
 };
 
-// One level of one stream: the CTA walks the level's anti-diagonals, its
-// tiles take the blocks of a diagonal in turn (tile-uniform), a barrier
-// between diagonals; tiles past the diagonal's run write nothing. At level
-// 0 the frame sums are added to sums (4,). smem: kHgBytes per tile.
-template <int TW, bool L0>
-__device__ void walk_level(const G& g, const Lv& L, int* sums, uint8_t* smem) {
+// One upper level of one stream (kernels 4/6): the CTA walks the level's
+// anti-diagonals, its tiles take the blocks of a diagonal in turn
+// (tile-uniform), a barrier between diagonals; tiles past the diagonal's
+// run write nothing. smem: kWalkTileBytes per tile.
+template <int TW>
+__device__ void walk_level(const G& g, const Lv& L, uint8_t* smem) {
   using T = Tile<TW>;
   const int step = 1 << g.level;
   const int ca = (g.nbh + step - 1) / step, cb = (g.nbv + step - 1) / step;
   const int nd = ca + cb - 1, lmax = min(ca, cb);
   const int tile = threadIdx.x / TW, ntiles = blockDim.x / TW;
-  uint8_t* hg = smem + tile * kHgBytes;
-  int st[4] = {0, 0, 0, 0};
+  uint8_t* buf = smem + tile * kWalkTileBytes;
   for (int d = 0; d < nd; ++d) {
     const int a0 = max(0, d - (cb - 1));
     for (int k = tile; k < lmax; k += ntiles) {
       const int a = a0 + k, b = d - a;
       if (a >= ca || b < 0 || b >= cb) break;
       const int i = a * step, j = b * step;
-      if (L0) {
-        T::level0_block(g, L, i, j, hg, st);
-      } else {
-        Res r;
-        if (T::block_search(g, L, i, j, r) && T::lane() == 0) {
+      Res r;
+      SWin sw;
+      typename T::Cand c;
+      if (T::block_pre(g, L, i, j, buf, r, sw, c, true)) {
+        T::block_post(g, L, i, j, sw, r, c);
+        if (T::lane() == 0) {
           L.out[j * g.nbh + i] = r.dx * step;
           L.out[g.nbv * g.nbh + j * g.nbh + i] = r.dy * step;
         }
@@ -1076,16 +1515,61 @@ __device__ void walk_level(const G& g, const Lv& L, int* sums, uint8_t* smem) {
     }
     __syncthreads();  // diagonal d is in the grids
   }
-  if (L0 && T::lane() == 0)
-    for (int k = 0; k < 4; ++k) atomicAdd(sums + k, st[k]);
 }
 
-// the tiles of TW lanes one CTA runs for a level: one per block of the
-// longest diagonal, at most kMaxThreads / TW
+// The base level (kernels 5/7): every block of the DAG's stream lanes
+// through run_dag, on the tiles of every CTA of the launch.
+// lane_of(ln, g, L, sums) sets the geometry, planes and frame-sum pointer
+// (4,) of stream lane ln; the frame sums a tile gathers are added with
+// atomics when its lane changes and at the end (a sum of wrapping int32:
+// its value does not depend on the order). smem: kTileBytes per tile.
+template <int TW, class LaneOf>
+__device__ void level0_dag(const Dag& dag, uint8_t* smem, LaneOf lane_of) {
+  using T = Tile<TW>;
+  uint8_t* mine = smem + (threadIdx.x / TW) * kTileBytes;
+  G g;
+  Lv L;
+  int* sums = nullptr;
+  int cur = -1, st[4] = {0, 0, 0, 0};
+  auto flush = [&]() {
+    if (sums != nullptr && T::lane() == 0)
+      for (int k = 0; k < 4; ++k) atomicAdd(sums + k, st[k]);
+    for (int k = 0; k < 4; ++k) st[k] = 0;
+  };
+  run_dag<T>(dag, [&](int ln, int i, int j, auto&& wait) {
+    if (ln != cur) {
+      flush();
+      lane_of(ln, g, L, sums);
+      cur = ln;
+    }
+    T::level0_block(g, L, i, j, mine, st, wait);
+  });
+  flush();
+}
+
+// the tiles of TW lanes one walk_level CTA runs for a level: one per block
+// of the longest diagonal, at most kMaxThreads / TW
 inline int level_tiles(const G& g, int tw) {
   const int step = 1 << g.level;
   const int ca = (g.nbh + step - 1) / step, cb = (g.nbv + step - 1) / step;
   return std::min(std::min(ca, cb), kMaxThreads / tw);
+}
+
+// the shape of a level0_dag launch: `workers` tiles (0: kDagWarpsPerSm
+// warps on every SM), never more than the blocks, in CTAs of 1 to 4 warps
+// that put the fewest warps on one SM; returns the CTAs and sets *threads
+inline int dag_shape(int blocks, int tw, int workers, int* threads) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  sms = std::max(sms, 1);
+  const int per_warp = 32 / tw, max_warps = kDagThreads / 32;
+  if (workers <= 0) workers = sms * kDagWarpsPerSm * per_warp;
+  workers = std::min(workers, blocks);
+  const int warps = (workers + per_warp - 1) / per_warp;
+  const int wpc = std::min(max_warps, (warps + sms - 1) / sms);
+  *threads = 32 * wpc;
+  return (warps + wpc - 1) / wpc;
 }
 
 // false for a geometry the kernels do not take

@@ -10,22 +10,28 @@
 // compute, field for field; the per-block search is csrc/hme_block.cuh,
 // the code kernels 4/5 (csrc/hme_search.cu) run.
 //
-// What bounds it on an H100: by bytes, each lane's level planes and grids
-// read once and written once (~1 MB for a CIF lane at level 0, well under a
-// microsecond at 3.35 TB/s). In practice, as for kernels 4/5, the chain of
-// dependent diagonals (39 at CIF level 0) and the dependent metric chain
-// inside one block's search set the time, so one stream fills one SM at
-// most. Design: the TPU's two ideas kept. (1) The grid runs over the stream
-// lanes: one CTA per lane walks that lane's diagonals (barriers between
-// diagonals), so a flush of L lanes keeps L SMs busy in one launch, where
-// kernels 4/5 run the lanes one after another on one SM. (2) G blocks per
-// warp: a block is searched by a tile of 32 / G lanes (Tile<TW>), so the
-// tiles of one warp work on G blocks of the diagonal at once; per-block
-// sums are segmented shuffle reductions inside the tile, the counterpart of
-// the TPU's masked lane sums (gsum :62). The per-lane pointers and scalars
-// (each lane has its own planes, quant, skip threshold and bits-to-score
-// ratio) are the kernel's parameter block; the rest of the geometry is one
-// for all lanes of a launch (lanes of one key share their WaveCfg).
+// What bounds it on an H100: not bytes (each lane's level planes and grids
+// read once and written once, ~1 MB for a CIF lane at level 0, well under
+// a microsecond at 3.35 TB/s), but the dependency depth of a level (39
+// anti-diagonals at CIF level 0) times one block's search, a chain of
+// dependent metrics, reductions and decisions.
+// Design. The base level (kernel 7) runs on the whole card: the blocks of
+// every lane are claimed in the topological order of csrc/hme_sched.cuh
+// (diagonal, lane, position), so a worker takes any lane's block, and a
+// block starts once its left and top neighbours of its own lane are
+// published; at CIF the gain over one CTA per lane comes mostly from the
+// shorter chain inside each block (hme_block.cuh), since 8 lanes of 18
+// blocks per diagonal already kept 8 SMs busy. An upper level (kernel 6)
+// keeps the TPU's two ideas: (1) the grid runs over the stream lanes, one
+// CTA per lane walking that lane's diagonals (a barrier between
+// diagonals), so a flush of L lanes keeps L SMs busy in one launch; (2) G
+// blocks per warp: a block is searched by a tile of 32 / G lanes
+// (Tile<TW>), per-block sums being segmented shuffle reductions inside the
+// tile, the counterpart of the TPU's masked lane sums (gsum :62). The
+// per-lane pointers and scalars (each lane has its own planes, quant, skip
+// threshold and bits-to-score ratio) are the kernel's parameter block; the
+// rest of the geometry is one for all lanes of a launch (lanes of one key
+// share their WaveCfg).
 
 #include "hme_block.cuh"
 
@@ -47,50 +53,72 @@ struct LaneP {
 struct GangP {
   G g;  // quant, skip_thresh and b2sr come from the lane
   LaneP lane[kMaxLanes];
+  Dag dag;  // level 0: the lanes' blocks and the scheduler's scratch
 };
 
-template <int TW, bool L0>
-__global__ void __launch_bounds__(kMaxThreads)
-    gang_kernel(const __grid_constant__ GangP P) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ G g;
-  __shared__ Lv L;
-  const LaneP& lp = P.lane[blockIdx.x];
-  if (threadIdx.x == 0) {
-    g = P.g;
-    g.quant = lp.quant;
-    g.skip_thresh = lp.skip_thresh;
-    g.b2sr = lp.b2sr;
-    Plane* pl[7] = {&L.src, &L.ref, &L.ogr, &L.su, &L.sv, &L.ru, &L.rv};
-    for (int k = 0; k < 7; ++k) {
-      pl[k]->p = lp.p[k];
-      pl[k]->W = k < 3 ? g.W : g.CW;
-      pl[k]->H = k < 3 ? g.H : g.CH;
-    }
-    L.parent = lp.parent;
-    L.tmv = lp.tmv;
-    L.gxy = lp.gxy;
-    L.out = lp.out;
+// the geometry and planes of stream lane n
+__device__ void lane_view(const GangP& P, int n, G& g, Lv& L) {
+  const LaneP& lp = P.lane[n];
+  g = P.g;
+  g.quant = lp.quant;
+  g.skip_thresh = lp.skip_thresh;
+  g.b2sr = lp.b2sr;
+  Plane* pl[7] = {&L.src, &L.ref, &L.ogr, &L.su, &L.sv, &L.ru, &L.rv};
+  for (int k = 0; k < 7; ++k) {
+    pl[k]->p = lp.p[k];
+    pl[k]->W = k < 3 ? g.W : g.CW;
+    pl[k]->H = k < 3 ? g.H : g.CH;
   }
-  __syncthreads();
-  walk_level<TW, L0>(g, L, lp.sums, smem);
+  L.parent = lp.parent;
+  L.tmv = lp.tmv;
+  L.gxy = lp.gxy;
+  L.out = lp.out;
 }
 
 template <int TW>
-int launch(bool l0, const GangP& P, int nlanes, cudaStream_t st) {
-  const int tiles = level_tiles(P.g, TW);
+__global__ void __launch_bounds__(kMaxThreads)
+    gang_level_kernel(const __grid_constant__ GangP P) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  G g;
+  Lv L;
+  lane_view(P, blockIdx.x, g, L);
+  walk_level<TW>(g, L, smem);
+}
+
+template <int TW>
+__global__ void __launch_bounds__(kDagThreads)
+    gang_level0_kernel(const __grid_constant__ GangP P) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  level0_dag<TW>(P.dag, smem, [&](int n, G& g, Lv& L, int*& sums) {
+    lane_view(P, n, g, L);
+    sums = P.lane[n].sums;
+  });
+}
+
+template <class K>
+cudaError_t fit_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int TW>
+int launch(bool l0, const GangP& P, int nlanes, int workers, cudaStream_t st) {
   if (!l0) {
-    gang_kernel<TW, false><<<nlanes, TW * tiles, 0, st>>>(P);
+    const int tiles = level_tiles(P.g, TW);
+    const size_t smem = (size_t)tiles * kWalkTileBytes;
+    const cudaError_t e = fit_smem(gang_level_kernel<TW>, smem);
+    if (e != cudaSuccess) return (int)e;
+    gang_level_kernel<TW><<<nlanes, TW * tiles, smem, st>>>(P);
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)tiles * kHgBytes;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gang_kernel<TW, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  gang_kernel<TW, true><<<nlanes, TW * tiles, smem, st>>>(P);
+  int threads;
+  const int ctas = dag_shape(nlanes * P.g.nbh * P.g.nbv, TW, workers,
+                             &threads);
+  const size_t smem = (size_t)(threads / TW) * kTileBytes;
+  const cudaError_t e = fit_smem(gang_level0_kernel<TW>, smem);
+  if (e != cudaSuccess) return (int)e;
+  gang_level0_kernel<TW><<<ctas, threads, smem, st>>>(P);
   return (int)cudaGetLastError();
 }
 
@@ -104,16 +132,19 @@ int launch(bool l0, const GangP& P, int nlanes, cudaStream_t st) {
 // 8: 1, 2 or 4 blocks per warp). geom: the GEOM ints of ops/hme_gpu.py,
 // shared by the lanes; ptrs: nlanes rows of the 12 LaneP pointers (host
 // memory; null where a level has no such input); scal: nlanes rows of
-// (quant, skip_thresh, b2sr) (host memory). Returns a cudaError_t (0 = ok);
-// allocates nothing, does not sync.
+// (quant, skip_thresh, b2sr) (host memory). Level 0 only: sched, the
+// scheduler's scratch of 1 + nlanes * nbv * nbh int32 zeroed by the caller,
+// and workers, the tiles that search blocks (0: 2 warps on every SM).
+// Returns a cudaError_t (0 = ok); allocates nothing, does not sync.
 extern "C" int dsv2t_hme_gang(int l0, int tw, int nlanes, const int* geom,
                               const long long* ptrs, const int* scal,
-                              void* stream) {
+                              int* sched, int workers, void* stream) {
   if (nlanes < 1 || nlanes > kMaxLanes) return (int)cudaErrorInvalidValue;
   GangP P;
   int* gp = reinterpret_cast<int*>(&P.g);
   for (int k = 0; k < kGeomLen; ++k) gp[k] = geom[k];
   if (!geometry_ok(P.g)) return (int)cudaErrorInvalidValue;
+  if (l0 && sched == nullptr) return (int)cudaErrorInvalidValue;
   for (int n = 0; n < nlanes; ++n) {
     const long long* r = ptrs + n * kLanePtrs;
     LaneP& lp = P.lane[n];
@@ -127,11 +158,12 @@ extern "C" int dsv2t_hme_gang(int l0, int tw, int nlanes, const int* geom,
     lp.skip_thresh = scal[3 * n + 1];
     lp.b2sr = scal[3 * n + 2];
   }
+  P.dag = Dag{P.g.nbh, P.g.nbv, nlanes, sched, sched ? sched + 1 : nullptr};
   cudaStream_t st = (cudaStream_t)stream;
   switch (tw) {
-    case 32: return launch<32>(l0 != 0, P, nlanes, st);
-    case 16: return launch<16>(l0 != 0, P, nlanes, st);
-    case 8: return launch<8>(l0 != 0, P, nlanes, st);
+    case 32: return launch<32>(l0 != 0, P, nlanes, workers, st);
+    case 16: return launch<16>(l0 != 0, P, nlanes, workers, st);
+    case 8: return launch<8>(l0 != 0, P, nlanes, workers, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

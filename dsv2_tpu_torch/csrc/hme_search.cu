@@ -9,49 +9,66 @@
 // layout are in csrc/hme_block.cuh (shared with the lockstep kernels of
 // csrc/hme_gang.cu).
 //
-// What bounds it on an H100: by bytes, the level's planes and grids read
-// once and written once (~12 MB at FHD level 0, ~4 us at 3.35 TB/s); by
-// operations, ~26 candidate metrics of ~30 integer operations per quad per
-// block. In practice the chain of dependent diagonals sets the time (187
-// at FHD level 0), and inside a diagonal one block's search, whose
-// candidate metrics, refine probes and decisions depend on each other.
-// Design: one CTA per level, a loop over the diagonals inside the CTA in
-// place of the TPU's sequential grid (a barrier between diagonals). A warp
-// searches one block (Tile<32>): its 32 lanes run the block's control flow
-// in step and split every pixel or quad loop between them, with shuffle
-// reductions; a CTA has up to 16 warps (a thread keeps 128 registers),
-// which take the blocks of a diagonal in turn. Each warp reads its
-// neighbours, parents and temporal candidates from the grids itself (the
-// TPU's pre-gathered candidate pack and SMEM ring are gone) and lane 0
-// writes the results into the grids.
+// What bounds it on an H100: not bytes (the level's planes and grids read
+// once and written once: ~12 MB at FHD level 0, 0.0029 ms at 3.35 TB/s),
+// but the dependency depth of a level, its number of anti-diagonals (187
+// at FHD level 0), times one block's search, a chain of dependent metrics,
+// reductions and decisions.
+// Design. The base level (kernel 5) runs on the whole card: its blocks are
+// claimed by warps of CTAs on every SM in the topological order of
+// csrc/hme_sched.cuh, and each block starts as soon as its left and top
+// neighbours have published their fields, with no barrier between
+// diagonals; inside a block, independent metrics share one pass and their
+// reductions interleave (hme_block.cuh). An upper level (kernel 4) is one
+// CTA that walks the level's diagonals, a barrier between them, its warps
+// taking the blocks of a diagonal in turn (up to 16 warps: a thread keeps
+// 128 registers). Either way a warp searches one block (Tile<32>), its
+// lanes splitting every pixel or quad loop, and reads its neighbours,
+// parents and temporal candidates from the grids itself (the TPU's
+// pre-gathered candidate pack and SMEM ring are gone); lane 0 writes the
+// results into the grids.
 
 #include "hme_block.cuh"
 
 namespace {
 
-template <bool L0>
-__global__ void __launch_bounds__(kMaxThreads) hme_kernel(G g, Lv L,
-                                                         int* sums) {
+__global__ void __launch_bounds__(kMaxThreads) hme_level_kernel(G g, Lv L) {
   extern __shared__ __align__(16) uint8_t smem[];
-  walk_level<32, L0>(g, L, sums, smem);
+  walk_level<32>(g, L, smem);
 }
 
-int launch(bool l0, const int* geom, Lv L, int* sums, void* stream) {
+__global__ void __launch_bounds__(kDagThreads)
+    hme_level0_kernel(G g, Lv L, int* sums, Dag dag) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  level0_dag<32>(dag, smem, [&](int, G& gl, Lv& Ll, int*& s) {
+    gl = g;
+    Ll = L;
+    s = sums;
+  });
+}
+
+int launch(bool l0, const int* geom, Lv L, int* sums, int* sched, int workers,
+           void* stream) {
   G g;
   int* gp = reinterpret_cast<int*>(&g);
   for (int k = 0; k < kGeomLen; ++k) gp[k] = geom[k];
   if (!geometry_ok(g)) return (int)cudaErrorInvalidValue;
-  const int warps = level_tiles(g, 32);
   L.src.W = L.ref.W = L.ogr.W = g.W;
   L.src.H = L.ref.H = L.ogr.H = g.H;
   L.su.W = L.sv.W = L.ru.W = L.rv.W = g.CW;
   L.su.H = L.sv.H = L.ru.H = L.rv.H = g.CH;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)warps * kHgBytes;
-  if (l0)
-    hme_kernel<true><<<1, 32 * warps, smem, st>>>(g, L, sums);
-  else
-    hme_kernel<false><<<1, 32 * warps, 0, st>>>(g, L, sums);
+  if (!l0) {
+    const int warps = level_tiles(g, 32);
+    hme_level_kernel<<<1, 32 * warps, (size_t)warps * kWalkTileBytes, st>>>(
+        g, L);
+    return (int)cudaGetLastError();
+  }
+  const Dag dag{g.nbh, g.nbv, 1, sched, sched + 1};
+  int threads;
+  const int ctas = dag_shape(g.nbh * g.nbv, 32, workers, &threads);
+  hme_level0_kernel<<<ctas, threads, (threads / 32) * kTileBytes, st>>>(
+      g, L, sums, dag);
   return (int)cudaGetLastError();
 }
 
@@ -73,18 +90,21 @@ extern "C" int dsv2t_hme_level(const uint8_t* src, const uint8_t* ref,
   L.tmv = tmv;
   L.gxy = gxy;
   L.out = out;
-  return launch(false, geom, L, nullptr, stream);
+  return launch(false, geom, L, nullptr, nullptr, 0, stream);
 }
 
 // The base level (kernel 5): fills out (7, nbv, nbh) (zeroed by the
 // caller) with fx, fy, flags, err, dc, submask, fskip and adds the frame
 // sums terr, ndiff, nelig, nintra to sums (4,) (zeroed by the caller).
+// sched: the scheduler's scratch, 1 + nbv * nbh int32 zeroed by the
+// caller; workers: the warps that search blocks (0: 2 on every SM).
 extern "C" int dsv2t_hme_level0(const uint8_t* src, const uint8_t* ref,
                                 const uint8_t* ogr, const uint8_t* su,
                                 const uint8_t* sv, const uint8_t* ru,
                                 const uint8_t* rv, const int* parent,
                                 const int* tmv, const int* gxy, int* out,
-                                int* sums, const int* geom, void* stream) {
+                                int* sums, int* sched, int workers,
+                                const int* geom, void* stream) {
   Lv L = {};
   L.src.p = src;
   L.ref.p = ref;
@@ -97,5 +117,32 @@ extern "C" int dsv2t_hme_level0(const uint8_t* src, const uint8_t* ref,
   L.tmv = tmv;
   L.gxy = gxy;
   L.out = out;
-  return launch(true, geom, L, sums, stream);
+  return launch(true, geom, L, sums, sched, workers, stream);
+}
+
+namespace {
+
+__global__ void isqrt_check_kernel(unsigned long long* bad) {
+  unsigned long long n_bad = 0;
+  const unsigned long long step = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long n = (unsigned long long)blockIdx.x * blockDim.x +
+                              threadIdx.x;
+       n < (1ull << 32); n += step) {
+    const unsigned long long r = isqrt_u32((unsigned)n);
+    n_bad += !(r * r <= n && (r + 1) * (r + 1) > n);
+  }
+  if (n_bad) atomicAdd(bad, n_bad);
+}
+
+}  // namespace
+
+// The exact-square-root check of the card tests: adds to *bad (zeroed by
+// the caller) the uint32 values n whose isqrt_u32 (csrc/hme_block.cuh) is
+// not floor(sqrt(n)), over all 2^32 of them.
+extern "C" int dsv2t_isqrt_check(unsigned long long* bad, void* stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  isqrt_check_kernel<<<8 * sms, 256, 0, (cudaStream_t)stream>>>(bad);
+  return (int)cudaGetLastError();
 }

@@ -30,12 +30,15 @@ _ENTRY = {"vk_chain": ("dsv2t_vk_chain", [_P, _P, _P, _P, _P, _I, _I, _P]),
           "wavefront_filter": ("dsv2t_wavefront_filter",
                                [_I, _P, _P, _P, _I, _P, _P]),
           "hme_level": ("dsv2t_hme_level", [_P] * 9),
-          "hme_level0": ("dsv2t_hme_level0", [_P] * 14),
-          "hme_gang": ("dsv2t_hme_gang", [_I, _I, _I, _P, _P, _P, _P]),
+          "hme_level0": ("dsv2t_hme_level0", [_P] * 13 + [_I, _P, _P]),
+          "isqrt_check": ("dsv2t_isqrt_check", [_P, _P]),
+          "hme_gang": ("dsv2t_hme_gang",
+                       [_I, _I, _I, _P, _P, _P, _P, _I, _P]),
           "probe_gang": ("dsv2t_probe_gang",
                          [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P])}
 # one source may hold several entry points
-_SOURCE = {"hme_level": "hme_search", "hme_level0": "hme_search"}
+_SOURCE = {"hme_level": "hme_search", "hme_level0": "hme_search",
+           "isqrt_check": "hme_search"}
 _GEOM = ("pw", "ph", "tw", "th", "ntx", "nty", "L", "nd", "mr", "mc", "HP",
          "WP", "wh", "ww")
 _PLAN = ("R", "C", "J", "LC", "wstride", "rows", "threads", "smem")
@@ -193,27 +196,41 @@ def hme_level(src, ref, ogr, parent, tmv, gxy, out, geom):
          ctypes.c_void_p(geom.ctypes.data))
 
 
-def hme_level0(src, ref, ogr, chroma, parent, tmv, gxy, out, sums, geom):
+def hme_level0(src, ref, ogr, chroma, parent, tmv, gxy, out, sums, sched,
+               geom):
     """Launch csrc/hme_search.cu's base-level search on the current
-    stream; tensors checked by the caller (ops/hme_gpu.hme_level0)."""
+    stream; tensors checked by the caller (ops/hme_gpu.hme_level0), sched
+    the scheduler's zeroed scratch (its workers are the kernel's default;
+    tools/torch_profile.py --hme sweeps them through the C entry)."""
     geom = np.ascontiguousarray(geom, dtype=np.int32)
     _run("hme_level0", src.device, *(_ptr(t) for t in (
-        (src, ref, ogr) + tuple(chroma) + (parent, tmv, gxy, out, sums))),
-         ctypes.c_void_p(geom.ctypes.data))
+        (src, ref, ogr) + tuple(chroma) + (parent, tmv, gxy, out, sums,
+                                           sched))),
+         0, ctypes.c_void_p(geom.ctypes.data))
 
 
-def hme_gang(l0, tw, geom, ptrs, scal, dev):
+def isqrt_check(bad):
+    """Launch csrc/hme_search.cu's check of the exact square root over all
+    2^32 inputs on the current stream; bad: a zeroed int64 CUDA tensor
+    (1,) that receives the count of wrong roots."""
+    _run("isqrt_check", bad.device, _ptr(bad))
+
+
+def hme_gang(l0, tw, geom, ptrs, scal, dev, sched=None):
     """Launch csrc/hme_gang.cu for every stream lane of a flush on the
     current stream: l0 picks the base level, tw the lanes per block; geom
     the shared GEOM ints, ptrs (lanes, 12) int64 device pointers, scal
     (lanes, 3) int32 (quant, skip_thresh, b2sr), all host numpy arrays;
-    tensors checked by the caller (ops/hme_gpu.hme_gang_level[0])."""
+    at the base level sched, the scheduler's zeroed int32 scratch (its
+    workers are the kernel's default); tensors checked by the caller
+    (ops/hme_gpu.hme_gang_level[0])."""
     geom = np.ascontiguousarray(geom, dtype=np.int32)
     ptrs = np.ascontiguousarray(ptrs, dtype=np.int64)
     scal = np.ascontiguousarray(scal, dtype=np.int32)
     _run("hme_gang", dev, int(l0), int(tw), len(scal),
          ctypes.c_void_p(geom.ctypes.data), ctypes.c_void_p(ptrs.ctypes.data),
-         ctypes.c_void_p(scal.ctypes.data))
+         ctypes.c_void_p(scal.ctypes.data),
+         ctypes.c_void_p(None if sched is None else sched.data_ptr()), 0)
 
 
 def probe_gang(variant, mode, plane, cx, cy, out, nb, evals):

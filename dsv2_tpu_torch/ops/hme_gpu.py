@@ -17,13 +17,18 @@ lanes (ops/hme_gang builds the search from them).
 Layout: the TPU kernels walk the anti-diagonals as a sequential grid,
 keep the last three diagonals in an SMEM ring and get every parent and
 temporal candidate pre-gathered per diagonal in XLA, then unskew the
-rows. Here one CTA walks the diagonals of a level in a loop (a barrier
-between diagonals); a warp searches one block, its lanes splitting the
-pixel loops, and up to 16 warps take the blocks of a diagonal in turn.
-Each warp reads its neighbours, parents and temporal candidates straight
-from the (nbv, nbh) grids and writes its results into them. The planes
-stay the bordered uint8 planes; a window is read at its start clamped
-into the plane, exactly like the plain version's.
+rows. Here an upper level is one CTA that walks the diagonals of the
+level in a loop (a barrier between diagonals), up to 16 warps taking the
+blocks of a diagonal in turn; the base level spreads its blocks (every
+lane's, under the gang kernel) over CTAs on every SM, each block claimed
+in topological order and started once its left and top neighbours are
+published (csrc/hme_sched.cuh; the wrapper zeroes the scheduler's
+scratch, a ticket and a ready flag per block). A warp searches one
+block, its lanes splitting the pixel loops, reads its neighbours,
+parents and temporal candidates straight from the (nbv, nbh) grids and
+writes its results into them. The planes stay the bordered uint8
+planes; a window is read at its start clamped into the plane, exactly
+like the plain version's.
 """
 import numpy as np
 import torch
@@ -108,6 +113,12 @@ def hme_level(cfg, level, src, ref, ogr, parent, tmv, gxy, quant):
     return out
 
 
+def _sched(cfg, lanes, dev):
+    """The zeroed scratch of the base-level scheduler: a ticket and a
+    ready flag per block of every lane."""
+    return torch.zeros(1 + lanes * cfg.nbv * cfg.nbh, dtype=_I32, device=dev)
+
+
 def hme_level0(cfg, src, ref, ogr, chroma, parent, tmv, gxy, quant,
                skip_thresh):
     """The base level on the card (kernel 5): returns ((NF0, nbv, nbh)
@@ -122,7 +133,7 @@ def hme_level0(cfg, src, ref, ogr, chroma, parent, tmv, gxy, quant,
         raise ValueError("chroma planes differ in shape")
     geom = geometry(cfg, 0, [src], list(chroma), quant, skip_thresh)
     _kernels.hme_level0(src, ref, ogr, chroma, parent, tmv, gxy, out, sums,
-                        geom)
+                        _sched(cfg, 1, dev), geom)
     launches["hme_level0"] += 1
     return out, sums
 
@@ -217,7 +228,8 @@ def hme_gang_level0(cfg, srcs, refs, ogrs, chromas, parent, tmv, gxy,
         geom, ptrs, scal = _gang_args(
             cfg, 0, lanes, parent[sl], tmv[sl], gxy[sl], out[sl], sums[sl],
             quants[sl], skip_threshs[sl], gang or GANG)
-        _kernels.hme_gang(True, 32 // (gang or GANG), geom, ptrs, scal, dev)
+        _kernels.hme_gang(True, 32 // (gang or GANG), geom, ptrs, scal, dev,
+                          _sched(cfg, len(lanes), dev))
         launches["hme_gang_level0"] += 1
     return out, sums
 

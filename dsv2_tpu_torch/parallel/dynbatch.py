@@ -58,7 +58,8 @@ def _wait(out):
 
 class LockstepBatcher:
     def __init__(self, width):
-        """width: the most lanes one flush runs (the group's streams)."""
+        """width: the most lanes one builder call runs; a flush with more
+        lanes runs them width at a time."""
         self.width = width
         self._cond = threading.Condition()
         self._active = 0
@@ -80,11 +81,11 @@ class LockstepBatcher:
         """Queue one lane; returns this lane's slice of the batched output.
         key = (kind, cfg): cfg hashable and identical for lanes batched
         together; builder(cfg) -> fn(lanes). post(out) -> out runs once per
-        flushed batch. fetch: whether the host reads the outputs (the
-        twin's leaf selection for its merged fetch); a truthy fetch makes
-        the flusher wait for the device, so the batched run shows in the
-        lockstep.run stage. The first submission of a key fixes post and
-        fetch."""
+        run of at most `width` lanes. fetch: whether the host reads the
+        outputs (the twin's leaf selection for its merged fetch); a truthy
+        fetch makes the flusher wait for the device, so the batched run
+        shows in the lockstep.run stage. The first submission of a key
+        fixes post and fetch."""
         entry = [args, None, False]
         with self._cond:
             self._seq += 1
@@ -131,24 +132,25 @@ class LockstepBatcher:
                 if any(p[3] is not fetch for p in pending):
                     raise ValueError("lockstep key %r: lanes submitted "
                                      "different fetch specs" % (key[0],))
-                if len(pending) > self.width:
-                    raise ValueError("lockstep key %r: %d lanes in a batcher "
-                                     "of width %d" % (key[0], len(pending),
-                                                      self.width))
                 kname = key[0]
                 with stage("lockstep.stack.%s" % kname):
                     fn = builder(key[1])
                     lanes = [e[0] for e, *_ in pending]
-                with stage("lockstep.dispatch.%s" % kname):
-                    out = fn(lanes)
-                with stage("lockstep.run.%s" % kname):
-                    if fetch:
-                        _wait(out)
-                if post is not None:
-                    with stage("lockstep.post.%s" % kname):
-                        out = post(out)
-                for i, (e, *_) in enumerate(pending):
-                    e[1] = _lane(out, i)
+                # more lanes than width (one group holding more streams):
+                # runs of at most width lanes, one after another
+                for lo in range(0, len(lanes), self.width):
+                    with stage("lockstep.dispatch.%s" % kname):
+                        out = fn(lanes[lo:lo + self.width])
+                    with stage("lockstep.run.%s" % kname):
+                        if fetch:
+                            _wait(out)
+                    if post is not None:
+                        with stage("lockstep.post.%s" % kname):
+                            out = post(out)
+                    for i, (e, *_) in enumerate(
+                            pending[lo:lo + self.width]):
+                        e[1] = _lane(out, i)
+                for e, *_ in pending:
                     e[2] = True
             except BaseException as exc:  # propagate to every waiter
                 for e, *_ in pending:
@@ -164,16 +166,18 @@ def encode_streams_lockstep(stream_frames, enc_factory, width=None,
     packet: the caller that concatenates streams appends one).
     Byte-identical to encoding each stream sequentially.
 
-    groups > 1 pipelines the device: the streams split contiguously into
-    `groups` independent batchers of `width` lanes each (default: the
-    streams spread evenly), so one group's flush runs on the device while
-    the other groups' threads do their host work. Raises when groups *
-    width streams cannot hold them all (the twin silently drops the
-    rest)."""
+    With one group every stream runs, whatever `width` is: a flush
+    holding more lanes than `width` runs them `width` at a time (the
+    twin vmaps them all in one call). groups > 1 pipelines the device:
+    the streams split contiguously into `groups` independent batchers of
+    `width` lanes each (default: the streams spread evenly), so one
+    group's flush runs on the device while the other groups' threads do
+    their host work; raises when groups * width streams cannot hold them
+    all (the twin silently drops the rest)."""
     n = len(stream_frames)
     groups = max(int(groups), 1)
     width = width or -(-n // groups)
-    if groups * width < n:
+    if groups > 1 and groups * width < n:
         raise ValueError("%d streams do not fit %d groups of width %d"
                          % (n, groups, width))
     if groups == 1:

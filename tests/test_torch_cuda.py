@@ -1,6 +1,7 @@
 """torch port on the card: the hand-written CUDA kernels (the vk chain,
-the in-loop filter wavefront) against their plain versions, and the
-device encode and decode paths against the golden streams.
+the in-loop filter wavefront, the motion search) against their plain
+versions, the motion search's exact square root over every uint32, and
+the device encode and decode paths against the golden streams.
 
 Marked `cuda`; each test skips (from the `cuda` fixture, never at import)
 where torch sees no GPU. Run them on the card with
@@ -239,6 +240,18 @@ def test_decode_p_golden_cuda(cuda, key):
     assert n["luma"] > 0 and n["chroma"] == n["luma"]   # U+V: one launch
 
 
+@pytest.mark.parametrize("key", ["cif352x288_420_12f@crf_gop6",
+                                 "cif352x288_420_12f@qp85"])
+def test_decode_dense_golden_cuda(cuda, key):
+    """Streams with pictures the compact scan upload cannot carry decode
+    on the card's device chain (dense upload) to dsv2_tpu's y4m."""
+    from dsv2_tpu_torch.codec import decoder
+    from dsv2_tpu_torch.utils import y4m
+    y = golden.decoded_y4m(decoder, y4m, golden.read_stream(key),
+                           decoder=decoder.Decoder(device=cuda))
+    assert golden.digest(y) == golden.load()[key]["decode"]
+
+
 def test_decode_intra_golden_cuda(cuda):
     from dsv2_tpu_torch import cli
     from dsv2_tpu_torch.codec import decoder
@@ -282,6 +295,66 @@ def test_hme_kernels_vs_plain(cuda, name, has_tmv, effort):
     for k in golden.HME_OUTPUTS:
         assert got[k].is_cuda and got[k].dtype == want[k].dtype, k
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+# (input, has_tmv, effort, hme_case keywords): every effort the subpel and
+# chroma tests branch on, with and without temporal candidates; lossless
+# 4:4:4; 32x32 blocks; the three extreme geometries of test_edge_dims.py
+LEVEL0_CASES = ([("odd100x62_420_4f", tmv, e, {}) for e in (0, 4, 5, 8, 10)
+                 for tmv in (False, True)]
+                + [("tiny64x48_444_4f", True, 10, dict(lossless=True,
+                                                       quant=1)),
+                   ("cif352x288_420_12f", True, 10, dict(blk=32)),
+                   ("synth352x16_420", True, 10, {}),
+                   ("synth16x240_420", True, 10, {}),
+                   ("synth64x500_411", True, 10, {})])
+
+
+@pytest.mark.parametrize("name,has_tmv,effort,kw", LEVEL0_CASES,
+                         ids=["%s-tmv%d-e%d%s" % (c[0], c[1], c[2], "".join(
+                             "-%s%s" % kv for kv in c[3].items()))
+                             for c in LEVEL0_CASES])
+def test_hme_level0_cases(cuda, name, has_tmv, effort, kw):
+    """Kernels 4/5 (the base level on the dataflow scheduler) against the
+    plain version on every field and sum (exact)."""
+    from dsv2_tpu_torch.ops import hme_gpu, hme_wave
+    frames, meta = read_y4m(golden.input_path(name))
+    cfg, inputs = golden.hme_case(frames, meta, has_tmv=has_tmv,
+                                  effort=effort, device=cuda, **kw)
+    fn = hme_gpu.make_motion_est(hme_wave.WaveCfg(**cfg))
+    got = fn(*inputs)
+    want = fn(*_cpu(inputs))
+    for k in golden.HME_OUTPUTS:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_hme_repeats(cuda):
+    """20 launches of kernel 5 (CIF) and of kernel 7 (8 CIF lanes) on the
+    same inputs give identical outputs: workers claim blocks in another
+    order each run, so a race would show."""
+    from dsv2_tpu_torch.ops import hme_gang, hme_gpu, hme_wave
+    frames, meta = read_y4m(golden.input_path("cif352x288_420_12f"))
+    cfg, inputs = golden.hme_case(frames, meta, has_tmv=True, device=cuda)
+    cfg8, lanes = golden.hme_lanes(frames, meta, 8, has_tmv=True,
+                                   device=cuda)
+    for fn in (lambda: hme_gpu.make_motion_est(hme_wave.WaveCfg(**cfg))(
+            *inputs), lambda: hme_gang.make_motion_est(
+                hme_wave.WaveCfg(**cfg8))(lanes)):
+        first = {k: v.clone() for k, v in fn().items()}
+        for _ in range(19):
+            got = fn()
+            for k, v in first.items():
+                assert torch.equal(got[k], v), k
+
+
+def test_isqrt_exhaustive(cuda):
+    """The kernels' integer square root (float root + integer correction)
+    is floor(sqrt(n)) for all 2^32 uint32 n."""
+    from dsv2_tpu_torch.ops import _kernels
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+    _kernels.isqrt_check(bad)
+    torch.cuda.synchronize()
+    assert int(bad) == 0
 
 
 def test_hme_kernel_rejects(cuda):
@@ -364,6 +437,28 @@ def test_hme_gang_vs_pallas(cuda, name, nlanes, gang):
             want = hme_gpu.make_motion_est(wcfg)(*inputs)
             for k in golden.HME_OUTPUTS:
                 assert torch.equal(got[k][i], want[k]), (has_tmv, i, k)
+
+
+@pytest.mark.parametrize("nlanes", [1, 7, 8, 32, 33])
+def test_hme_gang_lanes(cuda, nlanes):
+    """Kernel 7 (every lane's base level on one scheduler; 33 lanes are two
+    launches) with 1 to 33 lanes: every lane equals kernels 4/5 on its own
+    inputs, and the first lane the plain version."""
+    from dsv2_tpu_torch.ops import hme_gang, hme_gpu, hme_wave
+    frames, meta = read_y4m(golden.input_path("odd100x62_420_4f"))
+    cfg, lanes = golden.hme_lanes(frames, meta, nlanes, has_tmv=True,
+                                  device=cuda)
+    wcfg = hme_wave.WaveCfg(**cfg)
+    n0 = hme_gpu.launches["hme_gang_level0"]
+    got = hme_gang.make_motion_est(wcfg)(lanes)
+    assert hme_gpu.launches["hme_gang_level0"] - n0 == -(-nlanes // 32)
+    plain = hme_wave.make_motion_est(wcfg)(*_cpu(lanes[0]))
+    for i, inputs in enumerate(lanes):
+        want = hme_gpu.make_motion_est(wcfg)(*inputs)
+        for k in golden.HME_OUTPUTS:
+            assert torch.equal(got[k][i], want[k]), (i, k)
+            if i == 0:
+                assert torch.equal(got[k][0].cpu(), plain[k]), k
 
 
 def test_hme_gang_rejects(cuda):

@@ -224,18 +224,26 @@ def test_from_reference():
 
 
 def test_unported_paths_raise():
-    """A corrupt plane, a scan past the compact-upload contract and an
-    arena geometry raise; they never fall back quietly."""
+    """A corrupt plane and an arena geometry raise; they never fall back
+    quietly. A scan past the compact-upload contract is no longer one of
+    them: the same picture uploaded dense decodes to the same frame."""
     key = golden.p_key(golden.P_CASES[0])
     bufs = [b for _, b in jpacket.iter_packets(
         io.BytesIO(golden.read_stream(key)))]
     td = decoder.Decoder(device="cpu")
     td.parse_packet(bufs[0])
     code, job, _ = td.parse_packet(bufs[1])
-    assert code == decoder.DEC_OK
-    for change in (dict(bad_planes=[1]), dict(cvs=None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-            td._execute_job(dict(job, **change))
+    assert code == decoder.DEC_OK and not job["dense"]
+    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+        td._execute_job(dict(job, bad_planes=[1]))
+    frames = []
+    for change in ({}, dict(cvs=tuple(job["vs"]), dense=True)):
+        d = decoder.Decoder(device="cpu")
+        d.parse_packet(bufs[0])
+        _, realize, _ = d._execute_job(dict(job, **change))
+        frames.append(realize())
+    for c in range(3):
+        assert np.array_equal(frames[0].view(c), frames[1].view(c))
     td._use_arena = True
     with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
         td._execute_job(job)

@@ -4,9 +4,10 @@ tests/test_parallel.py's lockstep test: tiny64x48_420_6f as 3 streams of
 -gop=2 (an I and a P frame each) with width 4. Every lane must equal the
 port's sequential encode of its frames and dsv2_tpu's (JAX on the CPU,
 its host motion search), with no end-of-stream packet, for the "gang"
-and "pallas" motion-search backends, in one group and in two. Plus: too
-many streams for groups * width raises, and a lane's error reaches the
-caller without leaving a thread hanging.
+and "pallas" motion-search backends, in one group and in two, and in
+one group narrower than the streams (flushes split into runs of at most
+width lanes). Plus: too many streams for groups > 1 of width raises,
+and a lane's error reaches the caller without leaving a thread hanging.
 """
 import threading
 
@@ -16,6 +17,7 @@ from torch_parity import REPO  # noqa: F401  (sys.path for the golden tool)
 import torch_port_golden as golden
 from dsv2_tpu_torch import cli
 from dsv2_tpu_torch.cli import read_y4m
+from dsv2_tpu_torch.ops import hme_gang
 from dsv2_tpu_torch.parallel import dynbatch
 
 NAME, QP, GOP = "tiny64x48_420_6f", 60, 2
@@ -81,11 +83,40 @@ def test_lockstep_matches_sequential(backend, groups):
 
 
 def test_lockstep_too_many_streams_raises():
+    """groups > 1 that cannot hold every stream raises (the twin drops
+    the streams past groups * width)."""
     streams, meta = _streams()
-    for width, groups in ((2, 1), (1, 2)):
-        with pytest.raises(ValueError, match="do not fit"):
-            dynbatch.encode_streams_lockstep(streams, _factory(meta, "gang"),
-                                             width=width, groups=groups)
+    with pytest.raises(ValueError, match="do not fit"):
+        dynbatch.encode_streams_lockstep(streams, _factory(meta, "gang"),
+                                         width=1, groups=2)
+
+
+@pytest.mark.parametrize("backend", ["gang", "pallas"])
+def test_lockstep_width_below_streams(backend):
+    """One group runs every stream whatever its width: 3 streams at
+    width 2 flush in runs of at most 2 lanes, each stream's bytes equal
+    to its sequential encode."""
+    port, _ = _sequential()
+    streams, meta = _streams()
+    sizes = []
+    make_gang = hme_gang.make_motion_est
+
+    def counting(cfg):
+        fn = make_gang(cfg)
+
+        def f(lanes):
+            sizes.append(len(lanes))
+            return fn(lanes)
+        return f
+    hme_gang.make_motion_est = counting
+    try:
+        got = _run(lambda: dynbatch.encode_streams_lockstep(
+            streams, _factory(meta, backend), width=2, groups=1))
+    finally:
+        hme_gang.make_motion_est = make_gang
+    assert got == port
+    if backend == "gang":
+        assert sizes and max(sizes) == 2, sizes
 
 
 def test_lockstep_lane_error_reaches_caller():

@@ -16,7 +16,11 @@ kept as digests only (nano and odd 4:2:0, lossless 4:4:4, nano at
 bench.p_lockstep cuts it): the synthetic CIF 352x288 4:2:0 384-frame
 clip cut into 8 streams of 48 frames at -qp=60 -gop=48; each lane's entry
 is the digest of `dsv2_tpu`'s sequential encode of its frames with no
-end-of-stream packet, which is that lane's lockstep output. The port's
+end-of-stream packet, which is that lane's lockstep output. DENSE_CASES
+are streams with planes whose scans the decoder's compact upload cannot
+carry (more than 64 high-band values outside int8): CIF at the CLI's
+default CRF with -gop=6, CIF at -qp=85 (both streams committed) and 3
+FHD frames at -qp=90 -gop=0 (digests only). The port's
 tests and chip_smoke.py compare against these files; the machine with
 the GPU has no JAX.
 
@@ -31,6 +35,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,6 +57,10 @@ P_DIGESTS = [("nano48x32_420_4f", 60, 4, 4, None),
              ("odd100x62_420_4f", 60, 4, 4, None),
              ("tiny64x48_444_4f", 100, 4, 4, None),
              ("nano48x32_420_4f", 60, 4, 4, 5)]
+# (name, qp or None for the CLI's default CRF, gop, frames) of the streams
+# that need the decoder's dense scan upload; the CIF streams are committed
+DENSE_CASES = [("cif352x288_420_12f", None, 6, 8),
+               ("cif352x288_420_12f", 85, 0, 3), (FHD, 90, 0, 3)]
 
 
 def cases():
@@ -63,7 +72,7 @@ def cases():
 
 
 def key(name, qp, gop=0, effort=None):
-    k = "%s@qp%d" % (name, qp)
+    k = "%s@%s" % (name, "crf" if qp is None else "qp%d" % qp)
     if gop:
         k += "_gop%d" % gop
     if effort is not None:
@@ -72,7 +81,7 @@ def key(name, qp, gop=0, effort=None):
 
 
 def p_key(case):
-    """Key of a P_CASES or P_DIGESTS entry."""
+    """Key of a P_CASES, P_DIGESTS or DENSE_CASES entry."""
     return key(case[0], case[1], case[2], *case[4:])
 
 
@@ -99,8 +108,12 @@ def read_stream(k):
 
 
 def input_path(name):
-    """The y4m for a case; a synthetic input (SYNTH) is generated (seeded)
+    """The y4m for a case; a synthetic input (SYNTH, or
+    "synth<w>x<h>_<subs>": 2 frames of synth_input) is generated (seeded)
     under build/ on first use."""
+    m = re.fullmatch(r"synth(\d+)x(\d+)_(\d+)", name)
+    if m:
+        return synth_input(int(m[1]), int(m[2]), m[3], 2)
     if name not in SYNTH:
         return os.path.join(FIXTURES, name + ".y4m")
     path = os.path.join(SYNTH_DIR, name + ".y4m")
@@ -118,10 +131,11 @@ def encode(cli, frames, meta, qp, batch=None, chunk=16, gop=0, effort=None,
            eos=True, **enc_kw):
     """The -qp=<qp> -gop=<gop> [-effort=<effort>] stream of `frames`
     through a CLI module's make_encoder (dsv2_tpu.cli or
-    dsv2_tpu_torch.cli): sequential encode_frame calls, or the batched
-    path if `batch` (an encode_intra_batch) is given; with eos=False
-    without the end-of-stream packet (a lockstep lane's bytes)."""
-    opts = dict(qp=qp, gop=gop)
+    dsv2_tpu_torch.cli), the CLI's default CRF for qp None: sequential
+    encode_frame calls, or the batched path if `batch` (an
+    encode_intra_batch) is given; with eos=False without the
+    end-of-stream packet (a lockstep lane's bytes)."""
+    opts = dict(gop=gop) if qp is None else dict(qp=qp, gop=gop)
     if effort is not None:
         opts["effort"] = effort
     enc = cli.make_encoder(meta, cli.default_enc_opts(**opts), **enc_kw)
@@ -154,15 +168,17 @@ def decoded_y4m(decoder_mod, y4m_mod, data, decoder=None):
 
 
 def hme_case(frames, meta, has_tmv=False, effort=10, quant=1200,
-             shift=(3, 2), seed=0, skip_thresh=0, device="cpu"):
+             shift=(3, 2), seed=0, skip_thresh=0, device="cpu", blk=None,
+             lossless=False):
     """Seeded inputs of the port's motion search (the arguments of
     dsv2_tpu_torch.ops.hme_wave.make_motion_est) built from the first
     frame of `frames`: the source is that frame shifted by `shift` with
     noise, the reference a noised copy of it (the "recon"), the original
     reference the frame itself; one block of the source is a copy of the
     reference (skip) and one a flat patch (intra), so the refine, subpel,
-    skip, intra and EPRM branches fire. Returns (WaveCfg field dict,
-    inputs tuple) with the planes as tensors on `device`."""
+    skip, intra and EPRM branches fire. Blocks are the encoder's size for
+    the frame unless `blk` is given. Returns (WaveCfg field dict, inputs
+    tuple) with the planes as tensors on `device`."""
     import numpy as np
     import torch
     from dsv2_tpu_torch.core import constants as K
@@ -184,7 +200,8 @@ def hme_case(frames, meta, has_tmv=False, effort=10, quant=1200,
     src = [noisy(f0[c], *cs[min(c, 1)], 3 if c == 0 else 2) for c in range(3)]
     ref = [noisy(f0[c], 0, 0, 2) for c in range(3)]
     ogr = [f0[c].astype(np.uint8) for c in range(3)]
-    blk = K.MAX_BLOCK_SIZE if min(w, h) > 1280 else K.MIN_BLOCK_SIZE
+    if blk is None:
+        blk = K.MAX_BLOCK_SIZE if min(w, h) > 1280 else K.MIN_BLOCK_SIZE
     src[0][:blk, :blk] = ref[0][:blk, :blk]
     src[0][blk:2 * blk, blk:blk + blk // 2] = 200
     nbh, nbv = -(-w // blk), -(-h // blk)
@@ -207,7 +224,7 @@ def hme_case(frames, meta, has_tmv=False, effort=10, quant=1200,
         tmv = np.zeros((2, nbv, nbh), np.int32)
     tmv = torch.as_tensor(tmv).to(dev)
     cfg = dict(nbh=nbh, nbv=nbv, blk_w=blk, blk_h=blk, vid_w=w, vid_h=h,
-               subsamp=sub, effort=effort, lossless=False,
+               subsamp=sub, effort=effort, lossless=lossless,
                pyramid_levels=lvls, has_tmv=has_tmv,
                skip_thresh_neg=skip_thresh < 0,
                dims=tuple([(w, h)] + [(im.round_shift(w, i + 1),
@@ -216,6 +233,22 @@ def hme_case(frames, meta, has_tmv=False, effort=10, quant=1200,
     inputs = (tuple(sp), tuple(rp), tuple(op), sb[1], sb[2], rb[1], rb[2],
               tmv[0], tmv[1], quant, skip_thresh)
     return cfg, inputs
+
+
+def synth_input(w, h, subs, nframes):
+    """A seeded synthetic y4m (tools/mkfixtures.write_y4m) of w x h in
+    chroma format `subs` ("420", "411", ...), generated under build/ on
+    first use; returns its path."""
+    path = os.path.join(SYNTH_DIR, "synth%dx%d_%s_%df.y4m"
+                        % (w, h, subs, nframes))
+    if not os.path.exists(path):
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        import mkfixtures
+        os.makedirs(SYNTH_DIR, exist_ok=True)
+        tmp = path + ".%d.tmp" % os.getpid()
+        mkfixtures.write_y4m(tmp, w, h, nframes, subs=subs)
+        os.replace(tmp, path)
+    return path
 
 
 def hme_lanes(frames, meta, n, has_tmv=False, effort=10, device="cpu"):
@@ -352,7 +385,7 @@ def main(argv=None):
 
     table = load() if os.path.exists(GOLDEN) else {}
     todo = ([(n, q, 0, None, None) for n, q in cases()]
-            + [c + (None,) for c in P_CASES] + P_DIGESTS)
+            + [c + (None,) for c in P_CASES + DENSE_CASES] + P_DIGESTS)
     name, qp, gop, lanes, per = LOCKSTEP
     todo_lanes = [i for i in range(lanes)
                   if not args.only or lane_key(i) in args.only]
@@ -380,11 +413,15 @@ def main(argv=None):
         entry.update(input=os.path.relpath(input_path(name), REPO)
                      if name not in SYNTH else "synthetic %dx%d %d frames "
                      "(tools/mkfixtures.write_y4m)" % SYNTH[name],
-                     args="-qp=%d -gop=%d" % (qp, gop)
+                     args=("" if qp is None else "-qp=%d " % qp)
+                     + "-gop=%d" % gop
                      + ("" if effort is None else " -effort=%d" % effort))
-        if gop and effort is None and (name, qp, gop, nfr) in P_CASES:
-            entry.update(frames=len(frames),
-                         stream=os.path.relpath(stream_path(k), REPO))
+        if nfr is not None:
+            entry["frames"] = len(frames)
+        if (effort is None and name != FHD and (name, qp, gop, nfr) in
+                DENSE_CASES) or (gop and effort is None
+                                 and (name, qp, gop, nfr) in P_CASES):
+            entry["stream"] = os.path.relpath(stream_path(k), REPO)
             with open(stream_path(k), "wb") as f:
                 f.write(data)
         entry["decode"] = digest(decoded_y4m(decoder, y4m, data))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the torch port's FHD intra encode spends its time, on one GPU.
 
-    python3 tools/torch_profile.py [--out DIR] [--wavefront | --phases]
+    python3 tools/torch_profile.py [--out DIR] [--wavefront | --phases |
+                                    --hme [--src CSRC ...]]
 
 Input: the seeded synthetic clip of chip_smoke.py's main path (1920x1080
 4:2:0, 32 frames, -qp=60 -gop=0, chunk 16). Prints one JSON line each:
@@ -44,6 +45,27 @@ With --phases it prints only:
            barrier), from a copy of csrc/wavefront_filter.cu with clock64
            stamps added, built under build/torch_profile/, on the planes
            of --wavefront at FHD and 2560x1440 4:4:4.
+
+With --hme it prints only:
+
+  hme_phases  the base-level motion search (kernel 5 on the FHD level 0
+           of P frames 1 and 2 of chip_smoke.py's P encode; kernel 7 on
+           8 seeded CIF lanes with temporal candidates, as chip_smoke.py's
+           phase hme_gang_vs_plain): the unstamped kernel's device ms
+           (CUDA events, mean of 3 launches after a warm-up; with the
+           dataflow scheduler, for several worker counts), and the clock
+           cycles per block that the search spends in each phase
+           (features, candidates, refine, subpel, decisions, intra tests,
+           the block's writes, and the wait before a block: the ticket
+           and the neighbours' flags under the scheduler, the barrier
+           between diagonals in the one-CTA walk), summed over every warp
+           and divided by the blocks, from copies of the sources with
+           clock64 stamps added by lane 0 of each warp. Each --src CSRC
+           (repeatable, run in the order given) takes the kernel sources
+           from a checkout's dsv2_tpu_torch/csrc (the parent's and this
+           one's in turns, to compare); the upper levels that feed level 0
+           always run this checkout's kernels 4/6, which equal any
+           correct version's. Both builds go under build/torch_profile/.
 
 Needs CUDA and nvcc; writes under build/ and DIR (default chiprun_out/).
 """
@@ -311,6 +333,302 @@ def wavefront_phases():
              device=torch.cuda.get_device_name(0))
 
 
+HME_PHASES = ("features", "candidates", "refine", "subpel", "decisions",
+              "intra", "writes", "wait")
+_HME_PRELUDE = r"""
+#define HME_PROF_WARPS 4096
+__device__ unsigned long long g_prof[HME_PROF_WARPS * 8];
+__device__ unsigned long long g_last[HME_PROF_WARPS];
+#define HME_WARP() ((blockIdx.x * blockDim.x + threadIdx.x) >> 5)
+#define HME_STAMP(k) { if ((threadIdx.x & 31) == 0 && HME_WARP() < \
+    HME_PROF_WARPS) { unsigned long long n_ = clock64(); \
+    g_prof[HME_WARP() * 8 + (k)] += n_ - g_last[HME_WARP()]; \
+    g_last[HME_WARP()] = n_; } }
+"""
+_HME_READ = r"""
+extern "C" int dsv2t_prof_read(unsigned long long* o) {
+  static unsigned long long z[HME_PROF_WARPS * 8];
+  cudaError_t e = cudaMemcpyFromSymbol(o, g_prof, sizeof(g_prof));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_prof, z, sizeof(g_prof));
+  return (int)e;
+}
+"""
+
+
+def _hme_stamped(src_dir, out_dir):
+    """Copies of src_dir's motion-search sources under out_dir with a
+    clock64 stamp closing each phase of HME_PHASES (anchors for the
+    one-CTA walk and for the dataflow version, whose search is split
+    around the wait for the neighbours: its "subpel" also counts the
+    first subpel probes before the wait); returns True if the sources
+    have the dataflow scheduler."""
+    import re
+    import shutil
+    dag = os.path.exists(os.path.join(src_dir, "hme_sched.cuh"))
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(src_dir):
+        if f.endswith((".cu", ".cuh")):
+            shutil.copy(os.path.join(src_dir, f), out_dir)
+
+    def stamp(k):
+        return "    HME_STAMP(%d)\n" % k
+    tail = [  # phases after the search, the same lines in both versions
+        (r"    const int mvx = fpelx \* 4 \+ sub_x, mvy = fpely \* 4 "
+         r"\+ sub_y;\n", stamp(3), True),
+        (r"    // luma intra subblock test", stamp(4), False),
+        (r"    bool intra = submask != 0;\n", stamp(5), True),
+        (r"    st\[3\] \+= intra;\n", stamp(6), True)]
+    if dag:  # search split around the wait for the neighbours
+        block = [
+            (r"    // candidates \(ref: hme.c:1443-1528\), in slot order",
+             stamp(0), False),
+            (r"    return true;\n  }\n\n  // The rest of the search",
+             stamp(1), False),
+            (r"    // good-enough vs the source reference", stamp(1), False),
+            (r"\n    wait\(\);\n", "\n" + stamp(3), False),
+            (r"    wait\(\);\n", stamp(7), True),
+            (r"(?m)^    block_post\(g, L, i, j, sw, r, c\);\n", stamp(2),
+             True)]
+    else:  # the one-CTA walk: search, then a barrier per diagonal
+        block = [
+            (r"    // median predictor \(ref: dsv.c:373-400\)\n", stamp(0),
+             False),
+            (r"    // good-enough vs the source reference", stamp(1), False),
+            (r"    if \(!block_search\([^\n]*\)\) return;\n", stamp(2),
+             True),
+            (r"    __syncthreads\(\);  // diagonal d is in the grids\n",
+             stamp(7), True)]
+    edits = {"hme_block.cuh": block + tail}
+    for name in ("hme_search.cu", "hme_gang.cu"):
+        edits[name] = [(r"  extern __shared__ __align__\(16\) uint8_t "
+                        r"smem\[\];\n", "  if ((threadIdx.x & 31) == 0 && "
+                        "HME_WARP() < HME_PROF_WARPS) g_last[HME_WARP()] = "
+                        "clock64();\n", True)]
+    for name, eds in edits.items():
+        if not eds:
+            continue
+        path = os.path.join(out_dir, name)
+        with open(path) as f:
+            src = f.read()
+        for anchor, text, after in eds:
+            src, n = re.subn(anchor, (lambda m: m.group(0) + text) if after
+                             else (lambda m: text + m.group(0)), src)
+            assert n >= 1, (name, anchor)
+        if name.endswith(".cu"):
+            src = _HME_PRELUDE + src + _HME_READ
+        with open(path, "w") as f:
+            f.write(src)
+    return dag
+
+
+def _hme_lib(src_dir, out_dir, stamped):
+    """Build hme_search.cu and hme_gang.cu of src_dir (stamped copies if
+    asked) under out_dir; returns ({name: CDLL}, dataflow?)."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from dsv2_tpu_torch.ops import _kernels
+    if stamped:
+        dag = _hme_stamped(src_dir, out_dir)
+        src_dir = out_dir
+    else:
+        dag = os.path.exists(os.path.join(src_dir, "hme_sched.cuh"))
+    os.makedirs(out_dir, exist_ok=True)
+
+    def build(name):
+        so = os.path.join(out_dir, "lib%s%s.so" % (name, "_st" * stamped))
+        subprocess.run([_kernels._nvcc()] + _kernels.NVCC_FLAGS
+                       + ["-o", so, os.path.join(src_dir, name + ".cu")],
+                       check=True, capture_output=True)
+        return name, ctypes.CDLL(so)
+    with ThreadPoolExecutor(2) as ex:
+        return dict(ex.map(build, ("hme_search", "hme_gang"))), dag
+
+
+def _hme_inputs(dev):
+    """Level-0 launches to study: ("fhd_p_frameN", cfg, lanes) for FHD P
+    frames 1 and 2 and ("cif_x8", cfg, lanes) for 8 seeded CIF lanes; a
+    lane is (planes, chroma, parent, tmv, gxy, quant, skip_thresh), the
+    parent field and global motion from this checkout's upper-level
+    kernels."""
+    import torch
+    import torch_port_golden as golden
+    from dsv2_tpu_torch import cli
+    from dsv2_tpu_torch.ops import hme_gang, hme_gpu, hme_wave
+
+    frames, meta = cli.read_y4m(golden.input_path(golden.FHD))
+    recorded = []
+    make_me = hme_gpu.make_motion_est
+
+    def recording(cfg):
+        fn = make_me(cfg)
+
+        def f(*inputs):
+            recorded.append((cfg, inputs))
+            return fn(*inputs)
+        return f
+    hme_gpu.make_motion_est = recording
+    try:
+        golden.encode(cli, frames[:3], meta, 60, gop=8, device=dev)
+    finally:
+        hme_gpu.make_motion_est = make_me
+    del frames
+    cases = []
+    for n, (cfg, inp) in enumerate(recorded):
+        sp, rp, op, su, sv, ru, rv, tmx, tmy, quant, skt = inp
+        tmv = torch.stack([tmx, tmy]).contiguous()
+        gxy = torch.zeros(2, dtype=torch.int32, device=dev)
+        parent = torch.zeros((2, cfg.nbv, cfg.nbh), dtype=torch.int32,
+                             device=dev)
+        for level in range(cfg.pyramid_levels, 0, -1):
+            parent = hme_gpu.hme_level(cfg, level, sp[level], rp[level],
+                                       op[level], parent, tmv, gxy,
+                                       int(quant))
+            gxy = torch.stack(hme_wave.global_motion_graph(
+                cfg, level, parent[0], parent[1]))
+        cases.append(("fhd_p_frame%d" % (n + 1), cfg, [
+            ((sp[0], rp[0], op[0]), (su, sv, ru, rv), parent, tmv, gxy,
+             int(quant), int(skt))]))
+    cif, cmeta = cli.read_y4m(golden.input_path("cif352x288_420_12f"))
+    cfgd, lanes = golden.hme_lanes(cif, cmeta, 8, has_tmv=True, device=dev)
+    cfg = hme_wave.WaveCfg(**cfgd)
+    n = len(lanes)
+    tmv = torch.stack([torch.stack([ln[7], ln[8]]) for ln in lanes]
+                      ).contiguous()
+    quants = [int(ln[9]) for ln in lanes]
+    gxy = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    parent = torch.zeros((n, 2, cfg.nbv, cfg.nbh), dtype=torch.int32,
+                         device=dev)
+    for level in range(cfg.pyramid_levels, 0, -1):
+        parent = hme_gpu.hme_gang_level(
+            cfg, level, [ln[0][level] for ln in lanes],
+            [ln[1][level] for ln in lanes], [ln[2][level] for ln in lanes],
+            parent, tmv, gxy, quants)
+        gxy = hme_gang.global_motion_lanes(cfg, level, parent)
+    cases.append(("cif_x8", cfg, [
+        ((ln[0][0], ln[1][0], ln[2][0]), tuple(ln[3:7]), parent[i], tmv[i],
+         gxy[i], quants[i], int(ln[10])) for i, ln in enumerate(lanes)]))
+    return cases
+
+
+def _hme_launcher(libs, dag, cfg, lanes, dev):
+    """fn(workers) -> one level-0 launch of `lanes` through libs (kernel 5
+    for one lane, kernel 7 for several), on fresh zeroed outputs; the
+    parent's ABI (no scheduler) when not dag."""
+    import ctypes
+    import numpy as np
+    import torch
+    from dsv2_tpu_torch.ops import hme_gpu
+    P, I = ctypes.c_void_p, ctypes.c_int
+    n = len(lanes)
+    out = torch.zeros((n, hme_gpu.NF0, cfg.nbv, cfg.nbh), dtype=torch.int32,
+                      device=dev)
+    sums = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    sched = torch.zeros(1 + n * cfg.nbv * cfg.nbh, dtype=torch.int32,
+                        device=dev)
+    (planes, chroma, _, _, _, q0, s0) = lanes[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+    if n == 1:
+        fn = libs["hme_search"].dsv2t_hme_level0
+        fn.restype = I
+        fn.argtypes = [P] * 13 + [I, P, P] if dag else [P] * 14
+        geom = hme_gpu.geometry(cfg, 0, [planes[0]], list(chroma), q0, s0)
+        _, _, parent, tmv, gxy, _, _ = lanes[0]
+        args = [ptr(t) for t in planes + chroma + (parent, tmv, gxy, out[0],
+                                                   sums[0])]
+
+        def run(workers=0):
+            out.zero_()
+            sums.zero_()
+            sched.zero_()
+            extra = [ptr(sched), workers] if dag else []
+            assert fn(*args, *extra, geom.ctypes.data, stream) == 0
+    else:
+        fn = libs["hme_gang"].dsv2t_hme_gang
+        fn.restype = I
+        fn.argtypes = [I, I, I, P, P, P] + ([P, I] if dag else []) + [P]
+        # the stacked grids stay referenced: the launch reads them
+        grids = [torch.stack([ln[k] for ln in lanes]) for k in (2, 3, 4)]
+        geom, ptrs, scal = hme_gpu._gang_args(
+            cfg, 0, [(list(ln[0]), list(ln[1])) for ln in lanes], *grids,
+            out, sums, [ln[5] for ln in lanes], [ln[6] for ln in lanes], 1)
+        keep = (ptrs, scal, geom, grids)
+
+        def run(workers=0):
+            out.zero_()
+            sums.zero_()
+            sched.zero_()
+            extra = [ptr(sched), workers] if dag else []
+            assert fn(1, 32, n, keep[2].ctypes.data, keep[0].ctypes.data,
+                      keep[1].ctypes.data, *extra, stream) == 0
+    return run, out, sums
+
+
+def hme_study(srcs):
+    """Kernel ms and cycles per phase of the base-level search of each
+    source directory of `srcs` in turn (see the module docstring, --hme);
+    a directory named twice is built once."""
+    import ctypes
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    tags = {d: os.path.relpath(os.path.abspath(d), REPO) for d in srcs}
+
+    def build(d):
+        base = os.path.join(REPO, "build", "torch_profile",
+                            "hme_" + tags[d].replace(os.sep, "_"))
+        return d, (_hme_lib(d, os.path.join(base, "plain"), False),
+                   _hme_lib(d, os.path.join(base, "stamped"), True)[0])
+    with ThreadPoolExecutor(len(tags)) as ex:
+        libs = dict(ex.map(build, list(tags)))
+    cases = _hme_inputs(dev)
+    for d in srcs:
+        (plain_libs, dag), st_libs = libs[d]
+        for label, cfg, lanes in cases:
+            run, out, sums = _hme_launcher(plain_libs, dag, cfg, lanes, dev)
+            ms = {"default": dev_ms(run, 3)}
+            want = (out.clone(), sums.clone())
+            if dag:
+                for w in (132, 264, 528, 1056, 2112):
+                    ms[w] = dev_ms(lambda w=w: run(w), 3)
+                    assert torch.equal(out, want[0])
+                    assert torch.equal(sums, want[1])
+            srun, sout, ssums = _hme_launcher(st_libs, dag, cfg, lanes, dev)
+            rd = st_libs["hme_gang" if len(lanes) > 1 else "hme_search"
+                         ].dsv2t_prof_read
+            rd.restype = ctypes.c_int
+            rd.argtypes = [ctypes.c_void_p]
+            buf = np.zeros(4096 * 8, np.uint64)
+            srun()
+            torch.cuda.synchronize()
+            assert rd(buf.ctypes.data) == 0   # reset after the warm-up
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            srun()
+            t1.record()
+            torch.cuda.synchronize()
+            assert rd(buf.ctypes.data) == 0
+            assert torch.equal(sout, want[0]) and torch.equal(ssums, want[1])
+            blocks = len(lanes) * cfg.nbv * cfg.nbh
+            per = buf.reshape(-1, 8).sum(0) / blocks
+            emit("hme_phases", case=label, source=tags[d], dataflow=dag,
+                 lanes=len(lanes), blocks=blocks,
+                 diagonals=cfg.nbv + cfg.nbh - 1, ms_by_workers=ms,
+                 stamped_ms=t0.elapsed_time(t1),
+                 cycles_per_block=dict(zip(HME_PHASES, per.tolist())),
+                 busy_cycles_per_block=float(per[:7].sum()),
+                 warps_stamped=int((buf.reshape(-1, 8).sum(1) > 0).sum()),
+                 nvidia_smi=smi)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
@@ -318,6 +636,13 @@ def main(argv=None):
                     help="only the filter wavefront kernel study")
     ap.add_argument("--phases", action="store_true",
                     help="only the filter kernel's cycles per phase")
+    ap.add_argument("--hme", action="store_true",
+                    help="only the base-level motion search's ms and cycles "
+                    "per phase")
+    ap.add_argument("--src", action="append",
+                    help="with --hme: a directory of kernel sources to "
+                    "study, in the order given (default: this checkout's "
+                    "dsv2_tpu_torch/csrc)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -328,6 +653,9 @@ def main(argv=None):
         return wavefront_study()
     if args.phases:
         return wavefront_phases()
+    if args.hme:
+        return hme_study(args.src or [os.path.join(REPO, "dsv2_tpu_torch",
+                                                    "csrc")])
     import torch_port_golden as golden
     from dsv2_tpu_torch import cli
     from dsv2_tpu_torch.codec.devsteps import blob_cap
