@@ -16,15 +16,18 @@ then with groups=2, with kernels 4/5, and in one group of width 3 (the
 flushes split into launches of at most 3 lanes); and the gang cost
 probe's tool run. Also an FHD high-quality stream (3 frames at -qp=90
 -gop=0) encoded by the port and decoded with the dense scan upload, and
-20 launches of kernels 5 and 7 on the same inputs that must agree.
+20 launches of each of kernels 4-7 (every upper level) on the same
+inputs that must agree.
 Before that it builds every CUDA kernel of those paths from this
 checkout (one nvcc per source, all at once) and holds each against
 its plain PyTorch version: the vk chain on random and FHD scan inputs,
 the in-loop filter wavefront (three kinds) on seeded random planes at
 CIF and FHD geometry and on the planes the FHD decodes feed it (timed,
 with the cluster sizes 1, 2, 4 and 8 at FHD luma), and against the
-port's native C filters at 3840x2160 luma and intra and at 2560x1440 and
-3840x2160 4:4:4 chroma (layouts one CTA cannot hold), the two
+port's native C filters at 3840x2160 luma and intra, at 2560x1440 and
+3840x2160 4:4:4 chroma (layouts one CTA cannot hold: clusters) and at
+16x16384 4:4:4 (its chroma, which no cluster holds, on the ring in
+global memory), the two
 motion-search kernels on seeded CIF inputs and on the inputs of FHD P
 frames 1 and 2 (level by level), the two gang kernels level by level on
 8 seeded CIF lanes and on FHD P frames 1-2 as 2 lanes (against kernels
@@ -52,7 +55,7 @@ P_FRAMES, P_GOP = 8, 8
 LS_WARM_FRAMES = 2      # frames per lane of the lockstep warm run
 LS_PALLAS_FRAMES = 16   # frames per lane of the lockstep run on kernels 4/5
 LS_NARROW = (3, 8)      # (width, frames per lane) of the narrow lockstep run
-REPEATS = 20            # launches of kernels 5 and 7 that must agree
+REPEATS = 20            # launches of kernels 4-7 that must agree
 # seeded random filter inputs: (label, (width, height, luma block, chroma
 # shift)) — CIF and FHD 4:2:0 geometry
 RANDOM_GEOMS = (("cif", (352, 288, 16, 1)), ("fhd", (1920, 1080, 32, 1)))
@@ -313,12 +316,14 @@ def main():
          max_abs_err=wf_err, cases=list(wf_cases))
 
     # 4a. the layouts one CTA cannot hold whole (4:4:4 chroma at 1440p and
-    # 4K, on a cluster) and 4K luma and intra, against the native filters
+    # 4K, on a cluster; 16x16384 4:4:4 chroma, which no cluster holds, on
+    # the global ring) and 4K luma and intra, against the native filters
     large = []
     for kind, w, h, shifts in (("intra", 3840, 2160, (1, 1)),
                                ("luma", 3840, 2160, (1, 1)),
                                ("chroma", 2560, 1440, (0, 0)),
-                               ("chroma", 3840, 2160, (0, 0))):
+                               ("chroma", 3840, 2160, (0, 0)),
+                               ("chroma", 16, 16384, (0, 0))):
         args = golden.filter_case(kind, w, h, 32, shifts, seed=w, nb=1)
         want = golden.filter_native(kind, args)
         calls = []
@@ -338,13 +343,15 @@ def main():
         rec = dict(case="native_%dx%d" % (w, h), kind=kind,
                    plane=[lay.pw, lay.ph], tile=[lay.tw, lay.th],
                    diagonals=lay.nd, lanes=lay.L, cluster=plan.C,
-                   smem=plan.smem, threads=plan.threads,
+                   ring=plan.ring, smem=plan.smem, threads=plan.threads,
                    changed_px=int((want != args[
                        {"intra": 4, "luma": 7}.get(kind, 6)]).sum()),
                    max_abs_err=err, ms=cuda_ms(run, 3))
         large.append(rec)
         assert err == 0 and rec["changed_px"] > 0, rec
-    assert [r["cluster"] for r in large] == [1, 1, 2, 4], large
+    assert [(r["cluster"], r["ring"]) for r in large] == [
+        (1, "shared"), (1, "shared"), (2, "shared"), (4, "shared"),
+        (1, "global")], large
     emit("filter_kernel_vs_native_large", kernel="wavefront_filter",
          max_abs_err=max(r["max_abs_err"] for r in large), cases=large)
 
@@ -635,6 +642,28 @@ def main():
          identical_runs=repeat_equal(
              lambda: hme_gpu.make_motion_est(cfg2)(*in2)))
 
+    def upper_repeats(cfg, level_fn, nlanes):
+        """REPEATS launches of every upper level (level_fn(level, parent,
+        gxy) -> fields) identical, each level fed the fields of the one
+        above; returns the levels."""
+        parent = torch.zeros((nlanes, 2, cfg.nbv, cfg.nbh),
+                             dtype=torch.int32, device=dev)
+        gxy = torch.zeros((nlanes, 2), dtype=torch.int32, device=dev)
+        levels = list(range(cfg.pyramid_levels, 0, -1))
+        for level in levels:
+            repeat_equal(lambda: {"f": level_fn(level, parent, gxy)})
+            parent = level_fn(level, parent, gxy)
+            gxy = hme_gang.global_motion_lanes(cfg, level, parent)
+        return levels
+
+    sp2, rp2, op2 = in2[:3]
+    tmv2 = torch.stack([in2[7], in2[8]]).contiguous()
+    emit("hme_repeats", kernel="hme_level", case="fhd_p_frame2",
+         identical_runs=REPEATS, levels=upper_repeats(
+             cfg2, lambda lv, par, gxy: hme_gpu.hme_level(
+                 cfg2, lv, sp2[lv], rp2[lv], op2[lv], par[0], tmv2, gxy[0],
+                 int(in2[9]))[None], 1))
+
     # 9. the filter kernel vs plain on the planes the FHD decodes fed it
     firsts = {}
     for call in captured:
@@ -814,6 +843,14 @@ def main():
     emit("hme_repeats", kernel="hme_gang_level0", case="cif_seeded_x8",
          identical_runs=repeat_equal(
              lambda: hme_gang.make_motion_est(gcfg)(lanes)))
+    gtmv = torch.stack([torch.stack([ln[7], ln[8]]) for ln in lanes]
+                       ).contiguous()
+    emit("hme_repeats", kernel="hme_gang_level", case="cif_seeded_x8",
+         identical_runs=REPEATS, levels=upper_repeats(
+             gcfg, lambda lv, par, gxy: hme_gpu.hme_gang_level(
+                 gcfg, lv, [ln[0][lv] for ln in lanes],
+                 [ln[1][lv] for ln in lanes], [ln[2][lv] for ln in lanes],
+                 par, gtmv, gxy, [int(ln[9]) for ln in lanes]), len(lanes)))
     del lanes
 
     # 12. main path, lockstep P encode (BASELINE config 1): the seeded
@@ -941,6 +978,15 @@ def main():
                 if m.split(".")[0] in ("jax", "jaxlib", "dsv2_tpu")], \
         "the port imported jax or dsv2_tpu"
 
+    def per_search(levels):
+        """The upper levels' ms by level and summed over a search, and
+        their bounds summed (kernels 4 and 6 run once per upper level)."""
+        up = [lv for lv in levels if lv["level"] > 0]
+        return dict(ms_by_level={lv["level"]: lv["ms"] for lv in up},
+                    ms_per_search=sum(lv["ms"] for lv in up),
+                    plain_ms_per_search=sum(lv["plain_ms"] for lv in up),
+                    bound_ms_per_search=sum(lv["bound_ms"] for lv in up))
+
     luma = timed[1]
     wmain = timed_wf[("intra", meta.width)]
     wf_paths = {"decode": dec_launches,
@@ -970,20 +1016,21 @@ def main():
          "max_abs_err": max(c["max_abs_err"] for c in hme_cases),
          "ms": lv["ms"], "plain_ms": lv["plain_ms"],
          "bound_ms": lv["bound_ms"], "bound_by": lv["bound_by"],
-         "library_ms": None}
-        for name, line, lv in (
-            ("hme_level", 248, fhd_hme[0]["levels"][-2]),
-            ("hme_level0", 311, fhd_hme[0]["levels"][-1]))] + [
+         "library_ms": None, **extra}
+        for name, line, lv, extra in (
+            ("hme_level", 248, fhd_hme[0]["levels"][-2],
+             per_search(fhd_hme[0]["levels"])),
+            ("hme_level0", 311, fhd_hme[0]["levels"][-1], {}))] + [
         {"name": name, "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/hme_gang.cu",
          "replaces": "dsv2_tpu/ops/hme_gang.py:%d" % line,
          "launches": ls_launches[name], "max_abs_err": gang_err,
          "ms": lv["ms"], "plain_ms": lv["plain_ms"],
          "bound_ms": lv["bound_ms"], "bound_by": lv["bound_by"],
-         "library_ms": None}
-        for name, line, lv in (
-            ("hme_gang_level", 1057, cif_gang[-2]),
-            ("hme_gang_level0", 1139, cif_gang[-1]))] + [
+         "library_ms": None, **extra}
+        for name, line, lv, extra in (
+            ("hme_gang_level", 1057, cif_gang[-2], per_search(cif_gang)),
+            ("hme_gang_level0", 1139, cif_gang[-1], {}))] + [
         {"name": "probe_gang", "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/probe_gang.cu",
          "replaces": "tools/probe_gang.py:33",

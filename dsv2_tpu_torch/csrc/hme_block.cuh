@@ -24,7 +24,9 @@
 // neighbours, parents and temporal candidates from the grids itself
 // (same-level grids through __ldcg: other tiles wrote them). The tile's
 // slice of shared memory holds the block's source window for the whole
-// search and, at the base level (kTileBytes), the half-pel grid of a
+// search (an upper level's slice, kUpperTileBytes, holds only that: its
+// candidates and refine probes read the reference plane through L1) and,
+// at the base level (kTileBytes), the half-pel grid of a
 // subpel search and the windows a phase stages (stage_k: every load of a
 // window issued before any is used, one round trip to memory instead of
 // one per loop iteration).
@@ -36,16 +38,21 @@
 // first strict minimum, the refine's first improvement in kRect order,
 // the subpel picks, the intra subblock loop); the integer square root is
 // the float root plus an exact integer correction. And the search is split
-// around the neighbours: block_pre (the psy features, every candidate that
-// is not a neighbour's vector, the good-enough metric) and, at the base
-// level, the probes of the first subpel refine run before the block waits
-// for its left, top and top-left blocks; block_post and the decisions
-// after.
+// around the neighbours: block_pre (the source window, the psy features,
+// every candidate that is not a neighbour's vector, the good-enough
+// metric) and, at the base level, the probes of the first subpel refine
+// run before the block waits for its left, top and top-left blocks;
+// block_post (the neighbours' candidates, the first strict minimum, the
+// good-enough test, the refine) and the decisions after. At an upper
+// level the median predictor is zero (it reads cells no block of the
+// level writes), so no score depends on the neighbours but theirs:
+// block_pre also runs the refine from the best of its candidates, which
+// block_post keeps unless a neighbour's vector becomes the start.
 //
-// walk_level (kernels 4/6) is the CTA's loop over the diagonals of one
-// upper level: the tiles take the blocks of a diagonal in turn, a barrier
-// between diagonals. level0_dag (kernels 5/7) runs the base level's blocks
-// through the dataflow scheduler of csrc/hme_sched.cuh.
+// Every level runs on the dataflow scheduler of csrc/hme_sched.cuh:
+// upper_dag (kernels 4/6) over an upper level's ca x cb blocks (at
+// multiples of the level's step), level0_dag (kernels 5/7) over the base
+// level's blocks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,18 +72,19 @@ namespace {
 #define HGS 35          // half-pel grid side (34 + a zero row/column)
 #define FULL 0xFFFFFFFFu
 
-constexpr int kMaxThreads = 512;  // a walk_level CTA: 128 registers a thread
-constexpr int kDagThreads = 128;  // a level0_dag CTA: at most 4 warps
-// warps per SM a level0_dag launch takes by default: 2 were fastest at FHD
+constexpr int kDagThreads = 128;  // a run_dag CTA: at most 4 warps
+// warps per SM a run_dag launch takes by default: 2 were fastest at FHD
 // level 0 and on 8 CIF lanes on an H100 (1, 2, 4, 8 and 16 tried with
-// tools/torch_profile.py --hme; PERF.md, kernels 5/7)
+// tools/torch_profile.py --hme; PERF.md, kernels 5/7), and at the upper
+// levels any count from 1 per SM up is within the noise of the best
+// (kernels 4/6)
 constexpr int kDagWarpsPerSm = 2;
 constexpr int kHgBytes = 1232;    // HGS * HGS rounded up to 16
 constexpr int kSrcBytes = 32 * 32;  // the block's source window
 constexpr int kStageBytes = 4 * 32 * 32;  // the windows one phase stages
 // a base-level tile's shared slice: half-pel grid, source, staged windows
 constexpr int kTileBytes = kHgBytes + kSrcBytes + kStageBytes;
-constexpr int kWalkTileBytes = kSrcBytes;  // an upper-level tile's
+constexpr int kUpperTileBytes = kSrcBytes;  // an upper-level tile's slice
 constexpr int kCandBatch = 8;     // candidates scored in one pass
 constexpr int kStageUnroll = 8;   // loads a lane issues per window at once
 
@@ -622,6 +630,10 @@ struct Tile {
     bool use[26];          // usable (cok, inside the frame)
     int raw[26];           // metric of a usable slot's vector (block_pre's)
     int zos;               // the good-enough metric vs the source reference
+    // an upper level's refine run before the wait (block_pre): from the
+    // start (sx0, sy0; score sbest0) to (sdx, sdy; score sbest)
+    bool spec;
+    int sx0, sy0, sbest0, sdx, sdy, sbest;
   };
   // the neighbour-dependent slots: the scaled median predictor at level 0,
   // then the left, top and top-left vectors
@@ -674,13 +686,11 @@ struct Tile {
   // this level's neighbours are done: the source window into buf (the
   // tile's kSrcBytes of shared memory; its view in sw), the psy weights,
   // and the metrics of every candidate that does not depend on the
-  // neighbours, and of the good-enough test. With deps (the neighbours
-  // are already in the grids: an upper level's walk) the neighbours'
-  // candidates join the same pass. False when the block starts outside
-  // the level's plane.
+  // neighbours, and of the good-enough test; at an upper level also the
+  // refine from the best of those candidates. False when the block
+  // starts outside the level's plane.
   static __device__ bool block_pre(const G& g, const Lv& L, int i, int j,
-                                   uint8_t* buf, Res& r, SWin& sw, Cand& c,
-                                   bool deps) {
+                                   uint8_t* buf, Res& r, SWin& sw, Cand& c) {
     const int level = g.level, step = 1 << level;
     const int yw = g.blk_w, yh = g.blk_h, fw = g.fw, fh = g.fh;
     r.bx = (i * yw) >> level;
@@ -735,8 +745,11 @@ struct Tile {
     cok[n++] = true;
     c.dep = n;
     c.pending = 0;
-    c.pred = deps;
-    if (deps) predictor(g, L, i, j, r);
+    c.spec = false;
+    // at an upper level the predictor reads cells no block of the level
+    // writes (its blocks sit at multiples of its step): zero, final now
+    c.pred = level > 0;
+    if (c.pred) predictor(g, L, i, j, r);
     if (level < g.levels) {
       const int pmask = ~((step << 1) - 1);
       const int pi = i & pmask, pj = j & pmask;
@@ -785,10 +798,7 @@ struct Tile {
       cok[n++] = true;
       c.dep = n;
       n += ndep(level);
-      if (deps)
-        neighbour_slots(g, L, i, j, r, c);
-      else
-        c.pending = ndep(level);
+      c.pending = ndep(level);
       if (g.has_tmv) {
         const int* TX = L.tmv;
         const int* TY = L.tmv + g.nbv * g.nbh;
@@ -849,7 +859,60 @@ struct Tile {
       if ((s < c.dep || s >= d1) && cok[s]) c.raw[s] = uraw[c.raw[s]];
     c.zos = metr(sw, win(L.ogr, r.bx, r.by, yh, yw), bw, bh, r.ew, r.tw,
                  r.aw);
+
+    // An upper level's scores need no neighbour (the predictor is zero),
+    // so the refine from the best slot that is not a neighbour's runs
+    // here; block_post keeps it when the neighbours' slots leave that
+    // start the winner. Skipped when the good-enough test passes whatever
+    // the winner (its threshold only grows).
+    if (level > 0 && c.zos >= ((g.quant * bw * bh) >> 11)) {
+      int szero;
+      first_min(g, r, c, nullptr, c.sx0, c.sy0, c.sbest0, szero);
+      Res rs = r;
+      rs.dx = c.sx0;
+      rs.dy = c.sy0;
+      rs.best = c.sbest0;
+      refine(g, L, sw, rs, 0);
+      c.sdx = rs.dx;
+      c.sdy = rs.dy;
+      c.sbest = rs.best;
+      c.spec = true;
+    }
     return true;
+  }
+
+  // The first strict minimum over the slots, value-equal duplicates of an
+  // earlier usable slot skipped (ref: hme.c:1522-1566): the winner's
+  // vector (bdx, bdy) and score, and slot 0's raw metric. dscore: the
+  // neighbours' slots' metrics, or null to leave those slots out.
+  static __device__ void first_min(const G& g, const Res& r, const Cand& c,
+                                   const int* dscore, int& bdx, int& bdy,
+                                   int& best_score, int& score_zero) {
+    const int level = g.level, step = 1 << level;
+    int ux[26], uy[26], nu = 0;
+    best_score = I32MAX;
+    bdx = bdy = 0;
+    score_zero = I32MAX;
+    for (int s = 0; s < c.n; ++s) {
+      const bool dep = s >= c.dep && s < c.dep + c.pending;
+      if ((dep && dscore == nullptr) || !c.use[s]) continue;
+      const int dx = c.cx[s], dy = c.cy[s];
+      bool dup = false;
+      for (int t = 0; t < nu; ++t) dup = dup || (ux[t] == dx && uy[t] == dy);
+      if (dup) continue;
+      ux[nu] = dx;
+      uy[nu++] = dy;
+      const int raw = dep ? dscore[s - c.dep] : c.raw[s];
+      if (s == 0) score_zero = raw;
+      int sc = wadd(raw, mv_cost(g, r.px, r.py, dx * step * 4, dy * step * 4,
+                                 level > 1));
+      if (dx == r.lax && dy == r.lay) sc = max(sc - (r.mbias >> level), 0);
+      if (sc < best_score) {
+        best_score = sc;
+        bdx = dx;
+        bdy = dy;
+      }
+    }
   }
 
   // The rest of the search of block (i, j), once its left, top and
@@ -859,11 +922,11 @@ struct Tile {
   // skipped (ref: hme.c:1522-1566), the good-enough test and the refine.
   static __device__ void block_post(const G& g, const Lv& L, int i, int j,
                                     const SWin& sw, Res& r, Cand& c) {
-    const int level = g.level, step = 1 << level;
+    const int level = g.level;
     const int yw = g.blk_w, yh = g.blk_h, fw = g.fw, fh = g.fh;
     const int bw = r.bw, bh = r.bh;
 
-    // the neighbours' slots, scored in one pass, unless block_pre had them
+    // the neighbours' slots, scored in one pass
     int dscore[4] = {I32MAX, I32MAX, I32MAX, I32MAX};
     if (!c.pred) predictor(g, L, i, j, r);
     if (c.pending) {
@@ -884,30 +947,8 @@ struct Tile {
       hier_k(level, sw, rp, L.ref.W, bw, bh, r.ew, r.tw, r.aw, dscore);
     }
 
-    // first strict minimum over the slots, value-equal duplicates of an
-    // earlier usable slot skipped (ref: hme.c:1522-1566)
-    int ux[26], uy[26], nu = 0;
-    int best_score = I32MAX, bdx = 0, bdy = 0, score_zero = I32MAX;
-    for (int s = 0; s < c.n; ++s) {
-      if (!c.use[s]) continue;
-      const int dx = c.cx[s], dy = c.cy[s];
-      bool dup = false;
-      for (int t = 0; t < nu; ++t) dup = dup || (ux[t] == dx && uy[t] == dy);
-      if (dup) continue;
-      ux[nu] = dx;
-      uy[nu++] = dy;
-      const bool dep = s >= c.dep && s < c.dep + c.pending;
-      const int raw = dep ? dscore[s - c.dep] : c.raw[s];
-      if (s == 0) score_zero = raw;
-      int sc = wadd(raw, mv_cost(g, r.px, r.py, dx * step * 4, dy * step * 4,
-                                 level > 1));
-      if (dx == r.lax && dy == r.lay) sc = max(sc - (r.mbias >> level), 0);
-      if (sc < best_score) {
-        best_score = sc;
-        bdx = dx;
-        bdy = dy;
-      }
-    }
+    int best_score, bdx, bdy, score_zero;
+    first_min(g, r, c, dscore, bdx, bdy, best_score, score_zero);
 
     // good-enough vs the source reference (ref: hme.c:1569-1584)
     int qthresh = (g.quant * bw * bh) >> 11;
@@ -917,6 +958,12 @@ struct Tile {
       r.dx = r.dy = 0;
       r.best = level == 0 ? score_zero : 0;
       r.good = 1;
+      return;
+    }
+    if (c.spec && bdx == c.sx0 && bdy == c.sy0 && best_score == c.sbest0) {
+      r.dx = c.sdx;  // block_pre's refine started where this one would
+      r.dy = c.sdy;
+      r.best = c.sbest;
       return;
     }
     r.dx = bdx;
@@ -1184,7 +1231,7 @@ struct Tile {
     SWin sw;
     Cand c;
     Sub s1;
-    const bool in = block_pre(g, L, i, j, smem + kHgBytes, r, sw, c, false);
+    const bool in = block_pre(g, L, i, j, smem + kHgBytes, r, sw, c);
     const bool cond1 = in && g.effort >= 4 &&
                        !invalid_block(r.bx + r.lax, r.by + r.lay, r.bw, r.bh,
                                       4, g.fw, g.fh);
@@ -1484,37 +1531,50 @@ struct Tile {
 
 };
 
-// One upper level of one stream (kernels 4/6): the CTA walks the level's
-// anti-diagonals, its tiles take the blocks of a diagonal in turn
-// (tile-uniform), a barrier between diagonals; tiles past the diagonal's
-// run write nothing. smem: kWalkTileBytes per tile.
-template <int TW>
-__device__ void walk_level(const G& g, const Lv& L, uint8_t* smem) {
+// One upper level (kernels 4/6): the ca x cb blocks of the level (every
+// stream lane's, under kernel 6) through run_dag, on the tiles of every CTA
+// of the launch; DAG node (a, b) is block (a * step, b * step), whose
+// neighbours' fields (i - step, j), (i, j - step) and (i - step, j - step)
+// are nodes (a - 1, b), (a, b - 1) and (a - 1, b - 1). Each block's search
+// is split around the wait for them as at the base level: block_pre, then
+// wait(), then block_post and lane 0's writes of fx * step, fy * step; a
+// block that starts outside the level's plane writes nothing (its fields
+// stay the caller's zeros) and is still published. lane_of(ln, g, L) sets
+// the geometry and planes of stream lane ln. smem: kUpperTileBytes per
+// tile.
+template <int TW, class LaneOf>
+__device__ void upper_dag(const Dag& dag, uint8_t* smem, LaneOf lane_of) {
   using T = Tile<TW>;
-  const int step = 1 << g.level;
-  const int ca = (g.nbh + step - 1) / step, cb = (g.nbv + step - 1) / step;
-  const int nd = ca + cb - 1, lmax = min(ca, cb);
-  const int tile = threadIdx.x / TW, ntiles = blockDim.x / TW;
-  uint8_t* buf = smem + tile * kWalkTileBytes;
-  for (int d = 0; d < nd; ++d) {
-    const int a0 = max(0, d - (cb - 1));
-    for (int k = tile; k < lmax; k += ntiles) {
-      const int a = a0 + k, b = d - a;
-      if (a >= ca || b < 0 || b >= cb) break;
-      const int i = a * step, j = b * step;
-      Res r;
-      SWin sw;
-      typename T::Cand c;
-      if (T::block_pre(g, L, i, j, buf, r, sw, c, true)) {
-        T::block_post(g, L, i, j, sw, r, c);
-        if (T::lane() == 0) {
-          L.out[j * g.nbh + i] = r.dx * step;
-          L.out[g.nbv * g.nbh + j * g.nbh + i] = r.dy * step;
-        }
-      }
+  uint8_t* buf = smem + (threadIdx.x / TW) * kUpperTileBytes;
+  G g;
+  Lv L;
+  int cur = -1;
+  run_dag<T>(dag, [&](int ln, int a, int b, auto&& wait) {
+    if (ln != cur) {
+      lane_of(ln, g, L);
+      cur = ln;
     }
-    __syncthreads();  // diagonal d is in the grids
-  }
+    const int step = 1 << g.level, i = a * step, j = b * step;
+    Res r;
+    SWin sw;
+    typename T::Cand c;
+    const bool in = T::block_pre(g, L, i, j, buf, r, sw, c);
+    wait();
+    if (!in) return;
+    T::block_post(g, L, i, j, sw, r, c);
+    if (T::lane() == 0) {
+      L.out[j * g.nbh + i] = r.dx * step;
+      L.out[g.nbv * g.nbh + j * g.nbh + i] = r.dy * step;
+    }
+  });
+}
+
+// the DAG of an upper level of `lanes` stream lanes: its ca x cb blocks
+// and the scheduler's scratch
+inline Dag upper_dag_of(const G& g, int lanes, int* sched) {
+  const int step = 1 << g.level;
+  return Dag{(g.nbh + step - 1) / step, (g.nbv + step - 1) / step, lanes,
+             sched, sched + 1};
 }
 
 // The base level (kernels 5/7): every block of the DAG's stream lanes
@@ -1547,17 +1607,9 @@ __device__ void level0_dag(const Dag& dag, uint8_t* smem, LaneOf lane_of) {
   flush();
 }
 
-// the tiles of TW lanes one walk_level CTA runs for a level: one per block
-// of the longest diagonal, at most kMaxThreads / TW
-inline int level_tiles(const G& g, int tw) {
-  const int step = 1 << g.level;
-  const int ca = (g.nbh + step - 1) / step, cb = (g.nbv + step - 1) / step;
-  return std::min(std::min(ca, cb), kMaxThreads / tw);
-}
-
-// the shape of a level0_dag launch: `workers` tiles (0: kDagWarpsPerSm
-// warps on every SM), never more than the blocks, in CTAs of 1 to 4 warps
-// that put the fewest warps on one SM; returns the CTAs and sets *threads
+// the shape of a run_dag launch: `workers` tiles (0: kDagWarpsPerSm warps
+// on every SM), never more than the blocks, in CTAs of 1 to 4 warps that
+// put the fewest warps on one SM; returns the CTAs and sets *threads
 inline int dag_shape(int blocks, int tw, int workers, int* threads) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);

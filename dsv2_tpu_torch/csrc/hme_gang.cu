@@ -13,21 +13,20 @@
 // What bounds it on an H100: not bytes (each lane's level planes and grids
 // read once and written once, ~1 MB for a CIF lane at level 0, well under
 // a microsecond at 3.35 TB/s), but the dependency depth of a level (39
-// anti-diagonals at CIF level 0) times one block's search, a chain of
-// dependent metrics, reductions and decisions.
-// Design. The base level (kernel 7) runs on the whole card: the blocks of
-// every lane are claimed in the topological order of csrc/hme_sched.cuh
-// (diagonal, lane, position), so a worker takes any lane's block, and a
-// block starts once its left and top neighbours of its own lane are
-// published; at CIF the gain over one CTA per lane comes mostly from the
-// shorter chain inside each block (hme_block.cuh), since 8 lanes of 18
-// blocks per diagonal already kept 8 SMs busy. An upper level (kernel 6)
-// keeps the TPU's two ideas: (1) the grid runs over the stream lanes, one
-// CTA per lane walking that lane's diagonals (a barrier between
-// diagonals), so a flush of L lanes keeps L SMs busy in one launch; (2) G
-// blocks per warp: a block is searched by a tile of 32 / G lanes
-// (Tile<TW>), per-block sums being segmented shuffle reductions inside the
-// tile, the counterpart of the TPU's masked lane sums (gsum :62). The
+// anti-diagonals at CIF level 0, 19 at level 1) times the part of one
+// block's search that needs its neighbours, a chain of dependent metrics,
+// reductions and decisions.
+// Design. Every level runs on the whole card: the blocks of every lane are
+// claimed in the topological order of csrc/hme_sched.cuh (diagonal, lane,
+// position), so a worker takes any lane's block, and a block starts once
+// its left and top neighbours of its own lane are published; each block's
+// search is split around that wait (hme_block.cuh; an upper level's blocks
+// sit at multiples of its step, upper_dag). The TPU's grid over the
+// stream lanes becomes that one scheduler over every lane's blocks, and
+// its G blocks per warp stay: a block is searched by a tile of 32 / G
+// lanes (Tile<TW>), per-block sums being segmented shuffle reductions
+// inside the tile, the counterpart of the TPU's masked lane sums (gsum
+// :62). The
 // per-lane pointers and scalars (each lane has its own planes, quant, skip
 // threshold and bits-to-score ratio) are the kernel's parameter block; the
 // rest of the geometry is one for all lanes of a launch (lanes of one key
@@ -53,7 +52,7 @@ struct LaneP {
 struct GangP {
   G g;  // quant, skip_thresh and b2sr come from the lane
   LaneP lane[kMaxLanes];
-  Dag dag;  // level 0: the lanes' blocks and the scheduler's scratch
+  Dag dag;  // the lanes' blocks and the scheduler's scratch
 };
 
 // the geometry and planes of stream lane n
@@ -76,13 +75,11 @@ __device__ void lane_view(const GangP& P, int n, G& g, Lv& L) {
 }
 
 template <int TW>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kDagThreads)
     gang_level_kernel(const __grid_constant__ GangP P) {
   extern __shared__ __align__(16) uint8_t smem[];
-  G g;
-  Lv L;
-  lane_view(P, blockIdx.x, g, L);
-  walk_level<TW>(g, L, smem);
+  upper_dag<TW>(P.dag, smem,
+                [&](int n, G& g, Lv& L) { lane_view(P, n, g, L); });
 }
 
 template <int TW>
@@ -104,15 +101,16 @@ cudaError_t fit_smem(K kernel, size_t smem) {
 
 template <int TW>
 int launch(bool l0, const GangP& P, int nlanes, int workers, cudaStream_t st) {
+  int threads;
   if (!l0) {
-    const int tiles = level_tiles(P.g, TW);
-    const size_t smem = (size_t)tiles * kWalkTileBytes;
+    const int ctas = dag_shape(nlanes * P.dag.nbh * P.dag.nbv, TW, workers,
+                               &threads);
+    const size_t smem = (size_t)(threads / TW) * kUpperTileBytes;
     const cudaError_t e = fit_smem(gang_level_kernel<TW>, smem);
     if (e != cudaSuccess) return (int)e;
-    gang_level_kernel<TW><<<nlanes, TW * tiles, smem, st>>>(P);
+    gang_level_kernel<TW><<<ctas, threads, smem, st>>>(P);
     return (int)cudaGetLastError();
   }
-  int threads;
   const int ctas = dag_shape(nlanes * P.g.nbh * P.g.nbv, TW, workers,
                              &threads);
   const size_t smem = (size_t)(threads / TW) * kTileBytes;
@@ -132,9 +130,11 @@ int launch(bool l0, const GangP& P, int nlanes, int workers, cudaStream_t st) {
 // 8: 1, 2 or 4 blocks per warp). geom: the GEOM ints of ops/hme_gpu.py,
 // shared by the lanes; ptrs: nlanes rows of the 12 LaneP pointers (host
 // memory; null where a level has no such input); scal: nlanes rows of
-// (quant, skip_thresh, b2sr) (host memory). Level 0 only: sched, the
-// scheduler's scratch of 1 + nlanes * nbv * nbh int32 zeroed by the caller,
-// and workers, the tiles that search blocks (0: 2 warps on every SM).
+// (quant, skip_thresh, b2sr) (host memory). sched: the scheduler's scratch
+// of 1 + nlanes * ca * cb int32 zeroed by the caller (ca x cb: the
+// level's blocks, nbh x nbv at level 0, the block grid at a step of
+// 2^level above); workers: the tiles that search blocks (0: 2 warps on
+// every SM).
 // Returns a cudaError_t (0 = ok); allocates nothing, does not sync.
 extern "C" int dsv2t_hme_gang(int l0, int tw, int nlanes, const int* geom,
                               const long long* ptrs, const int* scal,
@@ -144,7 +144,7 @@ extern "C" int dsv2t_hme_gang(int l0, int tw, int nlanes, const int* geom,
   int* gp = reinterpret_cast<int*>(&P.g);
   for (int k = 0; k < kGeomLen; ++k) gp[k] = geom[k];
   if (!geometry_ok(P.g)) return (int)cudaErrorInvalidValue;
-  if (l0 && sched == nullptr) return (int)cudaErrorInvalidValue;
+  if (sched == nullptr) return (int)cudaErrorInvalidValue;
   for (int n = 0; n < nlanes; ++n) {
     const long long* r = ptrs + n * kLanePtrs;
     LaneP& lp = P.lane[n];
@@ -158,7 +158,8 @@ extern "C" int dsv2t_hme_gang(int l0, int tw, int nlanes, const int* geom,
     lp.skip_thresh = scal[3 * n + 1];
     lp.b2sr = scal[3 * n + 2];
   }
-  P.dag = Dag{P.g.nbh, P.g.nbv, nlanes, sched, sched ? sched + 1 : nullptr};
+  P.dag = l0 ? Dag{P.g.nbh, P.g.nbv, nlanes, sched, sched + 1}
+             : upper_dag_of(P.g, nlanes, sched);
   cudaStream_t st = (cudaStream_t)stream;
   switch (tw) {
     case 32: return launch<32>(l0 != 0, P, nlanes, workers, st);

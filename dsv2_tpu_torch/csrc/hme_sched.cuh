@@ -1,16 +1,19 @@
-// A dataflow scheduler for the base level of the encoder's motion search
-// (kernels 5 and 7: csrc/hme_search.cu, csrc/hme_gang.cu), templated on
+// A dataflow scheduler for every pyramid level of the encoder's motion
+// search (kernels 4-7: csrc/hme_search.cu, csrc/hme_gang.cu), templated on
 // the block body.
 //
-// What bounds these kernels on an H100: a base-level block depends on its
-// left, top and top-left neighbours of the same level (the median
+// What bounds these kernels on an H100: a block depends on its left, top
+// and top-left neighbours of the same level (at the base level the median
 // predictor, the spatial candidates and the neighbour difference read
-// their fields), so a level is a DAG whose depth is its number of
-// anti-diagonals: 187 at FHD level 0 (120 x 68 blocks of 16x16), 39 at CIF
-// (22 x 18). The time is that depth times one block's search, a chain of
-// dependent metrics, reductions and decisions of some tens of
+// their fields; at an upper level, whose blocks sit at multiples of its
+// step, the spatial candidates), so a level is a DAG whose depth is its
+// number of anti-diagonals: 187 at FHD level 0 (120 x 68 blocks of
+// 16x16), 93 at FHD level 1 (60 x 34), 39 at CIF level 0 (22 x 18). The
+// time is that depth times the post-wait part of one block's search, a
+// chain of dependent metrics, reductions and decisions of some
 // microseconds. By bytes, the level's planes and grids read once and
-// written once, the bound is 0.0029 ms at FHD and says little here.
+// written once, the bound is 0.0029 ms at FHD level 0 and says little
+// here.
 //
 // What the design does about it: the blocks of every stream lane of the
 // launch go to workers (tiles of TW threads, csrc/hme_block.cuh Tile<TW>)
@@ -38,7 +41,8 @@
 //   left flag. The body reads the neighbours' fields through L2
 //   (__ldcg).
 // - Scratch: the ticket and the flags are one int32 buffer the wrapper
-//   zeroes before the launch: [ticket, ready[lanes][nbv][nbh]].
+//   zeroes before the launch: [ticket, ready[lanes][nbv][nbh]] (an upper
+//   level's DAG is its ca x cb blocks: nbh = ca, nbv = cb).
 //
 // The header compiles on the host too (tests/test_torch_hme_sched.py
 // builds it against a CUDA shim in which each CUDA thread is an OS thread
@@ -49,7 +53,7 @@
 
 namespace {
 
-// the blocks of one launch: `lanes` stream lanes of nbv x nbh blocks
+// the blocks of one launch: `lanes` stream lanes of nbv x nbh DAG nodes
 struct Dag {
   int nbh, nbv, lanes;
   int* ticket;  // (1,), zeroed by the wrapper

@@ -12,29 +12,34 @@
 // What bounds it on an H100: not bytes (the level's planes and grids read
 // once and written once: ~12 MB at FHD level 0, 0.0029 ms at 3.35 TB/s),
 // but the dependency depth of a level, its number of anti-diagonals (187
-// at FHD level 0), times one block's search, a chain of dependent metrics,
-// reductions and decisions.
-// Design. The base level (kernel 5) runs on the whole card: its blocks are
-// claimed by warps of CTAs on every SM in the topological order of
-// csrc/hme_sched.cuh, and each block starts as soon as its left and top
-// neighbours have published their fields, with no barrier between
-// diagonals; inside a block, independent metrics share one pass and their
-// reductions interleave (hme_block.cuh). An upper level (kernel 4) is one
-// CTA that walks the level's diagonals, a barrier between them, its warps
-// taking the blocks of a diagonal in turn (up to 16 warps: a thread keeps
-// 128 registers). Either way a warp searches one block (Tile<32>), its
-// lanes splitting every pixel or quad loop, and reads its neighbours,
-// parents and temporal candidates from the grids itself (the TPU's
-// pre-gathered candidate pack and SMEM ring are gone); lane 0 writes the
-// results into the grids.
+// at FHD level 0; 93 at FHD level 1, 60 x 34 blocks at a step of 2),
+// times the part of one block's search that needs its neighbours, a chain
+// of dependent metrics, reductions and decisions.
+// Design. Every level runs on the whole card: its blocks are claimed by
+// warps of CTAs on every SM in the topological order of csrc/hme_sched.cuh,
+// and each block starts as soon as its left and top neighbours have
+// published their fields, with no barrier between diagonals. Each block's
+// search is split around that wait (hme_block.cuh): the source window, the
+// features, the candidates that are not a neighbour's vector and the
+// good-enough metric run before it, the neighbours' candidates, the pick
+// and the refine after (and the decisions, at the base level); inside a
+// block, independent metrics share one pass and their reductions
+// interleave. A warp searches one block (Tile<32>), its lanes splitting
+// every pixel or quad loop, and reads its neighbours, parents and temporal
+// candidates from the grids itself (the TPU's pre-gathered candidate pack
+// and SMEM ring are gone); lane 0 writes the results into the grids.
 
 #include "hme_block.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kMaxThreads) hme_level_kernel(G g, Lv L) {
+__global__ void __launch_bounds__(kDagThreads)
+    hme_level_kernel(G g, Lv L, Dag dag) {
   extern __shared__ __align__(16) uint8_t smem[];
-  walk_level<32>(g, L, smem);
+  upper_dag<32>(dag, smem, [&](int, G& gl, Lv& Ll) {
+    gl = g;
+    Ll = L;
+  });
 }
 
 __global__ void __launch_bounds__(kDagThreads)
@@ -58,14 +63,16 @@ int launch(bool l0, const int* geom, Lv L, int* sums, int* sched, int workers,
   L.su.W = L.sv.W = L.ru.W = L.rv.W = g.CW;
   L.su.H = L.sv.H = L.ru.H = L.rv.H = g.CH;
   cudaStream_t st = (cudaStream_t)stream;
+  if (sched == nullptr) return (int)cudaErrorInvalidValue;
+  int threads;
   if (!l0) {
-    const int warps = level_tiles(g, 32);
-    hme_level_kernel<<<1, 32 * warps, (size_t)warps * kWalkTileBytes, st>>>(
-        g, L);
+    const Dag dag = upper_dag_of(g, 1, sched);
+    const int ctas = dag_shape(dag.nbh * dag.nbv, 32, workers, &threads);
+    hme_level_kernel<<<ctas, threads, (threads / 32) * kUpperTileBytes, st>>>(
+        g, L, dag);
     return (int)cudaGetLastError();
   }
   const Dag dag{g.nbh, g.nbv, 1, sched, sched + 1};
-  int threads;
   const int ctas = dag_shape(g.nbh * g.nbv, 32, workers, &threads);
   hme_level0_kernel<<<ctas, threads, (threads / 32) * kTileBytes, st>>>(
       g, L, sums, dag);
@@ -75,13 +82,16 @@ int launch(bool l0, const int* geom, Lv L, int* sums, int* sched, int workers,
 }  // namespace
 
 // One upper pyramid level (kernel 4) on `stream`: fills out (2, nbv, nbh)
-// (zeroed by the caller) with fx, fy. geom: the GEOM ints of
-// ops/hme_gpu.py. Returns cudaGetLastError() (0 = ok); allocates nothing,
-// does not sync.
+// (zeroed by the caller) with fx, fy. sched: the scheduler's scratch, 1 +
+// ca * cb int32 zeroed by the caller (ca x cb: the level's blocks, the
+// block grid at a step of 2^level); workers: the warps that search blocks
+// (0: 2 on every SM). geom: the GEOM ints of ops/hme_gpu.py. Returns
+// cudaGetLastError() (0 = ok); allocates nothing, does not sync.
 extern "C" int dsv2t_hme_level(const uint8_t* src, const uint8_t* ref,
                                const uint8_t* ogr, const int* parent,
                                const int* tmv, const int* gxy, int* out,
-                               const int* geom, void* stream) {
+                               int* sched, int workers, const int* geom,
+                               void* stream) {
   Lv L = {};
   L.src.p = src;
   L.ref.p = ref;
@@ -90,7 +100,7 @@ extern "C" int dsv2t_hme_level(const uint8_t* src, const uint8_t* ref,
   L.tmv = tmv;
   L.gxy = gxy;
   L.out = out;
-  return launch(false, geom, L, nullptr, nullptr, 0, stream);
+  return launch(false, geom, L, nullptr, sched, workers, stream);
 }
 
 // The base level (kernel 5): fills out (7, nbv, nbh) (zeroed by the

@@ -55,6 +55,15 @@
 //   k owns tile rows [k*J, (k+1)*J) and their plane rows; windows and
 //   write-backs that cross a strip edge go to the neighbour's ring through
 //   distributed shared memory, and cluster barriers replace __syncthreads.
+// - a plane that no cluster of 8 CTAs holds (a very tall one, e.g.
+//   16x16384 4:4:4 chroma in 32x32 blocks) keeps its ring rows in a
+//   scratch buffer in global memory that the wrapper allocates (the
+//   counterpart of the twin's HBM-resident _hbm_call): the same kernel on
+//   one CTA (GR), the lanes' windows in shared memory (or, if even they
+//   do not fit, after the ring in the scratch), the barriers CTA barriers
+//   ordered by a block-scope fence. Each diagonal moves only the ring rows
+//   whose entering or leaving columns lie in the plane (a few bands of a
+//   tall plane): the other rows hold columns no window reads.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -78,15 +87,16 @@ constexpr int kIntra = 0, kLuma = 1, kChroma = 2;
 constexpr int kMaxThreads = 512;
 constexpr int kMaxCluster = 8;
 constexpr int kPrefetch = 12;  // next-diagonal words (4 px) per thread
-constexpr int kGeomInts = 23;
+constexpr int kGeomInts = 25;
 
 // The layout (ops/filters.py _Lay), NP, and the plan (wavefront_plan):
 // ring width R (bytes, a multiple of 4), cluster size C, tile rows per CTA
 // J, lane windows per CTA LC, window stride (bytes), ring rows per CTA,
-// threads, dynamic shared bytes per CTA.
+// threads, dynamic shared bytes per CTA, the ring's place (0 shared, 1 the
+// global scratch) and the scratch bytes per plane.
 struct Geom {
   int pw, ph, tw, th, ntx, nty, L, nd, mr, mc, HP, WP, wh, ww, NP;
-  int R, C, J, LC, wstride, rows, threads, smem;
+  int R, C, J, LC, wstride, rows, threads, smem, ring, scratch;
 };
 
 __device__ __forceinline__ int iabs(int x) { return x < 0 ? -x : x; }
@@ -375,13 +385,16 @@ __device__ __forceinline__ void chroma_step(uint8_t* W, const Geom& g,
     vfilt(W, ww, 4, 4 + z, false, ty, ty, gvy && x0 + z + 4 < pw, iev);
 }
 
-template <bool CL>
+template <bool CL, bool GR = false>
 __device__ __forceinline__ void front_sync() {
-  if constexpr (CL)
+  if constexpr (CL) {
     cg::this_cluster().sync();
-  else
+  } else {
+    if constexpr (GR) __threadfence_block();  // the ring in global memory
     __syncthreads();
+  }
 }
+
 
 // a / d, by a shift where d is a power of two (sh >= 0; every codec
 // layout's tiles are)
@@ -451,11 +464,12 @@ __device__ __forceinline__ int first_lane(const Geom& g, int d, int jlo) {
   return max(max(0, (d - (g.ntx - 1) + 1) >> 1), jlo);
 }
 
-template <int KIND, bool CL>
+template <int KIND, bool CL, bool GR>
 __global__ void __launch_bounds__(kMaxThreads)
 wavefront_kernel(uint8_t* __restrict__ planes,
                  const int* __restrict__ props,
                  const int* __restrict__ scal,
+                 uint8_t* __restrict__ scratch,
                  const __grid_constant__ Geom g) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int kNP = KIND == kIntra ? 1 : (KIND == kLuma ? 10 : 5);
@@ -475,10 +489,26 @@ wavefront_kernel(uint8_t* __restrict__ planes,
   const int row1 = k == C - 1 ? g.HP : g.mr + (k + 1) * span;
   const int nrows = row1 - row0;
   const int jlo = k * g.J, jhi = min(g.nty, (k + 1) * g.J);
-  uint8_t* wins = smem + (size_t)g.smem - (size_t)g.LC * g.wstride;
+  uint8_t* ring = GR ? scratch + (size_t)b * g.scratch : smem;
+  uint8_t* wins =
+      GR && g.smem == 0
+          ? ring + 4 * ((size_t)g.rows * Rw + g.rows / th + 1)
+          : smem + (size_t)g.smem - (size_t)g.LC * g.wstride;
   const int thsh = (th & (th - 1)) ? -1 : __ffs(th) - 1;
-  const Ctx x{smem, planes + (size_t)b * g.HP * g.WP, row0, tw, th, thsh,
+  const Ctx x{ring, planes + (size_t)b * g.HP * g.WP, row0, tw, th, thsh,
               g.WP, R, Rw};
+  // the ring rows [lo, hi) a diagonal moves for the columns [s, s + tw):
+  // all of them, or under GR the bands whose plane columns of those lie in
+  // [0, WP) (band k's plane column is s - 2*tw*k; C = 1, so row0 = 0)
+  auto moved = [&](int s, int& lo, int& hi) {
+    lo = 0;
+    hi = nrows;
+    if constexpr (GR) {
+      lo = max(lo, (floordiv(s - g.WP, 2 * tw) + 1) * th);
+      hi = min(hi, (floordiv(s + tw - 4, 2 * tw) + 1) * th);
+      hi = max(hi, lo);
+    }
+  };
   const size_t ptile = (size_t)g.nty * g.ntx;
   const int* pb = props + (size_t)b * kNP * ptile;
   int sc[8];
@@ -501,11 +531,10 @@ wavefront_kernel(uint8_t* __restrict__ planes,
     if (j <= min(0, jhi - 1))
       load_props<kNP>(prn, pb, ptile, g.ntx, -2 * j, j);
   }
-  front_sync<CL>();
+  front_sync<CL, GR>();
 
   const int nw = tw >> 2;                      // words per row per diagonal
   const int nwsh = (nw & (nw - 1)) ? -1 : __ffs(nw) - 1;
-  const int nmove = nrows * nw;
   uint32_t pf[kPrefetch];
   for (int d = 0; d < g.nd; ++d) {
     const int s0 = sbase + tw * d;             // S0(d)
@@ -515,6 +544,10 @@ wavefront_kernel(uint8_t* __restrict__ planes,
     // diagonal d+1 (S0(d) + 3tw + 8 ..., R = 6tw + 8 further) take over
     const int wslot = wrap(s0m - 3 * tw, R) >> 2;
     const int sin = s0 + 3 * tw + 8;
+    int rin, rin1, rout, rout1;
+    moved(sin, rin, rin1);
+    moved(s0 - 3 * tw, rout, rout1);
+    const int nmove = (rin1 - rin) * nw;
     // phase A: the columns of diagonal d+1 start on their way; the columns
     // diagonal d-1 left go back to the plane
     if (next) {
@@ -523,14 +556,15 @@ wavefront_kernel(uint8_t* __restrict__ planes,
         const int it = tid + u * T;
         if (it < nmove) {
           const int rl = divp(it, nw, nwsh);
-          pf[u] = x.load(rl, sin + 4 * (it - rl * nw));
+          pf[u] = x.load(rin + rl, sin + 4 * (it - rl * nw));
         }
       }
     }
     if (d > 0) {
-      for (int it = tid; it < nmove; it += T) {
+      for (int it = tid; it < (rout1 - rout) * nw; it += T) {
         const int rl = divp(it, nw, nwsh), q = it - rl * nw;
-        x.store(rl, s0 - 3 * tw + 4 * q, x.row(rl)[wrap(wslot + q, Rw)]);
+        x.store(rout + rl, s0 - 3 * tw + 4 * q,
+                x.row(rout + rl)[wrap(wslot + q, Rw)]);
       }
     }
     const int j0 = first_lane(g, d, jlo);
@@ -584,7 +618,7 @@ wavefront_kernel(uint8_t* __restrict__ planes,
       if constexpr (KIND == kLuma) luma_step(W, g, pr, i, j, sc);
       if constexpr (KIND == kChroma) chroma_step(W, g, pr, i, j, sc);
     }
-    front_sync<CL>();   // every window of diagonal d is read
+    front_sync<CL, GR>();   // every window of diagonal d is read
     // phase B: each lane's writable pixels back into the ring
     for (int j = j0 + tid; j <= j1; j += T) {
       const uint8_t* W = wins + (size_t)(j - j0) * g.wstride;
@@ -637,19 +671,19 @@ wavefront_kernel(uint8_t* __restrict__ planes,
         const int it = tid + u * T;
         if (it < nmove) {
           const int rl = divp(it, nw, nwsh);
-          x.row(rl)[wrap(wslot + it - rl * nw, Rw)] = pf[u];
+          x.row(rin + rl)[wrap(wslot + it - rl * nw, Rw)] = pf[u];
         }
       }
       for (int it = tid + kPrefetch * T; it < nmove; it += T) {
         const int rl = divp(it, nw, nwsh), q = it - rl * nw;
-        x.row(rl)[wrap(wslot + q, Rw)] = x.load(rl, sin + 4 * q);
+        x.row(rin + rl)[wrap(wslot + q, Rw)] = x.load(rin + rl, sin + 4 * q);
       }
       // and the first lane's props of diagonal d+1
       const int j = first_lane(g, d + 1, jlo) + tid;
       if (j <= min((d + 1) >> 1, jhi - 1))
         load_props<kNP>(prn, pb, ptile, g.ntx, d + 1 - 2 * j, j);
     }
-    front_sync<CL>();   // diagonal d is in the ring
+    front_sync<CL, GR>();   // diagonal d is in the ring
   }
   // the last strip back to the plane (no other CTA touches this one's ring
   // after the last barrier)
@@ -663,10 +697,10 @@ wavefront_kernel(uint8_t* __restrict__ planes,
   }
 }
 
-template <int KIND, bool CL>
-int launch(uint8_t* planes, const int* props, const int* scal, int nplanes,
-           const Geom& g, cudaStream_t st) {
-  auto kern = wavefront_kernel<KIND, CL>;
+template <int KIND, bool CL, bool GR>
+int launch(uint8_t* planes, const int* props, const int* scal,
+           uint8_t* scratch, int nplanes, const Geom& g, cudaStream_t st) {
+  auto kern = wavefront_kernel<KIND, CL, GR>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (err != cudaSuccess) return (int)err;
@@ -682,17 +716,23 @@ int launch(uint8_t* planes, const int* props, const int* scal, int nplanes,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = CL ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kern, planes, props, scal, g);
+  err = cudaLaunchKernelEx(&cfg, kern, planes, props, scal, scratch, g);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <int KIND>
 int launch_kind(uint8_t* planes, const int* props, const int* scal,
-                int nplanes,
-                const Geom& g, cudaStream_t st) {
-  return g.C > 1 ? launch<KIND, true>(planes, props, scal, nplanes, g, st)
-                 : launch<KIND, false>(planes, props, scal, nplanes, g, st);
+                uint8_t* scratch, int nplanes, const Geom& g,
+                cudaStream_t st) {
+  if (g.ring)
+    return launch<KIND, false, true>(planes, props, scal, scratch, nplanes,
+                                     g, st);
+  if (g.C > 1)
+    return launch<KIND, true, false>(planes, props, scal, scratch, nplanes,
+                                     g, st);
+  return launch<KIND, false, false>(planes, props, scal, scratch, nplanes, g,
+                                    st);
 }
 
 }  // namespace
@@ -711,10 +751,12 @@ extern "C" int dsv2t_wavefront_limits(int* max_smem) {
 // Runs the wavefront of `kind` (0 intra, 1 luma, 2 chroma) in place on
 // `planes` on `stream`; returns the launch's cudaError_t (0 = ok). geom =
 // (pw, ph, tw, th, ntx, nty, L, nd, mr, mc, HP, WP, wh, ww, NP, R, C, J,
-// LC, wstride, rows, threads, smem). Allocates nothing, does not sync.
+// LC, wstride, rows, threads, smem, ring, scratch). With ring = 1, scratch
+// holds nplanes * geom's scratch bytes (contents not read) for the rings
+// in global memory; else it may be null. Allocates nothing, does not sync.
 extern "C" int dsv2t_wavefront_filter(int kind, uint8_t* planes,
                                       const int* props, const int* scal,
-                                      int nplanes,
+                                      uint8_t* scratch, int nplanes,
                                       const int* geom, void* stream) {
   Geom g;
   int* gi = reinterpret_cast<int*>(&g);
@@ -734,18 +776,30 @@ extern "C" int dsv2t_wavefront_filter(int kind, uint8_t* planes,
       g.threads % 32 == 0 && g.HP >= g.mr + g.nty * g.th + 8 &&
       g.WP >= g.mc + g.ntx * g.tw + 4 && g.WP % 4 == 0 &&
       g.rows >= (g.C == 1 ? g.HP : g.mr + g.J * g.th) &&
-      (size_t)g.smem >= 4 * ((size_t)g.rows * (g.R / 4) + g.rows / g.th + 1) +
-                            (size_t)g.LC * g.wstride &&
       reinterpret_cast<uintptr_t>(planes) % 4 == 0;
-  if (!ok) return (int)cudaErrorInvalidValue;
+  const size_t ring = 4 * ((size_t)g.rows * (g.R / 4) + g.rows / g.th + 1);
+  const size_t wins = (size_t)g.LC * g.wstride;
+  const bool ring_ok =
+      g.ring == 0
+          ? (size_t)g.smem >= ring + wins
+          : g.ring == 1 && g.C == 1 && scratch != nullptr &&
+                g.scratch % 16 == 0 &&
+                reinterpret_cast<uintptr_t>(scratch) % 16 == 0 &&
+                (g.smem == 0 ? (size_t)g.scratch >= ring + wins
+                             : (size_t)g.smem >= wins &&
+                                   (size_t)g.scratch >= ring);
+  if (!ok || !ring_ok) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (kind) {
     case kIntra:
-      return launch_kind<kIntra>(planes, props, scal, nplanes, g, st);
+      return launch_kind<kIntra>(planes, props, scal, scratch, nplanes, g,
+                                 st);
     case kLuma:
-      return launch_kind<kLuma>(planes, props, scal, nplanes, g, st);
+      return launch_kind<kLuma>(planes, props, scal, scratch, nplanes, g,
+                                st);
     case kChroma:
-      return launch_kind<kChroma>(planes, props, scal, nplanes, g, st);
+      return launch_kind<kChroma>(planes, props, scal, scratch, nplanes,
+                                  g, st);
   }
   return (int)cudaErrorInvalidValue;
 }

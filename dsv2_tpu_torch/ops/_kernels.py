@@ -28,8 +28,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p (ctypes would cut a pointer passed as a plain int), ints c_int
 _ENTRY = {"vk_chain": ("dsv2t_vk_chain", [_P, _P, _P, _P, _P, _I, _I, _P]),
           "wavefront_filter": ("dsv2t_wavefront_filter",
-                               [_I, _P, _P, _P, _I, _P, _P]),
-          "hme_level": ("dsv2t_hme_level", [_P] * 9),
+                               [_I, _P, _P, _P, _P, _I, _P, _P]),
+          "hme_level": ("dsv2t_hme_level", [_P] * 8 + [_I, _P, _P]),
           "hme_level0": ("dsv2t_hme_level0", [_P] * 13 + [_I, _P, _P]),
           "isqrt_check": ("dsv2t_isqrt_check", [_P, _P]),
           "hme_gang": ("dsv2t_hme_gang",
@@ -142,29 +142,40 @@ def max_smem():
 
 def wavefront_geom(lay, nprops, plan):
     """The int32 geometry csrc/wavefront_filter.cu takes: the layout, NP
-    and the plan (ops/filters.wavefront_plan)."""
+    and the plan (ops/filters.wavefront_plan; its ring as 0 shared, 1
+    global)."""
     return np.array([getattr(lay, k) for k in _GEOM] + [nprops]
-                    + [getattr(plan, k) for k in _PLAN], dtype=np.int32)
+                    + [getattr(plan, k) for k in _PLAN]
+                    + [int(plan.ring == "global"), plan.scratch],
+                    dtype=np.int32)
 
 
-def wavefront_filter(kind, lay, plane, props, scal, cluster=None):
+def wavefront_filter(kind, lay, plane, props, scal, cluster=None,
+                     ring=None):
     """Launch csrc/wavefront_filter.cu on the current stream: kind 0/1/2
     (intra/luma/chroma), lay an ops/filters._Lay, plane (B, HP, WP),
     props (B, NP, nty, ntx) and scal (B, 8) contiguous int32 CUDA tensors
     on one device, checked by the caller (ops/filters.wavefront_filter).
-    The plan (`cluster` CTAs per plane, or the fewest that fit) comes
-    from ops/filters.wavefront_plan, which raises on a layout no plan
-    takes. The kernel works on a uint8 copy of the plane (its values lie
-    in [0, 255]), copied back after the launch. Returns the plan."""
+    The plan (`cluster` CTAs per plane, or the fewest that fit; the ring
+    in `ring` memory, or in shared memory where a plan fits) comes from
+    ops/filters.wavefront_plan, which raises on a layout no plan takes.
+    A global ring gets a scratch buffer of the plan's bytes per plane.
+    The kernel works on a uint8 copy of the plane (its values lie in [0,
+    255]), copied back after the launch. Returns the plan."""
     import torch
     from . import filters
     with torch.cuda.device(plane.device):
-        plan = filters.wavefront_plan(lay, cluster, max_smem())
+        plan = filters.wavefront_plan(lay, cluster, max_smem(), ring)
         geom = wavefront_geom(lay, props.shape[1], plan)
         u8 = plane.to(torch.uint8)
+        scratch = None
+        if plan.ring == "global":
+            scratch = torch.empty(plane.shape[0] * plan.scratch,
+                                  dtype=torch.uint8, device=plane.device)
         stream = torch.cuda.current_stream(plane.device).cuda_stream
         rc = entry("wavefront_filter")(
             int(kind), u8.data_ptr(), props.data_ptr(), scal.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             int(plane.shape[0]), geom.ctypes.data, stream)
         if rc != 0:
             raise RuntimeError("wavefront_filter launch failed: cudaError "
@@ -186,13 +197,14 @@ def _run(name, dev, *ptrs):
         raise RuntimeError("%s launch failed: cudaError %d" % (name, rc))
 
 
-def hme_level(src, ref, ogr, parent, tmv, gxy, out, geom):
+def hme_level(src, ref, ogr, parent, tmv, gxy, out, sched, geom, workers=0):
     """Launch csrc/hme_search.cu's upper-level search on the current
-    stream; tensors checked by the caller (ops/hme_gpu.hme_level), geom
-    an int32 numpy array."""
+    stream; tensors checked by the caller (ops/hme_gpu.hme_level), sched
+    the scheduler's zeroed scratch, geom an int32 numpy array, workers
+    the warps that search blocks (0: the kernel's default)."""
     geom = np.ascontiguousarray(geom, dtype=np.int32)
     _run("hme_level", src.device, *(_ptr(t) for t in (
-        src, ref, ogr, parent, tmv, gxy, out)),
+        src, ref, ogr, parent, tmv, gxy, out, sched)), int(workers),
          ctypes.c_void_p(geom.ctypes.data))
 
 
@@ -216,21 +228,21 @@ def isqrt_check(bad):
     _run("isqrt_check", bad.device, _ptr(bad))
 
 
-def hme_gang(l0, tw, geom, ptrs, scal, dev, sched=None):
+def hme_gang(l0, tw, geom, ptrs, scal, dev, sched, workers=0):
     """Launch csrc/hme_gang.cu for every stream lane of a flush on the
     current stream: l0 picks the base level, tw the lanes per block; geom
     the shared GEOM ints, ptrs (lanes, 12) int64 device pointers, scal
     (lanes, 3) int32 (quant, skip_thresh, b2sr), all host numpy arrays;
-    at the base level sched, the scheduler's zeroed int32 scratch (its
-    workers are the kernel's default); tensors checked by the caller
-    (ops/hme_gpu.hme_gang_level[0])."""
+    sched the scheduler's zeroed int32 scratch, workers the tiles that
+    search blocks (0: the kernel's default); tensors checked by the
+    caller (ops/hme_gpu.hme_gang_level[0])."""
     geom = np.ascontiguousarray(geom, dtype=np.int32)
     ptrs = np.ascontiguousarray(ptrs, dtype=np.int64)
     scal = np.ascontiguousarray(scal, dtype=np.int32)
     _run("hme_gang", dev, int(l0), int(tw), len(scal),
          ctypes.c_void_p(geom.ctypes.data), ctypes.c_void_p(ptrs.ctypes.data),
          ctypes.c_void_p(scal.ctypes.data),
-         ctypes.c_void_p(None if sched is None else sched.data_ptr()), 0)
+         ctypes.c_void_p(sched.data_ptr()), int(workers))
 
 
 def probe_gang(variant, mode, plane, cx, cy, out, nb, evals):

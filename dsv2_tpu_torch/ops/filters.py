@@ -24,9 +24,10 @@ strip (the TPU has no cheap gather); here the plane stays unskewed and
 the plain version gathers each diagonal's windows with index tensors.
 The CUDA kernel takes the skew back inside shared memory: each plane row
 keeps a ring of the skewed columns of the moving strip, sized by
-`wavefront_plan`. `wavefront_filter` dispatches: the plain version for a
-CPU tensor, the CUDA kernel for a CUDA tensor (or an error), never a
-fallback.
+`wavefront_plan` (in a global-memory scratch for a plane no cluster of
+CTAs holds, the counterpart of the twin's HBM-resident `_hbm_call`).
+`wavefront_filter` dispatches: the plain version for a CPU tensor, the
+CUDA kernel for a CUDA tensor (or an error), never a fallback.
 
 Parity oracles: `dsv2_tpu`'s filters (XLA and Pallas interpret mode) and
 the port's native C filters (native/dsv2n.c dsvn_*_filter).
@@ -98,6 +99,8 @@ class WavefrontPlan(NamedTuple):
     rows: int        # ring rows of the largest CTA
     threads: int     # threads per CTA
     smem: int        # dynamic shared bytes per CTA
+    ring: str = "shared"   # where the ring rows live: "shared" or "global"
+    scratch: int = 0       # global scratch bytes per plane (ring "global")
 
 
 def _check_layout(lay):
@@ -124,20 +127,43 @@ def _check_layout(lay):
                          % (", ".join(bad), lay))
 
 
-def wavefront_plan(lay, cluster=None, max_smem=SMEM_OPTIN):
-    """Shared-memory plan of the CUDA wavefront for layout `lay`: every
-    plane row keeps a uint8 ring of R = 6*tw+8 skewed columns (the strip
-    of 5*tw+8 a diagonal's windows cover plus the tw columns of the next
-    one); each lane of a diagonal a private uint8 window. A plane whose
-    ring and windows exceed one CTA's `max_smem` bytes is split by tile
-    rows over a cluster of C CTAs: the smallest C of 1, 2, 4, 8 that fits
-    (or `cluster` itself). Raises ValueError on a malformed layout or one
-    no cluster fits."""
+def _ring_bytes(lay, rows):
+    """Bytes of the ring rows of one CTA (a padding word per band)."""
+    return 4 * (rows * ((6 * lay.tw + 8) // 4) + rows // lay.th + 1)
+
+
+def _threads(lay, rows, LC):
+    """Threads of a CTA: one per lane window, and enough that each loads
+    at most WF_PREFETCH words of the next diagonal's columns."""
+    fill = -(-rows * (lay.tw // 4) // WF_PREFETCH)
+    return min(WF_MAX_THREADS, 32 * -(-max(LC, fill) // 32))
+
+
+def wavefront_plan(lay, cluster=None, max_smem=SMEM_OPTIN, ring=None):
+    """Plan of the CUDA wavefront for layout `lay`: every plane row keeps
+    a uint8 ring of R = 6*tw+8 skewed columns (the strip of 5*tw+8 a
+    diagonal's windows cover plus the tw columns of the next one); each
+    lane of a diagonal a private uint8 window. The ring lives in shared
+    memory: a plane whose ring and windows exceed one CTA's `max_smem`
+    bytes is split by tile rows over a cluster of C CTAs, the smallest C
+    of 1, 2, 4, 8 that fits (or `cluster` itself). A plane no cluster
+    holds (or `ring="global"`) runs on one CTA with its ring rows in a
+    global-memory scratch of `scratch` bytes per plane, the windows in
+    shared memory (after the ring in the scratch if even they exceed
+    `max_smem`). `ring="shared"` takes no global plan. Raises ValueError
+    on a malformed layout, or when the ring asked for has no plan."""
     _check_layout(lay)
+    if ring not in (None, "shared", "global"):
+        raise ValueError("no ring in %r memory" % (ring,))
     R = 6 * lay.tw + 8
     ws = lay.wh * lay.ww
     if (ws // 4) % 2 == 0:
         ws += 4      # an odd word stride: lanes' windows on distinct banks
+    if ring == "global":
+        if cluster not in (None, 1):
+            raise ValueError("a global ring runs on one CTA, not %r"
+                             % (cluster,))
+        return _global_plan(lay, R, ws, max_smem)
     for C in (cluster,) if cluster else WF_CLUSTERS:
         if C not in WF_CLUSTERS:
             raise ValueError("no cluster of %r CTAs" % (C,))
@@ -151,16 +177,27 @@ def wavefront_plan(lay, cluster=None, max_smem=SMEM_OPTIN):
         rows = lay.HP if C == 1 else max(
             lay.mr + span, span, lay.HP - lay.mr - (C - 1) * span)
         LC = min(lay.L, J)
-        smem = 4 * (rows * (R // 4) + rows // lay.th + 1) + LC * ws
-        fill = -(-rows * (lay.tw // 4) // WF_PREFETCH)
-        threads = min(WF_MAX_THREADS, 32 * -(-max(LC, fill) // 32))
+        smem = _ring_bytes(lay, rows) + LC * ws
         if smem <= max_smem:
-            return WavefrontPlan(R, "uint8", C, J, LC, ws, rows, threads,
-                                 smem)
+            return WavefrontPlan(R, "uint8", C, J, LC, ws, rows,
+                                 _threads(lay, rows, LC), smem)
+    if ring is None and cluster is None:
+        return _global_plan(lay, R, ws, max_smem)
     raise ValueError("wavefront layout %dx%d, tiles %dx%d: no cluster of "
                      "up to %d CTAs holds it in %d B each"
                      % (lay.pw, lay.ph, lay.tw, lay.th, WF_CLUSTERS[-1],
                         max_smem))
+
+
+def _global_plan(lay, R, ws, max_smem):
+    """The plan with the ring rows in global memory: one CTA, every row."""
+    rows, LC = lay.HP, min(lay.L, lay.nty)
+    wins = LC * ws
+    smem = wins if wins <= max_smem else 0
+    scratch = _ring_bytes(lay, rows) + (0 if smem else wins)
+    return WavefrontPlan(R, "uint8", 1, lay.nty, LC, ws, rows,
+                         _threads(lay, rows, LC), smem, "global",
+                         -(-scratch // 16) * 16)
 
 
 def _tile_maps(pw, ph, nbh, nbv):

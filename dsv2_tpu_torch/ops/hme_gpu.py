@@ -17,14 +17,14 @@ lanes (ops/hme_gang builds the search from them).
 Layout: the TPU kernels walk the anti-diagonals as a sequential grid,
 keep the last three diagonals in an SMEM ring and get every parent and
 temporal candidate pre-gathered per diagonal in XLA, then unskew the
-rows. Here an upper level is one CTA that walks the diagonals of the
-level in a loop (a barrier between diagonals), up to 16 warps taking the
-blocks of a diagonal in turn; the base level spreads its blocks (every
-lane's, under the gang kernel) over CTAs on every SM, each block claimed
-in topological order and started once its left and top neighbours are
-published (csrc/hme_sched.cuh; the wrapper zeroes the scheduler's
-scratch, a ticket and a ready flag per block). A warp searches one
-block, its lanes splitting the pixel loops, reads its neighbours,
+rows. Here every level spreads its blocks (every lane's, under the gang
+kernel; an upper level's ca x cb blocks at multiples of its step) over
+CTAs on every SM, each block claimed in topological order and finished
+once its left and top neighbours are published, the part of its search
+that needs no neighbour done before it waits (csrc/hme_sched.cuh; the
+wrapper zeroes the scheduler's scratch, a ticket and a ready flag per
+block). A warp searches one block, its lanes splitting the pixel loops,
+reads its neighbours,
 parents and temporal candidates straight from the (nbv, nbh) grids and
 writes its results into them. The planes stay the bordered uint8
 planes; a window is read at its start clamped into the plane, exactly
@@ -108,15 +108,18 @@ def hme_level(cfg, level, src, ref, ogr, parent, tmv, gxy, quant):
     if gxy.dtype != _I32 or tuple(gxy.shape) != (2,):
         raise ValueError("gxy must be int32 (2,)")
     geom = geometry(cfg, level, [src], [], quant, 0)
-    _kernels.hme_level(src, ref, ogr, parent, tmv, gxy, out, geom)
+    _kernels.hme_level(src, ref, ogr, parent, tmv, gxy, out,
+                       _sched(cfg, 1, src.device, level), geom)
     launches["hme_level"] += 1
     return out
 
 
-def _sched(cfg, lanes, dev):
-    """The zeroed scratch of the base-level scheduler: a ticket and a
-    ready flag per block of every lane."""
-    return torch.zeros(1 + lanes * cfg.nbv * cfg.nbh, dtype=_I32, device=dev)
+def _sched(cfg, lanes, dev, level=0):
+    """The zeroed scratch of the scheduler of `level`: a ticket and a
+    ready flag per block of every lane (an upper level's blocks: its ca x
+    cb grid at a step of 2^level)."""
+    _, ca, cb, _ = hw.lane_grid(cfg, level)
+    return torch.zeros(1 + lanes * ca * cb, dtype=_I32, device=dev)
 
 
 def hme_level0(cfg, src, ref, ogr, chroma, parent, tmv, gxy, quant,
@@ -202,7 +205,8 @@ def hme_gang_level(cfg, level, srcs, refs, ogrs, parent, tmv, gxy, quants,
             cfg, level, lanes, parent[sl], tmv[sl], gxy[sl], out[sl], None,
             quants[sl], [0] * m, gang or GANG)
         _kernels.hme_gang(False, 32 // (gang or GANG), geom, ptrs, scal,
-                          srcs[0].device)
+                          srcs[0].device,
+                          _sched(cfg, m, srcs[0].device, level))
         launches["hme_gang_level"] += 1
     return out
 

@@ -200,6 +200,44 @@ def test_filter_kernel_clusters(cuda, kind, cluster):
     assert torch.equal(got.cpu(), want)
 
 
+# (kind, w, h, blk, chroma shifts, forced): 16x16384 4:4:4 chroma in 32x32
+# blocks (no cluster holds it: the plan takes the global ring), and small
+# layouts of every kind forced onto it
+GLOBAL = [("chroma", 16, 16384, 32, (0, 0), False),
+          ("intra", 640, 360, 16, (1, 1), True),
+          ("luma", 640, 360, 16, (1, 1), True),
+          ("chroma", 640, 360, 16, (1, 1), True)]
+
+
+@pytest.mark.parametrize("kind,w,h,blk,shifts,forced", GLOBAL,
+                         ids=["%s-%dx%d" % c[:3] for c in GLOBAL])
+def test_filter_kernel_global_ring(cuda, kind, w, h, blk, shifts, forced):
+    """The ring rows in a global scratch, one CTA: equal to the native
+    filters, 2 planes in one launch."""
+    from dsv2_tpu_torch.ops import _kernels, filters
+    args = golden.filter_case(kind, w, h, blk, shifts, seed=h, nb=2)
+    want = golden.filter_native(kind, args)
+    wf = filters.wavefront_filter
+    plans = []
+
+    def run(kind_, lay, plane, props, scal):
+        plans.append(_kernels.wavefront_filter(
+            filters.KINDS.index(kind_), lay, plane, props, scal,
+            ring="global" if forced else None))
+        return plane
+    filters.wavefront_filter = run
+    try:
+        got = getattr(filters, kind + "_filter_graph")(
+            *(a.to(cuda) if isinstance(a, torch.Tensor) else a
+              for a in args))
+        torch.cuda.synchronize()
+    finally:
+        filters.wavefront_filter = wf
+    assert [(p.ring, p.C) for p in plans] == [("global", 1)]
+    assert torch.equal(got.cpu(), want)
+    assert not torch.equal(want, args[{"intra": 4, "luma": 7}.get(kind, 6)])
+
+
 def test_filter_kernel_rejects(cuda):
     """Malformed inputs raise before any launch."""
     from dsv2_tpu_torch.ops import filters
@@ -329,9 +367,9 @@ def test_hme_level0_cases(cuda, name, has_tmv, effort, kw):
 
 
 def test_hme_repeats(cuda):
-    """20 launches of kernel 5 (CIF) and of kernel 7 (8 CIF lanes) on the
-    same inputs give identical outputs: workers claim blocks in another
-    order each run, so a race would show."""
+    """20 searches with kernels 4/5 (CIF) and with kernels 6/7 (8 CIF
+    lanes) on the same inputs give identical outputs: workers claim blocks
+    in another order each run, so a race would show."""
     from dsv2_tpu_torch.ops import hme_gang, hme_gpu, hme_wave
     frames, meta = read_y4m(golden.input_path("cif352x288_420_12f"))
     cfg, inputs = golden.hme_case(frames, meta, has_tmv=True, device=cuda)
@@ -345,6 +383,99 @@ def test_hme_repeats(cuda):
             got = fn()
             for k, v in first.items():
                 assert torch.equal(got[k], v), k
+
+
+def _upper_levels(cfg, lanes, dev):
+    """Per upper level, top down: (level, parent, gxy, want) of every
+    lane, the plain version's fields fed the plain version's parents (on
+    the CPU); parent and gxy on `dev`."""
+    from dsv2_tpu_torch.ops import hme_wave
+    n = len(lanes)
+    lanes = [_cpu(ln) for ln in lanes]
+    parent = torch.zeros((n, 2, cfg.nbv, cfg.nbh), dtype=torch.int32)
+    gxy = torch.zeros((n, 2), dtype=torch.int32)
+    out = []
+    for level in range(cfg.pyramid_levels, 0, -1):
+        want = torch.stack([torch.stack(hme_wave.refine_level_graph(
+            cfg, level, ln[0][level], ln[1][level], ln[2][level],
+            parent[i, 0], parent[i, 1], ln[7], ln[8], gxy[i, 0], gxy[i, 1],
+            int(ln[9]))) for i, ln in enumerate(lanes)])
+        out.append((level, parent.to(dev), gxy.to(dev), want))
+        parent = want
+        gxy = torch.stack([torch.stack(hme_wave.global_motion_graph(
+            cfg, level, w[0], w[1])) for w in want])
+    return out
+
+
+UPPER_WORKERS = [1, 2, 3, 7, 64, 0]
+
+
+@pytest.mark.parametrize("name,has_tmv", [("cif352x288_420_12f", True),
+                                          ("odd100x62_420_4f", False)])
+def test_hme_upper_workers(cuda, name, has_tmv):
+    """Kernel 4 (an upper level on the dataflow scheduler) at every upper
+    level and 1 to 64 workers (0: the default; through the C entry)
+    against the plain version, fed the same parent field; 20 launches of
+    each level through hme_gpu.hme_level identical."""
+    from dsv2_tpu_torch.ops import _kernels, hme_gpu, hme_wave
+    frames, meta = read_y4m(golden.input_path(name))
+    cfgd, inputs = golden.hme_case(frames, meta, has_tmv=has_tmv,
+                                   device=cuda)
+    cfg = hme_wave.WaveCfg(**cfgd)
+    sp, rp, op, _, _, _, _, tmx, tmy, quant, _ = inputs
+    tmv = torch.stack([tmx, tmy]).contiguous()
+    for level, parent, gxy, want in _upper_levels(cfg, [inputs], cuda):
+        geom = hme_gpu.geometry(cfg, level, [sp[level]], [], int(quant), 0)
+        for w in UPPER_WORKERS:
+            out = torch.zeros((2, cfg.nbv, cfg.nbh), dtype=torch.int32,
+                              device=cuda)
+            _kernels.hme_level(sp[level], rp[level], op[level], parent[0],
+                               tmv, gxy[0], out,
+                               hme_gpu._sched(cfg, 1, cuda, level), geom, w)
+            assert torch.equal(out.cpu(), want[0]), (level, w)
+
+        def run():
+            return hme_gpu.hme_level(cfg, level, sp[level], rp[level],
+                                     op[level], parent[0], tmv, gxy[0],
+                                     int(quant))
+        first = run()
+        assert torch.equal(first.cpu(), want[0]), level
+        for _ in range(19):
+            assert torch.equal(run(), first), level
+
+
+@pytest.mark.parametrize("gang", [1, 2, 4])
+def test_hme_gang_upper_workers(cuda, gang):
+    """Kernel 6 on 8 CIF lanes (every lane's blocks on one scheduler) at
+    every upper level, G = 1, 2, 4 and 1 to 64 workers, against the plain
+    version lane by lane; 20 launches of each level identical."""
+    from dsv2_tpu_torch.ops import _kernels, hme_gpu, hme_wave
+    frames, meta = read_y4m(golden.input_path("cif352x288_420_12f"))
+    cfgd, lanes = golden.hme_lanes(frames, meta, 8, has_tmv=True,
+                                   device=cuda)
+    cfg = hme_wave.WaveCfg(**cfgd)
+    tmv = torch.stack([torch.stack([ln[7], ln[8]]) for ln in lanes]
+                      ).contiguous()
+    quants = [int(ln[9]) for ln in lanes]
+    for level, parent, gxy, want in _upper_levels(cfg, lanes, cuda):
+        planes = [[ln[k][level] for ln in lanes] for k in range(3)]
+        for w in UPPER_WORKERS:
+            out = torch.zeros((len(lanes), 2, cfg.nbv, cfg.nbh),
+                              dtype=torch.int32, device=cuda)
+            geom, ptrs, scal = hme_gpu._gang_args(
+                cfg, level, [([s, r, o], []) for s, r, o in zip(*planes)],
+                parent, tmv, gxy, out, None, quants, [0] * len(lanes), gang)
+            _kernels.hme_gang(False, 32 // gang, geom, ptrs, scal, cuda,
+                              hme_gpu._sched(cfg, len(lanes), cuda, level), w)
+            assert torch.equal(out.cpu(), want), (level, w)
+
+        def run():
+            return hme_gpu.hme_gang_level(cfg, level, *planes, parent, tmv,
+                                          gxy, quants, gang=gang)
+        first = run()
+        assert torch.equal(first.cpu(), want), level
+        for _ in range(19):
+            assert torch.equal(run(), first), level
 
 
 def test_isqrt_exhaustive(cuda):

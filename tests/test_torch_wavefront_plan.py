@@ -5,7 +5,8 @@ the kernel source itself run on the host.
 - every layout the codec produces up to 3840x2160, in all five chroma
   formats with blocks of 16 and 32, has a plan within one H100 CTA's
   232,448 shared bytes per CTA and 8 CTAs per cluster; malformed layouts
-  raise;
+  raise; a plane no cluster holds (very tall ones, 16K 4:4:4) gets the
+  plan with its ring rows in global memory instead;
 - the plain wavefront keeps every plane value, margins included, in
   [0, 255], which lets the kernel hold the plane and the windows as uint8;
 - U and V stacked into one chroma call equal two calls;
@@ -14,7 +15,9 @@ the kernel source itself run on the host.
   std::barrier, each CTA's shared memory a buffer of garbage, distributed
   shared memory a pointer into the other CTA's buffer), equals the plain
   version on seeded planes, with lanes looped over threads and with
-  clusters of 2 to 8 CTAs. This runs the kernel's ring, skew, write-back
+  clusters of 2 to 8 CTAs, and, with the ring forced into a global
+  scratch (windows in shared memory or after the ring), equals the
+  native C filters for every kind. This runs the kernel's ring, skew, write-back
   and cluster logic here; only the card shows that nvcc takes it and
   how fast it runs (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -64,6 +67,7 @@ def test_plan_takes_every_layout(w, h, fmt, blk):
     for lay in lays:
         plan = filters.wavefront_plan(lay)
         assert plan.storage == "uint8" and plan.R == 6 * lay.tw + 8
+        assert plan.ring == "shared" and plan.scratch == 0
         assert plan.smem <= filters.SMEM_OPTIN and plan.C <= 8, plan
         assert 32 <= plan.threads <= filters.WF_MAX_THREADS
         assert plan.threads % 32 == 0
@@ -79,7 +83,8 @@ def test_plan_takes_every_layout(w, h, fmt, blk):
                 continue
             assert small.smem > filters.SMEM_OPTIN
         geom = _kernels.wavefront_geom(lay, 5, plan)
-        assert geom.shape == (23,) and geom[14] == 5
+        assert geom.shape == (25,) and geom[14] == 5
+        assert list(geom[23:]) == [0, 0]
     if (w, h, fmt, blk) == (3840, 2160, "444", 32):
         assert [filters.wavefront_plan(x).C for x in lays] == [1, 4]
     if (w, h, fmt, blk) == (2560, 1440, "444", 32):
@@ -93,21 +98,59 @@ _GOOD = filters._layout(40, 28, 4, 4, 9, 6)
     dict(tw=6, ww=14), dict(th=2, wh=10), dict(tw=64, ww=72), dict(mr=4),
     dict(mr=6),
     dict(mc=6), dict(wh=13), dict(L=2), dict(nd=7), dict(HP=20),
-    dict(WP=30), dict(ntx=0), "huge", "cluster3", "cluster_too_big"])
+    dict(WP=30), dict(ntx=0), "huge", "cluster3", "cluster_too_big",
+    "global_cluster", "ring_kind"])
 def test_plan_rejects(change):
-    if change == "huge":     # 8K 4:4:4 32x32 chroma: no cluster holds it
+    if change == "huge":     # 16K 4:4:4 32x32 chroma: no cluster holds it
         lay = filters._layout(15360, 8640, 32, 32, 480, 270)
         with pytest.raises(ValueError, match="no cluster"):
-            filters.wavefront_plan(lay)
+            filters.wavefront_plan(lay, ring="shared")
     elif change == "cluster3":
         with pytest.raises(ValueError, match="no cluster of 3"):
             filters.wavefront_plan(_GOOD, cluster=3)
     elif change == "cluster_too_big":   # 6 tile rows over 8 CTAs
         with pytest.raises(ValueError, match="do not fill"):
             filters.wavefront_plan(_GOOD, cluster=8)
+    elif change == "global_cluster":
+        with pytest.raises(ValueError, match="one CTA"):
+            filters.wavefront_plan(_GOOD, cluster=2, ring="global")
+    elif change == "ring_kind":
+        with pytest.raises(ValueError, match="no ring"):
+            filters.wavefront_plan(_GOOD, ring="local")
     else:
         with pytest.raises(ValueError, match="malformed"):
             filters.wavefront_plan(_GOOD._replace(**change))
+
+
+# (w, h, format, block): the planes no cluster of 8 CTAs holds in shared
+# memory (their chroma), and 16K 4:4:4, whose lane windows alone exceed
+# one CTA's shared memory
+TALL = [(16, 16384, "444", 32), (64, 16384, "444", 32),
+        (16, 32768, "444", 16), (16, 32768, "422", 32),
+        (15360, 8640, "444", 32)]
+
+
+@pytest.mark.parametrize("w,h,fmt,blk", TALL,
+                         ids=["%dx%d_%s_b%d" % c for c in TALL])
+def test_plan_global_ring(w, h, fmt, blk):
+    """A layout no cluster holds gets the global ring on one CTA, the
+    ring's bytes in the scratch; the luma layouts keep a shared plan."""
+    luma, chroma = _layouts(w, h, FORMATS[fmt], blk)
+    assert filters.wavefront_plan(luma).ring == "shared"
+    with pytest.raises(ValueError, match="no cluster"):
+        filters.wavefront_plan(chroma, ring="shared")
+    plan = filters.wavefront_plan(chroma)
+    assert plan == filters.wavefront_plan(chroma, ring="global")
+    assert (plan.ring, plan.C, plan.J, plan.rows) == ("global", 1,
+                                                      chroma.nty, chroma.HP)
+    wins = plan.LC * plan.wstride
+    ring = filters._ring_bytes(chroma, plan.rows)
+    assert plan.smem in (0, wins) and plan.smem <= filters.SMEM_OPTIN
+    assert plan.scratch % 16 == 0
+    assert plan.scratch >= ring + (0 if plan.smem else wins)
+    assert (plan.smem == 0) == ((w, h) == (15360, 8640))
+    geom = _kernels.wavefront_geom(chroma, 5, plan)
+    assert list(geom[23:]) == [1, plan.scratch]
 
 
 def _record_plain(monkeypatch):
@@ -158,6 +201,7 @@ def test_chroma_uv_one_call():
 _SHIM = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <cstdio>
@@ -180,6 +224,9 @@ struct dim3 {
 struct int4 { int x, y, z, w; };
 inline int4 make_int4(int a, int b, int c, int d) { return int4{a, b, c, d}; }
 inline int __ffs(int v) { return __builtin_ffs(v); }
+inline void __threadfence_block() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorInvalidConfiguration = 9 };
@@ -295,7 +342,7 @@ def host_kernel(tmp_path_factory):
     assert res.returncode == 0, res.stderr[-3000:]
     fn = ctypes.CDLL(so).dsv2t_wavefront_filter
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     return fn
 
@@ -339,9 +386,59 @@ def test_kernel_source_on_host(host_kernel, case, monkeypatch):
     geom = _kernels.wavefront_geom(lay, props.shape[1], plan)
     u8 = plane.to(torch.uint8)
     rc = host_kernel(filters.KINDS.index(kind), u8.data_ptr(),
-                     props.data_ptr(), scal.data_ptr(), nb,
+                     props.data_ptr(), scal.data_ptr(), None, nb,
                      geom.ctypes.data, None)
     assert rc == 0, plan
     got = u8[:, lay.mr:lay.mr + lay.ph, lay.mc:lay.mc + lay.pw]
     assert_same(got, want.reshape(got.shape))
     assert not torch.equal(want, args[{"intra": 4, "luma": 7}.get(kind, 6)])
+
+
+# (kind, w, h, blk, chroma shifts, planes, windows in the scratch): small
+# layouts forced onto the global ring, against the native C filters
+GLOBAL_CASES = [
+    ("intra", 64, 48, 16, (1, 1), 2, False),
+    ("luma", 48, 200, 16, (1, 1), 1, False),
+    ("luma", 100, 62, 16, (1, 1), 1, True),
+    ("chroma", 64, 160, 32, (0, 0), 2, False),
+    ("chroma", 96, 80, 16, (1, 0), 1, True),
+]
+
+
+@pytest.mark.parametrize("case", GLOBAL_CASES,
+                         ids=["%s-%dx%d-b%d-s%d%d-n%d-wins%d" % (
+                             c[:4] + c[4] + c[5:]) for c in GLOBAL_CASES])
+def test_global_ring_on_host(host_kernel, case, monkeypatch):
+    """The kernel source with its ring rows in a global scratch (filled
+    with garbage: the kernel reads no byte it did not write) equals the
+    native C filters, planes batched in one launch."""
+    kind, w, h, blk, shifts, nb, scratch_wins = case
+    calls = []
+    plain = filters.wavefront_filter_plain
+
+    def rec(kind_, lay, plane, props, scal):
+        calls.append((lay, plane.clone(), props, scal))
+        return plain(kind_, lay, plane, props, scal)
+    monkeypatch.setattr(filters, "wavefront_filter", rec)
+    args = golden.filter_case(kind, w, h, blk, shifts, seed=3, nb=nb)
+    want = golden.filter_native(kind, args)
+    getattr(filters, kind + "_filter_graph")(*args)
+    (lay, plane, props, scal), = calls
+    plan = filters.wavefront_plan(
+        lay, ring="global", max_smem=1 if scratch_wins else
+        filters.SMEM_OPTIN)
+    assert plan.ring == "global" and (plan.smem == 0) == scratch_wins
+    geom = _kernels.wavefront_geom(lay, props.shape[1], plan)
+    u8 = plane.to(torch.uint8)
+    scratch = torch.full((nb * plan.scratch,), 0xCD, dtype=torch.uint8)
+    rc = host_kernel(filters.KINDS.index(kind), u8.data_ptr(),
+                     props.data_ptr(), scal.data_ptr(), scratch.data_ptr(),
+                     nb, geom.ctypes.data, None)
+    assert rc == 0, plan
+    got = u8[:, lay.mr:lay.mr + lay.ph, lay.mc:lay.mc + lay.pw]
+    assert_same(got, want.reshape(got.shape))
+    assert not torch.equal(want, args[{"intra": 4, "luma": 7}.get(kind, 6)])
+    # a global plan without its scratch is refused
+    assert host_kernel(filters.KINDS.index(kind), u8.data_ptr(),
+                       props.data_ptr(), scal.data_ptr(), None, nb,
+                       geom.ctypes.data, None) != 0

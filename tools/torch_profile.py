@@ -2,7 +2,8 @@
 """Where the torch port's FHD intra encode spends its time, on one GPU.
 
     python3 tools/torch_profile.py [--out DIR] [--wavefront | --phases |
-                                    --hme [--src CSRC ...]]
+                                    --hme [--src CSRC ...]
+                                    [--hme-levels all|upper|base]]
 
 Input: the seeded synthetic clip of chip_smoke.py's main path (1920x1080
 4:2:0, 32 frames, -qp=60 -gop=0, chunk 16). Prints one JSON line each:
@@ -65,7 +66,20 @@ With --hme it prints only:
            from a checkout's dsv2_tpu_torch/csrc (the parent's and this
            one's in turns, to compare); the upper levels that feed level 0
            always run this checkout's kernels 4/6, which equal any
-           correct version's. Both builds go under build/torch_profile/.
+           correct version's. The builds go under build/torch_profile/.
+  hme_upper_phases  the upper levels (kernel 4 at every upper level of
+           FHD P frames 1 and 2; kernel 6 at every upper level of the 8
+           CIF lanes, G = 1), each source in turn: device ms per level
+           (the default workers and, under the dataflow scheduler, a sweep
+           of worker counts), and clock cycles per block in each phase of
+           the block (claim: the ticket and the lane switch, or the next
+           block of a diagonal in the one-CTA walk; pre: block_pre; wait:
+           the neighbours' flags, or the barrier between diagonals; post:
+           block_post and the writes), summed over every warp and divided
+           by the level's blocks, with the stamped launch's ms. The inputs
+           (parent field, global motion) come from this checkout's
+           kernels. --hme-levels picks the upper levels, the base level
+           or both (default).
 
 Needs CUDA and nvcc; writes under build/ and DIR (default chiprun_out/).
 """
@@ -382,8 +396,8 @@ def _hme_stamped(src_dir, out_dir):
         block = [
             (r"    // candidates \(ref: hme.c:1443-1528\), in slot order",
              stamp(0), False),
-            (r"    return true;\n  }\n\n  // The rest of the search",
-             stamp(1), False),
+            (r"    return true;\n  }\n\n  // The (rest of the search|first "
+             r"strict minimum)", stamp(1), False),
             (r"    // good-enough vs the source reference", stamp(1), False),
             (r"\n    wait\(\);\n", "\n" + stamp(3), False),
             (r"    wait\(\);\n", stamp(7), True),
@@ -421,13 +435,80 @@ def _hme_stamped(src_dir, out_dir):
     return dag
 
 
+HME_UPPER_PHASES = ("claim", "pre", "wait", "post")
+
+
+def _upper_dataflow(src_dir):
+    """True if src_dir's upper levels run on the dataflow scheduler."""
+    with open(os.path.join(src_dir, "hme_block.cuh")) as f:
+        return "upper_dag" in f.read()
+
+
+def _hme_upper_stamped(src_dir, out_dir):
+    """Copies of src_dir's motion-search sources under out_dir with a
+    clock64 stamp closing each phase of HME_UPPER_PHASES in the upper
+    levels' driver (upper_dag, or the one-CTA walk_level)."""
+    import re
+    import shutil
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(src_dir):
+        if f.endswith((".cu", ".cuh")):
+            shutil.copy(os.path.join(src_dir, f), out_dir)
+
+    def stamp(k):
+        return "      HME_STAMP(%d)\n" % k
+    if _upper_dataflow(src_dir):
+        block = [
+            (r"    const int step = 1 << g.level, i = a \* step, "
+             r"j = b \* step;\n", stamp(0), True),
+            (r"    const bool in = T::block_pre\(g, L, i, j, buf, r, sw, "
+             r"c(, false)?\);\n", stamp(1), True),
+            (r"    wait\(\);\n(?=    if \(!in\) return;\n    T::block_post)",
+             stamp(2), True),
+            (r"      L.out\[g.nbv \* g.nbh \+ j \* g.nbh \+ i\] = "
+             r"r.dy \* step;\n    }\n", stamp(3), True)]
+    else:
+        block = [
+            (r"      const int i = a \* step, j = b \* step;\n", stamp(0),
+             True),
+            (r"      if \(T::block_pre\(g, L, i, j, buf, r, sw, c, "
+             r"true\)\) \{\n", stamp(1), True),
+            (r"        T::block_post\(g, L, i, j, sw, r, c\);\n", stamp(3),
+             True),
+            (r"    __syncthreads\(\);  // diagonal d is in the grids\n",
+             stamp(2), True)]
+    edits = {"hme_block.cuh": [e + (1,) for e in block]}
+    for name in ("hme_search.cu", "hme_gang.cu"):
+        edits[name] = [(r"  extern __shared__ __align__\(16\) uint8_t "
+                        r"smem\[\];\n", "  if ((threadIdx.x & 31) == 0 && "
+                        "HME_WARP() < HME_PROF_WARPS) g_last[HME_WARP()] = "
+                        "clock64();\n", True, 2)]
+    for name, eds in edits.items():
+        path = os.path.join(out_dir, name)
+        with open(path) as f:
+            src = f.read()
+        for anchor, text, after, want in eds:
+            src, n = re.subn(anchor, (lambda m: m.group(0) + text) if after
+                             else (lambda m: text + m.group(0)), src)
+            assert n == want, (name, anchor, n)
+        if name.endswith(".cu"):
+            src = _HME_PRELUDE + src + _HME_READ
+        with open(path, "w") as f:
+            f.write(src)
+
+
 def _hme_lib(src_dir, out_dir, stamped):
     """Build hme_search.cu and hme_gang.cu of src_dir (stamped copies if
-    asked) under out_dir; returns ({name: CDLL}, dataflow?)."""
+    asked: "base" stamps the base level's phases, "upper" the upper
+    levels') under out_dir; returns ({name: CDLL}, dataflow?)."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
     from dsv2_tpu_torch.ops import _kernels
-    if stamped:
+    if stamped == "upper":
+        _hme_upper_stamped(src_dir, out_dir)
+        dag = _upper_dataflow(src_dir)
+        src_dir = out_dir
+    elif stamped:
         dag = _hme_stamped(src_dir, out_dir)
         src_dir = out_dir
     else:
@@ -435,7 +516,8 @@ def _hme_lib(src_dir, out_dir, stamped):
     os.makedirs(out_dir, exist_ok=True)
 
     def build(name):
-        so = os.path.join(out_dir, "lib%s%s.so" % (name, "_st" * stamped))
+        so = os.path.join(out_dir, "lib%s%s.so" % (name, "_st" * bool(
+            stamped)))
         subprocess.run([_kernels._nvcc()] + _kernels.NVCC_FLAGS
                        + ["-o", so, os.path.join(src_dir, name + ".cu")],
                        check=True, capture_output=True)
@@ -445,11 +527,13 @@ def _hme_lib(src_dir, out_dir, stamped):
 
 
 def _hme_inputs(dev):
-    """Level-0 launches to study: ("fhd_p_frameN", cfg, lanes) for FHD P
-    frames 1 and 2 and ("cif_x8", cfg, lanes) for 8 seeded CIF lanes; a
-    lane is (planes, chroma, parent, tmv, gxy, quant, skip_thresh), the
-    parent field and global motion from this checkout's upper-level
-    kernels."""
+    """Launches to study: (level-0 cases, upper cases). Level 0:
+    ("fhd_p_frameN", cfg, lanes) for FHD P frames 1 and 2 and ("cif_x8",
+    cfg, lanes) for 8 seeded CIF lanes; a lane is (planes, chroma, parent,
+    tmv, gxy, quant, skip_thresh), the parent field and global motion from
+    this checkout's upper-level kernels. Upper: (label, cfg, level, lanes)
+    for every upper level of the same inputs, a lane (planes, parent, tmv,
+    gxy, quant)."""
     import torch
     import torch_port_golden as golden
     from dsv2_tpu_torch import cli
@@ -472,7 +556,7 @@ def _hme_inputs(dev):
     finally:
         hme_gpu.make_motion_est = make_me
     del frames
-    cases = []
+    cases, upper = [], []
     for n, (cfg, inp) in enumerate(recorded):
         sp, rp, op, su, sv, ru, rv, tmx, tmy, quant, skt = inp
         tmv = torch.stack([tmx, tmy]).contiguous()
@@ -480,6 +564,9 @@ def _hme_inputs(dev):
         parent = torch.zeros((2, cfg.nbv, cfg.nbh), dtype=torch.int32,
                              device=dev)
         for level in range(cfg.pyramid_levels, 0, -1):
+            upper.append(("fhd_p_frame%d" % (n + 1), cfg, level, [
+                ((sp[level], rp[level], op[level]), parent, tmv, gxy,
+                 int(quant))]))
             parent = hme_gpu.hme_level(cfg, level, sp[level], rp[level],
                                        op[level], parent, tmv, gxy,
                                        int(quant))
@@ -499,6 +586,9 @@ def _hme_inputs(dev):
     parent = torch.zeros((n, 2, cfg.nbv, cfg.nbh), dtype=torch.int32,
                          device=dev)
     for level in range(cfg.pyramid_levels, 0, -1):
+        upper.append(("cif_x8", cfg, level, [
+            ((ln[0][level], ln[1][level], ln[2][level]), parent[i], tmv[i],
+             gxy[i], quants[i]) for i, ln in enumerate(lanes)]))
         parent = hme_gpu.hme_gang_level(
             cfg, level, [ln[0][level] for ln in lanes],
             [ln[1][level] for ln in lanes], [ln[2][level] for ln in lanes],
@@ -507,7 +597,7 @@ def _hme_inputs(dev):
     cases.append(("cif_x8", cfg, [
         ((ln[0][0], ln[1][0], ln[2][0]), tuple(ln[3:7]), parent[i], tmv[i],
          gxy[i], quants[i], int(ln[10])) for i, ln in enumerate(lanes)]))
-    return cases
+    return cases, upper
 
 
 def _hme_launcher(libs, dag, cfg, lanes, dev):
@@ -566,12 +656,85 @@ def _hme_launcher(libs, dag, cfg, lanes, dev):
     return run, out, sums
 
 
-def hme_study(srcs):
-    """Kernel ms and cycles per phase of the base-level search of each
-    source directory of `srcs` in turn (see the module docstring, --hme);
-    a directory named twice is built once."""
+def _hme_upper_launcher(libs, dag, cfg, level, lanes, dev):
+    """fn(workers) -> one upper-level launch of `lanes` through libs
+    (kernel 4 for one lane, kernel 6 at G = 1 for several) on a fresh
+    zeroed output; the parent's ABI (no scheduler at the upper levels)
+    when not dag."""
+    import ctypes
+    import torch
+    from dsv2_tpu_torch.ops import hme_gpu
+    P, I = ctypes.c_void_p, ctypes.c_int
+    n = len(lanes)
+    out = torch.zeros((n, 2, cfg.nbv, cfg.nbh), dtype=torch.int32,
+                      device=dev)
+    sched = hme_gpu._sched(cfg, n, dev, level)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+    if n == 1:
+        fn = libs["hme_search"].dsv2t_hme_level
+        fn.restype = I
+        fn.argtypes = [P] * 8 + [I, P, P] if dag else [P] * 9
+        planes, parent, tmv, gxy, quant = lanes[0]
+        geom = hme_gpu.geometry(cfg, level, [planes[0]], [], quant, 0)
+        args = [ptr(t) for t in planes + (parent, tmv, gxy, out[0])]
+
+        def run(workers=0):
+            out.zero_()
+            sched.zero_()
+            extra = [ptr(sched), workers] if dag else []
+            assert fn(*args, *extra, geom.ctypes.data, stream) == 0
+    else:
+        fn = libs["hme_gang"].dsv2t_hme_gang
+        fn.restype = I
+        fn.argtypes = [I, I, I, P, P, P, P, I, P]
+        grids = [torch.stack([ln[k] for ln in lanes]) for k in (1, 2, 3)]
+        geom, ptrs, scal = hme_gpu._gang_args(
+            cfg, level, [(list(ln[0]), []) for ln in lanes], *grids, out,
+            None, [ln[4] for ln in lanes], [0] * n, 1)
+        keep = (ptrs, scal, geom, grids)
+
+        def run(workers=0):
+            out.zero_()
+            sched.zero_()
+            assert fn(0, 32, n, keep[2].ctypes.data, keep[0].ctypes.data,
+                      keep[1].ctypes.data, ptr(sched), workers, stream) == 0
+    return run, out
+
+
+def _read_prof(libs, n, run):
+    """Cycles per stamp slot summed over the warps of one stamped launch
+    run() (after a warm-up launch), and that launch's device ms."""
     import ctypes
     import numpy as np
+    import torch
+    rd = libs["hme_gang" if n > 1 else "hme_search"].dsv2t_prof_read
+    rd.restype = ctypes.c_int
+    rd.argtypes = [ctypes.c_void_p]
+    buf = np.zeros(4096 * 8, np.uint64)
+    run()
+    torch.cuda.synchronize()
+    assert rd(buf.ctypes.data) == 0   # reset after the warm-up
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    run()
+    t1.record()
+    torch.cuda.synchronize()
+    assert rd(buf.ctypes.data) == 0
+    return buf.reshape(-1, 8), t0.elapsed_time(t1)
+
+
+UPPER_WORKERS = (16, 34, 66, 132, 264, 528)
+
+
+def hme_study(srcs, levels="all"):
+    """Kernel ms and cycles per phase of the motion search of each source
+    directory of `srcs` in turn, the base level and/or the upper levels
+    (see the module docstring, --hme); a directory named twice is built
+    once."""
     import torch
     from concurrent.futures import ThreadPoolExecutor
     dev = torch.device("cuda")
@@ -581,16 +744,25 @@ def hme_study(srcs):
         check=True).stdout.strip().splitlines()[0]
     tags = {d: os.path.relpath(os.path.abspath(d), REPO) for d in srcs}
 
-    def build(d):
+    kinds = [("plain", False)] + [(k, k) for k in ("base", "upper")
+                                   if levels in ("all", k)]
+
+    def build(job):
+        d, (sub, stamped) = job
         base = os.path.join(REPO, "build", "torch_profile",
                             "hme_" + tags[d].replace(os.sep, "_"))
-        return d, (_hme_lib(d, os.path.join(base, "plain"), False),
-                   _hme_lib(d, os.path.join(base, "stamped"), True)[0])
-    with ThreadPoolExecutor(len(tags)) as ex:
-        libs = dict(ex.map(build, list(tags)))
-    cases = _hme_inputs(dev)
+        return (d, sub), _hme_lib(d, os.path.join(base, sub), stamped)
+    with ThreadPoolExecutor(len(tags) * len(kinds)) as ex:
+        libs = dict(ex.map(build, [(d, k) for d in tags for k in kinds]))
+    cases, upper = _hme_inputs(dev)
     for d in srcs:
-        (plain_libs, dag), st_libs = libs[d]
+        if levels in ("all", "upper"):
+            _upper_study(d, tags[d], libs[d, "plain"][0], libs[d, "upper"],
+                         upper, dev, smi)
+        if levels == "upper":
+            continue
+        plain_libs, dag = libs[d, "plain"]
+        st_libs = libs[d, "base"][0]
         for label, cfg, lanes in cases:
             run, out, sums = _hme_launcher(plain_libs, dag, cfg, lanes, dev)
             ms = {"default": dev_ms(run, 3)}
@@ -601,32 +773,46 @@ def hme_study(srcs):
                     assert torch.equal(out, want[0])
                     assert torch.equal(sums, want[1])
             srun, sout, ssums = _hme_launcher(st_libs, dag, cfg, lanes, dev)
-            rd = st_libs["hme_gang" if len(lanes) > 1 else "hme_search"
-                         ].dsv2t_prof_read
-            rd.restype = ctypes.c_int
-            rd.argtypes = [ctypes.c_void_p]
-            buf = np.zeros(4096 * 8, np.uint64)
-            srun()
-            torch.cuda.synchronize()
-            assert rd(buf.ctypes.data) == 0   # reset after the warm-up
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            srun()
-            t1.record()
-            torch.cuda.synchronize()
-            assert rd(buf.ctypes.data) == 0
+            buf, stamped_ms = _read_prof(st_libs, len(lanes), srun)
             assert torch.equal(sout, want[0]) and torch.equal(ssums, want[1])
             blocks = len(lanes) * cfg.nbv * cfg.nbh
-            per = buf.reshape(-1, 8).sum(0) / blocks
+            per = buf.sum(0) / blocks
             emit("hme_phases", case=label, source=tags[d], dataflow=dag,
                  lanes=len(lanes), blocks=blocks,
                  diagonals=cfg.nbv + cfg.nbh - 1, ms_by_workers=ms,
-                 stamped_ms=t0.elapsed_time(t1),
+                 stamped_ms=stamped_ms,
                  cycles_per_block=dict(zip(HME_PHASES, per.tolist())),
                  busy_cycles_per_block=float(per[:7].sum()),
-                 warps_stamped=int((buf.reshape(-1, 8).sum(1) > 0).sum()),
+                 warps_stamped=int((buf.sum(1) > 0).sum()),
                  nvidia_smi=smi)
+
+
+def _upper_study(d, tag, plain_libs, stamped, upper, dev, smi):
+    """hme_upper_phases of source directory d (see hme_study)."""
+    import torch
+    from dsv2_tpu_torch.ops import hme_wave
+    st_libs, dag = stamped
+    for label, cfg, level, lanes in upper:
+        run, out = _hme_upper_launcher(plain_libs, dag, cfg, level, lanes,
+                                       dev)
+        ms = {"default": dev_ms(run, 3)}
+        want = out.clone()
+        if dag:
+            for w in UPPER_WORKERS:
+                ms[w] = dev_ms(lambda w=w: run(w), 3)
+                assert torch.equal(out, want)
+        srun, sout = _hme_upper_launcher(st_libs, dag, cfg, level, lanes,
+                                         dev)
+        buf, stamped_ms = _read_prof(st_libs, len(lanes), srun)
+        assert torch.equal(sout, want)
+        _, ca, cb, nd = hme_wave.lane_grid(cfg, level)
+        blocks = len(lanes) * ca * cb
+        per = buf.sum(0)[:len(HME_UPPER_PHASES)] / blocks
+        emit("hme_upper_phases", case=label, level=level, source=tag,
+             dataflow=dag, lanes=len(lanes), blocks=blocks, diagonals=nd,
+             ms_by_workers=ms, stamped_ms=stamped_ms,
+             cycles_per_block=dict(zip(HME_UPPER_PHASES, per.tolist())),
+             warps_stamped=int((buf.sum(1) > 0).sum()), nvidia_smi=smi)
 
 
 def main(argv=None):
@@ -643,6 +829,9 @@ def main(argv=None):
                     help="with --hme: a directory of kernel sources to "
                     "study, in the order given (default: this checkout's "
                     "dsv2_tpu_torch/csrc)")
+    ap.add_argument("--hme-levels", default="all",
+                    choices=("all", "upper", "base"),
+                    help="with --hme: the levels to study")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -655,7 +844,8 @@ def main(argv=None):
         return wavefront_phases()
     if args.hme:
         return hme_study(args.src or [os.path.join(REPO, "dsv2_tpu_torch",
-                                                    "csrc")])
+                                                    "csrc")],
+                         args.hme_levels)
     import torch_port_golden as golden
     from dsv2_tpu_torch import cli
     from dsv2_tpu_torch.codec.devsteps import blob_cap
