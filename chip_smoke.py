@@ -20,7 +20,12 @@ probe's tool run. Also an FHD high-quality stream (3 frames at -qp=90
 inputs that must agree.
 Before that it builds every CUDA kernel of those paths from this
 checkout (one nvcc per source, all at once) and holds each against
-its plain PyTorch version: the vk chain on random and FHD scan inputs,
+its plain PyTorch version: the vk chain on random chains, on the
+adversarial kinds of tools/torch_port_golden.vk_case (B = 1, 3, 16, 33,
+an npad not a multiple of 4, B = 300), on the FHD chunk's scans (timed,
+with the share of chunks whose true start met a speculative candidate)
+and on P frame 1's luma plane at B = 1 of the FHD P encode and of one
+lockstep lane (timed),
 the in-loop filter wavefront (three kinds) on seeded random planes at
 CIF and FHD geometry and on the planes the FHD decodes feed it (timed,
 with the cluster sizes 1, 2, 4 and 8 at FHD luma), and against the
@@ -171,16 +176,26 @@ def main():
     compared = []
 
     def compare(label, thr, s0, nnz, time_it=False):
+        """Kernel vs plain on one call; with the resolve pass's counters
+        (the share of chunks whose true start met a speculative candidate,
+        the rows re-walked) and, timed, ms against the plain version and
+        the bound."""
         nonlocal vk_err
-        got = scan_pl.vk_chain(thr, s0, nnz)
+        stats = torch.zeros(5, dtype=torch.int32, device=dev)
+        got = scan_pl.vk_chain(thr, s0, nnz, stats)
         torch.cuda.synchronize()
         plain_ms, want = host_ms(lambda: scan_pl.vk_chain_plain(thr, s0,
                                                                 nnz))
         err = int((got.long() - want.long()).abs().max())
         vk_err = max(vk_err, err)
         live = int((nnz - s0).clamp(min=0).sum())
+        chunks, met, rewalked, _, rows = stats.tolist()
         rec = dict(case=label, npad=thr.shape[0], B=thr.shape[1],
-                   live_rows=live, max_abs_err=err)
+                   live_rows=live, max_abs_err=err, chunks=chunks,
+                   met_at_start=met / chunks if chunks else None,
+                   rewalked=rewalked, rows_rewalked=rows,
+                   plan=_kernels.vk_plan(thr.shape[0] + 3 & ~3,
+                                         thr.shape[1]))
         if time_it:
             rec["ms"] = cuda_ms(lambda: scan_pl.vk_chain(thr, s0, nnz), 20)
             rec["plain_ms"] = plain_ms
@@ -191,6 +206,9 @@ def main():
         compared.append(rec)
         assert err == 0, rec
         return rec
+
+    def on_dev(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
 
     rng = torch.Generator().manual_seed(7)
     for nb in (1, 3, 16):
@@ -203,9 +221,20 @@ def main():
                                               generator=rng,
                                               dtype=torch.int32))
         compare("random", thr.to(dev), s0.to(dev), nnz.to(dev))
+    # the adversarial kinds (oscillations of both parities, a climb no
+    # candidate meets, runs of the clamp, edge ranges); npad not a multiple
+    # of 4; more chains than a launch takes
+    for kind in golden.VK_KINDS:
+        for nb in (1, 3, 16, 33):
+            compare("%s_b%d" % (kind, nb), *on_dev(golden.vk_case(
+                kind, nb, 8192)))
+    compare("random_npad4099_b3", *on_dev(golden.vk_case("random", 3,
+                                                         4099)))
+    compare("random_b300", *on_dev(golden.vk_case("random", 300, 4096)))
     pcfg, vs = chunk_scans(frames[:CHUNK], meta)
     timed = []
-    for c, label in ((1, "fhd_chroma_chunk"), (0, "fhd_luma_chunk")):
+    for c, label in ((1, "fhd_u_chunk"), (2, "fhd_v_chunk"),
+                     (0, "fhd_luma_chunk")):
         segs = tuple(hzcc.scan_segments(*pcfg.cdims[c]))
         timed.append(compare(label, *scan_pl.vk_chain_inputs(segs, vs[c]),
                              time_it=True))
@@ -218,6 +247,22 @@ def main():
     del vs, cvs
     emit("kernel_vs_plain", kernel="vk_chain", max_abs_err=vk_err,
          cases=compared)
+
+    vk_fn = scan_pl.vk_chain
+
+    @contextlib.contextmanager
+    def recording_vk(calls):
+        """Record (thr, s0, nnz) of each vk chain call with one chain (the
+        P paths' planes, in call order: three a frame)."""
+        def rec(thr, s0, nnz, stats=None):
+            if thr.shape[1] == 1:
+                calls.append((thr.clone(), s0.clone(), nnz.clone()))
+            return vk_fn(thr, s0, nnz, stats)
+        scan_pl.vk_chain = rec
+        try:
+            yield calls
+        finally:
+            scan_pl.vk_chain = vk_fn
 
     # 4. the filter wavefront vs its plain version on seeded random planes
     # at CIF and FHD geometry. The public filters are called on the card
@@ -579,9 +624,11 @@ def main():
         return f
 
     hme_gpu.make_motion_est = recording_me
+    p_vk_calls = []
     try:
-        warm_ms, pdata = host_ms(lambda: golden.encode(
-            cli, frames_p, meta, QP, gop=P_GOP, device=dev))
+        with recording_vk(p_vk_calls):
+            warm_ms, pdata = host_ms(lambda: golden.encode(
+                cli, frames_p, meta, QP, gop=P_GOP, device=dev))
     finally:
         hme_gpu.make_motion_est = make_me
     assert golden.digest(pdata) == {k: gold[pkey][k]
@@ -603,19 +650,30 @@ def main():
     hme_launches = {k: hme_gpu.launches[k]
                     for k in ("hme_level", "hme_level0")}
     p_filter_launches = dict(wf.launches)
+    p_vk_launches = scan_pl.vk_chain.launches
     sha = hashlib.sha256(pdata).hexdigest()
     assert sha == gold[pkey]["sha256"] and len(pdata) == gold[pkey][
         "length"], sha
     assert all(n > 0 for n in hme_launches.values()), hme_launches
+    assert p_vk_launches > 0, "vk_chain never launched on the P path"
     emit("p_encode_main_path", frames=P_FRAMES, gop=P_GOP,
          fps=P_FRAMES / dt, seconds=dt, warm_seconds=warm_ms / 1e3,
          sha256=sha, bytes=len(pdata), golden=True,
          hme_launches=hme_launches,
          hme_launches_expected={"hme_level": 7 * enc.pyramid_levels,
                                 "hme_level0": 7},
-         filter_launches=p_filter_launches, stage_seconds=trace.totals())
+         filter_launches=p_filter_launches, vk_chain_launches=p_vk_launches,
+         stage_seconds=trace.totals())
     trace.enable(False)
     del frames_p
+    # the vk kernel at B = 1 as the P paths launch it: P frame 1's luma
+    # plane (after frame 0's three planes, the first of luma size)
+    def luma_of_frame1(calls):
+        rows = max(c[0].shape[0] for c in calls)
+        return next(c for c in calls[3:] if c[0].shape[0] == rows)
+    vk_b1 = [compare("fhd_p_frame1_luma_b1", *luma_of_frame1(p_vk_calls),
+                     time_it=True)]
+    del p_vk_calls
 
     # 8c. the motion-search kernels vs plain on FHD P frames 1 (no
     # temporal candidates) and 2 (with them), level by level, timed
@@ -889,6 +947,18 @@ def main():
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
+    # one lane's P frame 1 (frames 0-1 of lane 0, encoded alone): its luma
+    # plane's vk chain at B = 1
+    lane_calls = []
+    with recording_vk(lane_calls):
+        lenc = cli.make_encoder(ls_meta, cli.default_enc_opts(qp=qp, gop=gop),
+                                device=dev)
+        for fr in streams[0][:2]:
+            lenc.encode_frame(fr)
+    vk_b1.append(compare("cif_lane_p_frame1_luma_b1",
+                         *luma_of_frame1(lane_calls), time_it=True))
+    del lane_calls, lenc
+    emit("vk_b1", kernel="vk_chain", cases=vk_b1)
     warm_s, _ = lockstep([st[:LS_WARM_FRAMES] for st in streams], "gang",
                          width=nlanes)
     trace.enable(True)
@@ -904,6 +974,8 @@ def main():
     ls_launches = {k: hme_gpu.launches[k]
                    for k in ("hme_gang_level", "hme_gang_level0")}
     ls_filter_launches = dict(wf.launches)
+    ls_vk_launches = scan_pl.vk_chain.launches
+    assert ls_vk_launches > 0, "vk_chain never launched on the lockstep path"
     digests = [golden.digest(o) for o in out]
     for i, (got, w) in enumerate(zip(digests, want_ls)):
         assert got == {k: w[k] for k in ("sha256", "length")}, (i, got)
@@ -920,7 +992,7 @@ def main():
          sha256=[d["sha256"] for d in digests], hme_flushes=nflush,
          lanes_per_flush=sorted(set(flush_lanes)), hme_launches=ls_launches,
          hme_launches_expected=expect, filter_launches=ls_filter_launches,
-         stage_seconds=stages)
+         vk_chain_launches=ls_vk_launches, stage_seconds=stages)
     dt2, out2 = lockstep(streams, "gang", width=nlanes // 2, groups=2)
     assert out2 == out, "groups=2 bytes differ"
     emit("lockstep_p_encode_groups2", lanes=nlanes, groups=2,
@@ -987,7 +1059,9 @@ def main():
                     plain_ms_per_search=sum(lv["plain_ms"] for lv in up),
                     bound_ms_per_search=sum(lv["bound_ms"] for lv in up))
 
-    luma = timed[1]
+    luma = timed[-1]
+    vk_paths = {"intra_encode": vk_launches, "p_encode": p_vk_launches,
+                "lockstep_p_encode": ls_vk_launches}
     wmain = timed_wf[("intra", meta.width)]
     wf_paths = {"decode": dec_launches,
                 "p_encode": sum(p_filter_launches.values()),
@@ -996,10 +1070,13 @@ def main():
         {"name": "vk_chain", "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/vk_chain.cu",
          "replaces": "dsv2_tpu/ops/scan_pl.py:133",
-         "launches": vk_launches, "max_abs_err": vk_err,
+         "launches": sum(vk_paths.values()),
+         "launches_by_path": vk_paths, "max_abs_err": vk_err,
          "ms": luma["ms"], "plain_ms": luma["plain_ms"],
          "bound_ms": luma["bound_ms"], "bound_by": luma["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "met_at_start": luma["met_at_start"],
+         "ms_b1": {r["case"]: r["ms"] for r in vk_b1},
+         "bound_ms_b1": {r["case"]: r["bound_ms"] for r in vk_b1}},
         {"name": "wavefront_filter", "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/wavefront_filter.cu",
          "replaces": "dsv2_tpu/ops/filters_pl.py:273",

@@ -26,7 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source name -> (C entry point, argtypes): pointers and the stream as
 # c_void_p (ctypes would cut a pointer passed as a plain int), ints c_int
-_ENTRY = {"vk_chain": ("dsv2t_vk_chain", [_P, _P, _P, _P, _P, _I, _I, _P]),
+_ENTRY = {"vk_chain": ("dsv2t_vk_chain",
+                        [_P] * 5 + [_I] * 6 + [_P, _P]),
           "wavefront_filter": ("dsv2t_wavefront_filter",
                                [_I, _P, _P, _P, _P, _I, _P, _P]),
           "hme_level": ("dsv2t_hme_level", [_P] * 8 + [_I, _P, _P]),
@@ -108,17 +109,50 @@ def entry(name):
         return _entries[name]
 
 
-def vk_chain(thr, s0, nnz, out, vkend):
+VK_MAX_CHAINS = 256   # chains per launch at most
+
+
+def vk_plan(npad, nb):
+    """(rows per chunk, warm-up rows, pass-1 walker threads per block) of
+    csrc/vk_chain.cu for nb chains of npad rows. A call of 2^24 rows or
+    more (an FHD luma chunk of 16 frames) takes long chunks and warm-ups:
+    fewer chunk starts to miss, and their re-walks cost more than the
+    longer walk; smaller ones (chroma, one P frame, CIF) short chunks,
+    whose walk is most of their time (tools/torch_profile.py --vk sweeps
+    the plans)."""
+    return ((2048, 512, 128) if npad * min(nb, 16) >= 1 << 24
+            else (256, 256, 128))
+
+
+def vk_scratch_bytes(npad, nb, chunk):
+    """Bytes of the scratch csrc/vk_chain.cu takes: a head per chunk and
+    chain (nb x nchunk x 64 int32), the decisions (nb x nchunk x 2) and
+    the final vk (nb, rounded up to 4)."""
+    nchunk = -(-npad // chunk)
+    return 4 * (66 * nb * nchunk + (-(-nb // 4)) * 4)
+
+
+def vk_chain(thr, s0, nnz, out, scratch, chunk, warmup, walkers, passes=7,
+             stats=None):
     """Launch csrc/vk_chain.cu on the current stream. All arguments are
     contiguous int32 CUDA tensors on one device, checked by the caller
-    (ops/scan_pl.vk_chain): thr/out (npad, B), s0/nnz/vkend (B,)."""
+    (ops/scan_pl.vk_chain): thr/out (npad, B) with npad a multiple of 4
+    and B <= VK_MAX_CHAINS, s0/nnz (B,); scratch vk_scratch_bytes(npad,
+    B, chunk) bytes, 16-byte aligned like thr and out; the plan (chunk,
+    warmup, walkers) as vk_plan gives it. `passes` masks the three
+    passes (the profiler launches them apart); `stats`, an int32 (5,)
+    tensor or None, gets pass 2's counters added (live chunks, chunks
+    whose true start met a candidate, chunks re-walked, re-walks that met
+    a candidate, rows re-walked)."""
     import torch
     npad, nb = thr.shape
     with torch.cuda.device(thr.device):
         stream = torch.cuda.current_stream(thr.device).cuda_stream
         rc = entry("vk_chain")(
             thr.data_ptr(), s0.data_ptr(), nnz.data_ptr(), out.data_ptr(),
-            vkend.data_ptr(), int(npad), int(nb), stream)
+            scratch.data_ptr(), int(npad), int(nb), int(chunk), int(warmup),
+            int(walkers), int(passes),
+            None if stats is None else stats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("vk_chain launch failed: cudaError %d" % rc)
 

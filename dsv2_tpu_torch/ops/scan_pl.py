@@ -120,7 +120,7 @@ def vk_chain_plain(thr, s0, nnz):
     return torch.from_numpy(out).to(thr.device)
 
 
-def vk_chain(thr, s0, nnz):
+def vk_chain(thr, s0, nnz, stats=None):
     """The rice vk chain of B planes at once: thr (npad, B) int32
     time-major, s0/nnz (B,) int32 -> vkpre (npad, B) int32 (semantics in
     vk_chain_plain). thr pre-bakes the adaptation compare: e >= (vk >> d)
@@ -128,8 +128,10 @@ def vk_chain(thr, s0, nnz):
     store and a three-op dependent chain.
 
     A CUDA tensor launches csrc/vk_chain.cu on the current stream (and
-    counts the launch in vk_chain.launches); a CPU tensor takes the plain
-    version. Replaces the twin's _vk_call / _vk_vec_batched."""
+    counts the launch in vk_chain.launches; `stats`, an int32 (5,) CUDA
+    tensor, gets its resolve pass's counters added, see
+    _kernels.vk_chain); a CPU tensor takes the plain version. Replaces
+    the twin's _vk_call / _vk_vec_batched."""
     _check_chain_args(thr, s0, nnz)
     if thr.device.type == "cpu":
         return vk_chain_plain(thr, s0, nnz)
@@ -137,14 +139,29 @@ def vk_chain(thr, s0, nnz):
         raise ValueError("vk_chain runs on cuda or cpu, not %s" % thr.device)
     from . import _kernels
     npad, nb = thr.shape
-    out = torch.empty_like(thr)
-    vkend = torch.empty(nb, dtype=_I32, device=thr.device)
-    _kernels.vk_chain(thr, s0, nnz, out, vkend)
-    vk_chain.launches += 1
-    return out
+    m = _kernels.VK_MAX_CHAINS
+    if nb > m:   # a launch takes at most m chains
+        return torch.cat([vk_chain(thr[:, i:i + m].contiguous(),
+                                   s0[i:i + m].contiguous(),
+                                   nnz[i:i + m].contiguous(), stats)
+                          for i in range(0, nb, m)], dim=1)
+    n4 = _pad_to(npad, 4)
+    if n4 != npad or thr.data_ptr() % 16:
+        # the kernel's bulk copies take rows in fours from a 16-byte
+        # aligned base; the padding rows lie past every chain's nnz
+        thr = torch.cat([thr, thr.new_zeros((n4 - npad, nb))])
+        nnz = torch.clamp(nnz, max=npad)
+    plan = _kernels.vk_plan(n4, nb)
+    out = torch.empty((n4, nb), dtype=_I32, device=thr.device)
+    scratch = torch.empty(_kernels.vk_scratch_bytes(n4, nb, plan[0]),
+                          dtype=torch.uint8, device=thr.device)
+    _kernels.vk_chain(thr, s0, nnz, out, scratch, *plan, stats=stats)
+    _counted.launches += 1
+    return out[:npad]
 
 
 vk_chain.launches = 0
+_counted = vk_chain   # the count stays here when a caller wraps the name
 
 
 # ---------------------------------------------------------------------------

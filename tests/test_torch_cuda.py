@@ -25,8 +25,10 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("nb", [1, 3, 16, 40])
+@pytest.mark.parametrize("nb", [1, 3, 16, 32, 33, 40, 300])
 def test_vk_kernel_vs_plain(cuda, nb):
+    """Random chains, every adversarial kind of golden.vk_case, an npad
+    that is not a multiple of 4, and 20 launches that must agree."""
     from dsv2_tpu_torch.ops import scan_pl
     rng = np.random.default_rng(nb)
     npad = 8192
@@ -34,14 +36,76 @@ def test_vk_kernel_vs_plain(cuda, nb):
     thr[rng.random((npad, nb)) < 0.4] = 0
     s0 = rng.integers(0, 3000, nb).astype(np.int32)
     nnz = np.maximum(s0, rng.integers(0, npad + 100, nb)).astype(np.int32)
-    args = [tt(a) for a in (thr, s0, nnz)]
-    want = scan_pl.vk_chain_plain(*args)
-    n0 = scan_pl.vk_chain.launches
-    got = scan_pl.vk_chain(*(a.to(cuda) for a in args))
-    torch.cuda.synchronize()
-    assert scan_pl.vk_chain.launches == n0 + 1
-    assert got.dtype == torch.int32 and got.is_cuda
-    assert torch.equal(got.cpu(), want)
+    cases = [(thr, s0, nnz)] + [golden.vk_case(k, nb, npad)
+                                for k in golden.VK_KINDS]
+    cases.append(golden.vk_case("random", nb, 4099))
+    for thr, s0, nnz in cases:
+        args = [tt(a) for a in (thr, s0, nnz)]
+        want = scan_pl.vk_chain_plain(*args)
+        n0 = scan_pl.vk_chain.launches
+        got = scan_pl.vk_chain(*(a.to(cuda) for a in args))
+        torch.cuda.synchronize()
+        assert scan_pl.vk_chain.launches == n0 + -(-nb // 256)
+        assert got.dtype == torch.int32 and got.is_cuda
+        assert torch.equal(got.cpu(), want)
+    args = [tt(a).to(cuda) for a in cases[0]]
+    first = scan_pl.vk_chain(*args)
+    for _ in range(19):
+        assert torch.equal(scan_pl.vk_chain(*args), first)
+
+
+@pytest.mark.parametrize("plan", [(64, 0, 128), (256, 128, 32),
+                                  (1024, 256, 128), (2048, 512, 256)])
+def test_vk_kernel_plans(cuda, plan):
+    """Chunk lengths, warm-ups and walkers per block other than the
+    defaults, raw launches of the three passes: equal to the plain
+    version, with the resolve pass's counters consistent."""
+    from dsv2_tpu_torch.ops import _kernels, scan_pl
+    chunk, warmup, walkers = plan
+    for kind in golden.VK_KINDS:
+        args = [tt(a) for a in golden.vk_case(kind, 16, 8192, seed=1)]
+        want = scan_pl.vk_chain_plain(*args)
+        thr, s0, nnz = (a.to(cuda) for a in args)
+        out = torch.empty_like(thr)
+        scratch = torch.empty(_kernels.vk_scratch_bytes(8192, 16, chunk),
+                              dtype=torch.uint8, device=cuda)
+        stats = torch.zeros(5, dtype=torch.int32, device=cuda)
+        _kernels.vk_chain(thr, s0, nnz, out, scratch, chunk, warmup, walkers,
+                          stats=stats)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want), kind
+        live, met, rewalked, rewalk_met, _ = stats.tolist()
+        assert live == met + rewalked and rewalk_met <= rewalked, stats
+
+
+def test_vk_kernel_cif_chains(cuda):
+    """The real CIF luma and chroma chains (8 frames at -qp=60 -gop=0, the
+    batched intra step on the card): equal to the plain version, and both
+    branches of the resolve pass ran on luma."""
+    from dsv2_tpu_torch import cli
+    from dsv2_tpu_torch.ops import hzcc, scan_pl
+    from dsv2_tpu_torch.parallel import batch
+    frames, meta = read_y4m(golden.input_path("cif352x288_420_12f"))
+    enc = cli.make_encoder(meta, cli.default_enc_opts(qp=60, gop=0),
+                           device=cuda)
+    ctx = batch._prep_chunk(enc, frames[:8])
+    p = ctx["p"]
+    xs, bds, qs = batch._chunk_inputs(enc, ctx)
+    fn = batch._device_batch_fn(meta.width, meta.height, meta.subsamp,
+                                p.blk_w, p.blk_h, p.lossless, p.do_psy,
+                                ctx["analyze"])
+    vs = fn(xs[0], xs[1], xs[2], bds, qs)[2]
+    for c in (0, 1, 2):
+        args = scan_pl.vk_chain_inputs(tuple(hzcc.scan_segments(
+            *ctx["pcfg"].cdims[c])), vs[c])
+        stats = torch.zeros(5, dtype=torch.int32, device=cuda)
+        got = scan_pl.vk_chain(*args, stats=stats)
+        want = scan_pl.vk_chain_plain(*(a.cpu() for a in args))
+        assert torch.equal(got.cpu(), want), c
+        live, met, rewalked, rewalk_met, _ = stats.tolist()
+        assert live == met + rewalked
+        if c == 0:
+            assert met > rewalked > 0 and rewalk_met > 0, stats
 
 
 def test_vk_kernel_rejects(cuda):

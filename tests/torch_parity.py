@@ -87,6 +87,10 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
@@ -96,6 +100,18 @@ struct ShimCta {
   std::vector<uint8_t> smem;
   std::barrier<> bar;  // one arrival per warp
   ShimCta(size_t bytes, unsigned warps) : smem(bytes, 0xCD), bar(warps) {}
+};
+// A fiber's stack, left uninitialised: a lane touches only the pages it
+// uses, so a launch of many warps stays small.
+struct ShimStack {
+  std::unique_ptr<char[]> p;
+  size_t n = 0;
+  char* data() { return p.get(); }
+  size_t size() const { return n; }
+  void resize(size_t k) {
+    p.reset(new char[k]);
+    n = k;
+  }
 };
 // Fiber switches: on x86-64 a stack switch that saves the callee-saved
 // registers (no system call, unlike swapcontext's signal mask), elsewhere
@@ -127,7 +143,7 @@ struct ShimCtx {
   void* sp = nullptr;
 };
 inline void shim_swap(ShimCtx& from, ShimCtx& to) { shim_switch(&from.sp, to.sp); }
-inline void shim_make(ShimCtx& c, std::vector<char>& stack, void (*f)()) {
+inline void shim_make(ShimCtx& c, ShimStack& stack, void (*f)()) {
   auto top = (uintptr_t)(stack.data() + stack.size()) & ~(uintptr_t)15;
   void** sp = (void**)top;
   *--sp = nullptr;      // f's return address: it never returns
@@ -140,7 +156,7 @@ struct ShimCtx {
   ucontext_t uc;
 };
 inline void shim_swap(ShimCtx& from, ShimCtx& to) { swapcontext(&from.uc, &to.uc); }
-inline void shim_make(ShimCtx& c, std::vector<char>& stack, void (*f)()) {
+inline void shim_make(ShimCtx& c, ShimStack& stack, void (*f)()) {
   getcontext(&c.uc);
   c.uc.uc_stack.ss_sp = stack.data();
   c.uc.uc_stack.ss_size = stack.size();
@@ -153,7 +169,7 @@ inline void shim_make(ShimCtx& c, std::vector<char>& stack, void (*f)()) {
 struct ShimWarp {
   struct Lane {
     ShimCtx ctx;
-    std::vector<char> stack;
+    ShimStack stack;
     dim3 tid;
     bool done = false;
   };
@@ -204,6 +220,10 @@ template <class T> T shim_read(unsigned m, T x, unsigned src) {
 }
 template <class T> T __shfl_xor_sync(unsigned m, T x, int o, int = 32) {
   return shim_read(m, x, shim_w->cur ^ o);
+}
+template <class T> T __shfl_up_sync(unsigned m, T x, unsigned d, int width = 32) {
+  const int l = shim_w->cur, base = l & ~(width - 1);
+  return shim_read(m, x, l - (int)d >= base ? l - d : l);
 }
 template <class T> T __shfl_sync(unsigned m, T x, int src, int width = 32) {
   return shim_read(m, x, (shim_w->cur & ~(width - 1)) | (src & (width - 1)));

@@ -266,6 +266,50 @@ def hme_lanes(frames, meta, n, has_tmv=False, effort=10, device="cpu"):
     return cfg, lanes
 
 
+VK_KINDS = ("random", "constant", "climb", "zero_runs", "edges")
+
+
+def vk_case(kind, nb, npad=4096, seed=0):
+    """Seeded vk chain inputs (thr (npad, nb), s0 (nb,), nnz (nb,) int32
+    numpy) of one adversarial kind: random (thr in [0, 60), 40% zeros);
+    constant thr per chain (vk oscillates, in both parities); climb (thr
+    far above any vk: no speculative candidate ever meets the truth);
+    zero_runs (runs of thr = 0, where the clamp at vk = 0 flips a
+    trajectory's parity); edges (random thr; chain 0 spans every row,
+    chain 1 has s0 > nnz, chain 2 an empty range, the rest start and end
+    at chunk boundaries +-1 of chunks 64..2048 and warm-ups 0..512, or
+    out of range)."""
+    import numpy as np
+    rng = np.random.default_rng(seed * 1000 + 10 * VK_KINDS.index(kind) + nb)
+    s0 = rng.integers(0, npad // 4, nb)
+    nnz = np.maximum(s0, rng.integers(npad // 2, npad + 1, nb))
+    if kind in ("random", "edges"):
+        thr = rng.integers(0, 60, (npad, nb))
+        thr[rng.random((npad, nb)) < 0.4] = 0
+    elif kind == "constant":
+        thr = np.broadcast_to(rng.integers(1, 9, nb), (npad, nb))
+    elif kind == "climb":
+        thr = np.full((npad, nb), 1 << 30)
+    else:
+        runs = rng.integers(1, 300, npad)
+        zero = np.repeat(np.arange(npad) % 2, runs)[:npad] == 0
+        thr = rng.integers(0, 40, (npad, nb))
+        thr[zero] = 0
+    if kind == "edges":
+        picks = [0, 1, npad - 1, npad, npad + 9, -5]
+        for m in (1, 2, 3):
+            for chunk in (64, 256, 1024, 2048):
+                for warm in (0, 128, 512):
+                    picks += [m * chunk + warm + d for d in (-1, 0, 1)]
+        picks = np.array([p for p in picks if p <= npad + 9])
+        s0, nnz = rng.choice(picks, nb), rng.choice(picks, nb)
+        s0[0], nnz[0] = 0, npad
+        s0[1:2], nnz[1:2] = npad // 3, npad // 5
+        s0[2:3], nnz[2:3] = npad // 2, npad // 2
+    return tuple(np.ascontiguousarray(a, dtype=np.int32)
+                 for a in (thr, s0, nnz))
+
+
 def filter_case(kind, w, h, blk, shifts=(1, 1), seed=0, nb=1):
     """Seeded public-API arguments (CPU tensors) of one batched in-loop
     filter call of `kind` on nb planes: a w x h 4:4:4-sized luma geometry

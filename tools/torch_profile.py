@@ -3,7 +3,8 @@
 
     python3 tools/torch_profile.py [--out DIR] [--wavefront | --phases |
                                     --hme [--src CSRC ...]
-                                    [--hme-levels all|upper|base]]
+                                    [--hme-levels all|upper|base] |
+                                    --vk [--src CSRC ...]]
 
 Input: the seeded synthetic clip of chip_smoke.py's main path (1920x1080
 4:2:0, 32 frames, -qp=60 -gop=0, chunk 16). Prints one JSON line each:
@@ -80,6 +81,25 @@ With --hme it prints only:
            (parent field, global motion) come from this checkout's
            kernels. --hme-levels picks the upper levels, the base level
            or both (default).
+
+With --vk it prints only:
+
+  vk_case  the vk chain's inputs: the FHD chunk's luma, U and V chains
+           (16 frames, B = 16), P frame 1's luma plane at B = 1 of the
+           FHD P encode and of the CIF fixture, and two synthetic B = 16
+           cases that bound the resolve pass (thr = 0: every chunk meets
+           a candidate; thr = 2^30: a climb none meets); live rows and
+           the plain version's host ms.
+  vk_kernel  per source directory of --src in turn (the parent's and
+           this one's in turns, to compare; the parent's one-warp source
+           is recognised by its arguments): device ms per raw launch of
+           csrc/vk_chain.cu (CUDA events, mean of 10 after a warm-up) and
+           equality with the plain version; for the chunked design also
+           ms per pass (pass 2 as passes 1+2 less pass 1: it rewrites
+           pass 1's output) and the resolve pass's counters.
+  vk_sweep  FHD luma, FHD P luma and the CIF lane over chunk lengths
+           128-2048, warm-ups 0-512 and 64-256 walkers per block: ms,
+           the share of chunks met at their first row, rows re-walked.
 
 Needs CUDA and nvcc; writes under build/ and DIR (default chiprun_out/).
 """
@@ -815,6 +835,195 @@ def _upper_study(d, tag, plain_libs, stamped, upper, dev, smi):
              warps_stamped=int((buf.sum(1) > 0).sum()), nvidia_smi=smi)
 
 
+def _vk_lib(src_dir, out_dir):
+    """Build src_dir/vk_chain.cu under out_dir; returns (C entry, whether it
+    takes the chunked design's arguments: scratch, plan, passes, stats)."""
+    import ctypes
+    from dsv2_tpu_torch.ops import _kernels
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(src_dir, "vk_chain.cu")
+    so = os.path.join(out_dir, "libvk_chain.so")
+    subprocess.run([_kernels._nvcc()] + _kernels.NVCC_FLAGS + ["-o", so, src],
+                   check=True, capture_output=True)
+    with open(src) as f:
+        chunked = "void* scratch" in f.read()
+    fn = ctypes.CDLL(so).dsv2t_vk_chain
+    fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = ([P] * 5 + [I] * 6 + [P, P]) if chunked else (
+        [P] * 5 + [I, I, P])
+    return fn, chunked
+
+
+def _vk_inputs(dev):
+    """(label, thr, s0, nnz) on the card: the FHD chunk's luma, U and V
+    chains (16 frames, B = 16), and B = 1 chains as the P paths launch
+    them: the luma plane of FHD P frame 1 (-qp=60 -gop=8) and of CIF P
+    frame 1 (cif352x288_420_12f at -qp=60 -gop=12, one lockstep lane's
+    plane size); and two synthetic B = 16 cases that bound the resolve
+    pass: thr = 0 on 2^21 rows (every chunk's true start meets a
+    candidate: the pass is its stream) and thr = 2^30 on 2^17 rows (a
+    climb no candidate meets: the pass re-walks every row)."""
+    import torch
+    import torch_port_golden as golden
+    from dsv2_tpu_torch import cli
+    from dsv2_tpu_torch.ops import hzcc, scan_pl
+    from dsv2_tpu_torch.parallel import batch
+    frames, meta = cli.read_y4m(golden.input_path(golden.FHD))
+    enc = cli.make_encoder(meta, cli.default_enc_opts(qp=QP, gop=0),
+                           device=dev)
+    ctx = batch._prep_chunk(enc, frames[:CHUNK])
+    p = ctx["p"]
+    xs, bds, qs = batch._chunk_inputs(enc, ctx)
+    vs = batch._device_batch_fn(meta.width, meta.height, meta.subsamp,
+                                p.blk_w, p.blk_h, p.lossless, p.do_psy,
+                                ctx["analyze"])(xs[0], xs[1], xs[2], bds,
+                                                qs)[2]
+    out = [("fhd_%s_chunk" % n, *scan_pl.vk_chain_inputs(tuple(
+        hzcc.scan_segments(*ctx["pcfg"].cdims[c])), vs[c]))
+           for c, n in ((0, "luma"), (1, "u"), (2, "v"))]
+    del vs, xs
+    vk = scan_pl.vk_chain
+    for label, name, fr, gop in (
+            ("fhd_p_luma_b1", golden.FHD, frames[:2], 8),
+            ("cif_p_luma_b1", "cif352x288_420_12f", None, 12)):
+        if fr is None:
+            fr, meta = cli.read_y4m(golden.input_path(name))
+            fr = fr[:2]
+        calls = []
+
+        def rec(thr, s0, nnz, stats=None):
+            calls.append((thr.clone(), s0.clone(), nnz.clone()))
+            return vk(thr, s0, nnz, stats)
+        scan_pl.vk_chain = rec
+        try:
+            e = cli.make_encoder(meta, cli.default_enc_opts(qp=QP, gop=gop),
+                                 device=dev)
+            e.encode_frame(fr[0])
+            del calls[:]
+            e.encode_frame(fr[1])
+        finally:
+            scan_pl.vk_chain = vk
+        assert all(c[0].shape[1] == 1 for c in calls), "P path B != 1"
+        big = max(calls, key=lambda c: c[0].shape[0])
+        out.append((label, *big))
+    # synthetic: every chunk meets a candidate (thr = 0: vk stays 0), and
+    # no chunk ever does (thr far above vk: a climb, re-walked row by row)
+    for label, value, npad in (("all_met_b16", 0, 1 << 21),
+                               ("climb_b16", 1 << 30, 1 << 17)):
+        out.append((label, torch.full((npad, 16), value, dtype=torch.int32,
+                                      device=dev),
+                    torch.zeros(16, dtype=torch.int32, device=dev),
+                    torch.full((16,), npad, dtype=torch.int32, device=dev)))
+    return out
+
+
+def vk_study(srcs):
+    """The vk chain kernel of each source directory of `srcs` in turn (see
+    the module docstring, --vk)."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from dsv2_tpu_torch.ops import _kernels, scan_pl
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    emit("device", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda)
+    tags = {d: os.path.relpath(os.path.abspath(d), REPO) for d in srcs}
+
+    def build(d):
+        return d, _vk_lib(d, os.path.join(REPO, "build", "torch_profile",
+                                          "vk_" + tags[d].replace(os.sep,
+                                                                  "_")))
+    with ThreadPoolExecutor(len(tags)) as ex:
+        libs = dict(ex.map(build, list(tags)))
+    cases = _vk_inputs(dev)
+    plain = {}
+    for label, thr, s0, nnz in cases:
+        t0 = time.perf_counter()
+        plain[label] = scan_pl.vk_chain_plain(thr, s0, nnz).to(dev)
+        emit("vk_case", case=label, npad=thr.shape[0], B=thr.shape[1],
+             live_rows=int((nnz - s0).clamp(min=0).sum()),
+             plain_ms=(time.perf_counter() - t0) * 1e3)
+
+    def launcher(fn, chunked, thr, s0, nnz, plan=None, passes=7,
+                 stats=None):
+        npad, nb = thr.shape
+        out = torch.empty_like(thr)
+        stream = torch.cuda.current_stream().cuda_stream
+        if not chunked:
+            aux = torch.empty(nb, dtype=torch.int32, device=dev)
+            args = (thr.data_ptr(), s0.data_ptr(), nnz.data_ptr(),
+                    out.data_ptr(), aux.data_ptr(), npad, nb, stream)
+        else:
+            chunk, warmup, walkers = plan or _kernels.vk_plan(npad, nb)
+            aux = torch.empty(_kernels.vk_scratch_bytes(npad, nb, chunk),
+                              dtype=torch.uint8, device=dev)
+            args = (thr.data_ptr(), s0.data_ptr(), nnz.data_ptr(),
+                    out.data_ptr(), aux.data_ptr(), npad, nb, chunk,
+                    warmup, walkers, passes,
+                    None if stats is None else stats.data_ptr(), stream)
+
+        def run(p=None):
+            a = args if p is None else args[:10] + (p,) + args[11:]
+            assert fn(*a) == 0
+        return run, out
+
+    for d in srcs:
+        fn, chunked = libs[d]
+        for label, thr, s0, nnz in cases:
+            run, out = launcher(fn, chunked, thr, s0, nnz)
+            rec = dict(case=label, source=tags[d], ms=dev_ms(run, 10))
+            rec["equal"] = bool(torch.equal(out, plain[label]))
+            assert rec["equal"], rec
+            if chunked:
+                stats = torch.zeros(5, dtype=torch.int32, device=dev)
+                srun, sout = launcher(fn, chunked, thr, s0, nnz,
+                                      stats=stats)
+                srun()
+                torch.cuda.synchronize()
+                live, met, rewalked, remet, rows = stats.tolist()
+                rec.update(chunks=live, met_at_start=met / live,
+                           rewalked=rewalked, rewalks_met=remet,
+                           rows_rewalked=rows)
+                # the passes apart: pass 2 rewrites pass 1's scratch, so
+                # it is timed as passes 1+2 less pass 1
+                p1 = dev_ms(lambda: run(1), 10)
+                p12 = dev_ms(lambda: run(3), 10)
+                rec.update(pass1_ms=p1, pass2_ms=p12 - p1,
+                           pass3_ms=dev_ms(lambda: run(4), 10))
+            emit("vk_kernel", nvidia_smi=smi, **rec)
+    chunked_srcs = [d for d in srcs if libs[d][1]]
+    if not chunked_srcs:
+        return
+    fn = libs[chunked_srcs[0]][0]
+    for label, thr, s0, nnz in cases:
+        if label not in ("fhd_luma_chunk", "fhd_p_luma_b1", "cif_p_luma_b1"):
+            continue
+        sweep = []
+        for chunk in (128, 256, 512, 1024, 2048):
+            for warmup in (0, 128, 256, 512):
+                for walkers in (64, 128, 256):
+                    stats = torch.zeros(5, dtype=torch.int32, device=dev)
+                    plan = (chunk, warmup, walkers)
+                    srun, out = launcher(fn, True, thr, s0, nnz, plan,
+                                         stats=stats)
+                    srun()
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, plain[label]), plan
+                    live, met = stats.tolist()[:2]
+                    run, _ = launcher(fn, True, thr, s0, nnz, plan)
+                    sweep.append(dict(chunk=chunk, warmup=warmup,
+                                      walkers=walkers, ms=dev_ms(run, 5),
+                                      met_at_start=met / live,
+                                      rows_rewalked=stats.tolist()[4]))
+        best = min(sweep, key=lambda r: r["ms"])
+        emit("vk_sweep", case=label, source=tags[chunked_srcs[0]], best=best,
+             plans=sweep, nvidia_smi=smi)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
@@ -825,9 +1034,13 @@ def main(argv=None):
     ap.add_argument("--hme", action="store_true",
                     help="only the base-level motion search's ms and cycles "
                     "per phase")
+    ap.add_argument("--vk", action="store_true",
+                    help="only the vk chain kernel: ms per source, per "
+                    "pass, and the sweep of its plan")
     ap.add_argument("--src", action="append",
-                    help="with --hme: a directory of kernel sources to "
-                    "study, in the order given (default: this checkout's "
+                    help="with --hme or --vk: a directory of kernel "
+                    "sources to study, in the order given (default: this "
+                    "checkout's "
                     "dsv2_tpu_torch/csrc)")
     ap.add_argument("--hme-levels", default="all",
                     choices=("all", "upper", "base"),
@@ -842,6 +1055,9 @@ def main(argv=None):
         return wavefront_study()
     if args.phases:
         return wavefront_phases()
+    if args.vk:
+        return vk_study(args.src or [os.path.join(REPO, "dsv2_tpu_torch",
+                                                   "csrc")])
     if args.hme:
         return hme_study(args.src or [os.path.join(REPO, "dsv2_tpu_torch",
                                                     "csrc")],
