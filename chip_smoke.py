@@ -17,7 +17,14 @@ flushes split into launches of at most 3 lanes); and the gang cost
 probe's tool run. Also an FHD high-quality stream (3 frames at -qp=90
 -gop=0) encoded by the port and decoded with the dense scan upload, and
 20 launches of each of kernels 4-7 (every upper level) on the same
-inputs that must agree.
+inputs that must agree. Then the inputs dsv2_tpu takes its host chain
+for, on the device chain, each against dsv2_tpu's digests: the 8 seeded
+byte-flip trials of the committed CIF CRF stream decoded frame by frame
+(decode_corrupt), the degenerate geometries 352x16 4:2:0, 16x240 4:2:0
+and 64x500 4:1:1 (4 frames at -qp=60 -gop=2) encoded and decoded with
+the arena (decode_arena), and the CIF fixture at -qp=60 -gop=6, 8
+frames, encoded with the motion search backends "host" and "wave",
+aliases of "pallas" (encode_host_hme).
 Before that it builds every CUDA kernel of those paths from this
 checkout (one nvcc per source, all at once) and holds each against
 its plain PyTorch version: the vk chain on random chains, on the
@@ -778,6 +785,126 @@ def main():
         assert got["sha256"] == ref["sha256"], (argv[0], got)
         emit("cli", command=argv[0], stream=key, sha256=got["sha256"],
              golden=True)
+
+    # 10a. the inputs dsv2_tpu takes its host chain for, on the device
+    # chain here; each path run with every count set to 0 just before it
+    # and read just after. decode_corrupt: the 8 seeded byte-flip trials
+    # of the committed CIF CRF stream (a corrupt P plane reconstructs
+    # against a zero residual, a corrupt intra plane is zeroed, the filter
+    # kernel runs on every picture); every frame against dsv2_tpu's digest.
+    trace.enable(True)
+    trials = golden.corrupt_streams()
+
+    def decode_trials():
+        frames_, bad = 0, {"p": 0, "intra": 0}
+        for i, data_ in enumerate(trials):
+            want = gold[golden.corrupt_key(i)]
+            dec = decoder.Decoder(device=dev)
+            counts = golden.count_bad_planes(dec)
+            got = golden.decode_frames(decoder, y4m, data_, decoder=dec)
+            assert got["frames"] == want["frames"], ("corrupt", i)
+            assert got["decode"] == want["decode"] and got["error"] is None
+            assert counts == want["bad_planes"], (i, counts)
+            frames_ += len(got["frames"])
+            for k in bad:
+                bad[k] += counts[k]
+        return frames_, bad
+
+    warm_ms, _ = host_ms(decode_trials)
+    trace.reset()
+    reset_counts()
+    dt_ms, (cframes, cbad) = host_ms(decode_trials)
+    corrupt_launches = dict(wf.launches)
+    assert cbad["p"] > 0 and cbad["intra"] > 0, cbad
+    assert corrupt_launches["luma"] > 0 and corrupt_launches["intra"] > 0
+    assert scan_pl.vk_chain.launches == 0
+    emit("decode_corrupt", trials=len(trials), frames=cframes,
+         corrupt_p_planes=cbad["p"], corrupt_intra_planes=cbad["intra"],
+         fps=cframes / (dt_ms / 1e3), seconds=dt_ms / 1e3,
+         warm_seconds=warm_ms / 1e3, golden=True,
+         filter_launches=corrupt_launches, stage_seconds=trace.totals())
+
+    # 10b. decode_arena: the degenerate geometries (352x16 4:2:0, 16x240
+    # 4:2:0, 64x500 4:1:1; 4 seeded frames at -qp=60 -gop=2) encoded by
+    # the port on the card to dsv2_tpu's streams, then decoded on the card
+    # with the arena (the reference's transform scratch threaded from
+    # plane to plane and frame to frame) to dsv2_tpu's y4m
+    arena_cases = [(name_, qp_, gop_, cli.read_y4m(golden.input_path(name_)))
+                   for name_, qp_, gop_ in golden.ARENA_CASES]
+
+    def arena_run():
+        recs = []
+        for name_, qp_, gop_, (afr, ameta) in arena_cases:
+            want = gold[golden.key(name_, qp_, gop_)]
+            enc_ms, adata = host_ms(lambda: golden.encode(
+                cli, afr, ameta, qp_, gop=gop_, device=dev))
+            assert golden.digest(adata) == {
+                k: want[k] for k in ("sha256", "length")}, name_
+            dec = decoder.Decoder(device=dev)
+            wf0 = sum(wf.launches.values())
+            dec_ms, ay = host_ms(lambda: golden.decoded_y4m(
+                decoder, y4m, adata, decoder=dec))
+            assert golden.digest(ay) == want["decode"], name_
+            dec_wf = sum(wf.launches.values()) - wf0
+            assert dec_wf > 0 and dec._arena.is_cuda, name_
+            recs.append(dict(stream=golden.key(name_, qp_, gop_),
+                             frames=len(afr), encode_ms=enc_ms,
+                             decode_ms=dec_ms, decode_filter_launches=dec_wf))
+        return recs
+
+    arena_run()
+    trace.reset()
+    reset_counts()
+    arena_recs = arena_run()
+    arena_vk = scan_pl.vk_chain.launches
+    arena_wf = dict(wf.launches)
+    arena_hme = {k: hme_gpu.launches[k] for k in ("hme_level", "hme_level0")}
+    assert arena_vk > 0 and arena_hme["hme_level0"] > 0
+    emit("decode_arena", cases=arena_recs, golden=True,
+         vk_chain_launches=arena_vk, filter_launches=arena_wf,
+         hme_launches=arena_hme, stage_seconds=trace.totals())
+
+    # 10c. encode_host_hme: the CIF fixture at -qp=60 -gop=6, 8 frames,
+    # with hme_backend "host" and "wave" (aliases of "pallas": kernels 4/5
+    # and the device chain); both must be dsv2_tpu's "host" stream
+    hname, hqp, hgop, hnfr, hbackend = golden.HOST_HME
+    hkey = golden.key(hname, hqp, hgop)
+    hframes, hmeta = cli.read_y4m(golden.input_path(hname))
+    hframes = hframes[:hnfr]
+
+    def host_encode(backend):
+        """(stream, vk launches by frame type)."""
+        enc = cli.make_encoder(hmeta, cli.default_enc_opts(qp=hqp, gop=hgop),
+                               device=dev)
+        enc.hme_backend = backend
+        out, vk = [], {"p": 0, "intra": 0}
+        for fr in hframes:
+            n0, p0 = scan_pl.vk_chain.launches, enc.stats.pnum
+            out.extend(enc.encode_frame(fr))
+            vk["p" if enc.stats.pnum > p0 else "intra"] += (
+                scan_pl.vk_chain.launches - n0)
+        out.extend(enc.end_of_stream())
+        return b"".join(out), vk
+
+    host_recs = {}
+    for backend in (hbackend, "wave"):
+        host_ms(lambda: host_encode(backend))
+        trace.reset()
+        reset_counts()
+        dt_ms, (hdata, hvk) = host_ms(lambda: host_encode(backend))
+        assert golden.digest(hdata) == {k: gold[hkey][k]
+                                        for k in ("sha256", "length")}, \
+            backend
+        hl = {k: hme_gpu.launches[k] for k in ("hme_level", "hme_level0")}
+        assert hl["hme_level0"] > 0, (backend, hl)
+        assert hvk["p"] > 0, hvk
+        host_recs[backend] = dict(
+            fps=hnfr / (dt_ms / 1e3), seconds=dt_ms / 1e3,
+            vk_chain_launches=hvk, hme_launches=hl,
+            filter_launches=dict(wf.launches), stage_seconds=trace.totals())
+    trace.enable(False)
+    emit("encode_host_hme", stream=hkey, frames=hnfr, gop=hgop, qp=hqp,
+         golden=True, backends=host_recs)
     # 11. the gang motion-search kernels (6/7) level by level: 8 seeded
     # CIF lanes (each another frame, shift, noise and quant), without and
     # with temporal candidates, every lane against kernels 4/5, 2 lanes (8
@@ -1060,12 +1187,30 @@ def main():
                     bound_ms_per_search=sum(lv["bound_ms"] for lv in up))
 
     luma = timed[-1]
+    hvk = {b: sum(r["vk_chain_launches"].values())
+           for b, r in host_recs.items()}
     vk_paths = {"intra_encode": vk_launches, "p_encode": p_vk_launches,
-                "lockstep_p_encode": ls_vk_launches}
+                "lockstep_p_encode": ls_vk_launches,
+                "decode_arena": arena_vk,
+                "encode_host_hme": hvk[hbackend],
+                "encode_wave": hvk["wave"]}
     wmain = timed_wf[("intra", meta.width)]
     wf_paths = {"decode": dec_launches,
                 "p_encode": sum(p_filter_launches.values()),
-                "lockstep_p_encode": sum(ls_filter_launches.values())}
+                "lockstep_p_encode": sum(ls_filter_launches.values()),
+                "decode_corrupt": sum(corrupt_launches.values()),
+                "decode_arena": sum(arena_wf.values()),
+                "encode_host_hme": sum(host_recs[hbackend][
+                    "filter_launches"].values()),
+                "encode_wave": sum(host_recs["wave"][
+                    "filter_launches"].values())}
+    hme_paths = {name: {"p_encode": hme_launches[name],
+                        "decode_arena": arena_hme[name],
+                        "encode_host_hme": host_recs[hbackend][
+                            "hme_launches"][name],
+                        "encode_wave": host_recs["wave"]["hme_launches"][
+                            name]}
+                 for name in ("hme_level", "hme_level0")}
     print(json.dumps({"kernels": [
         {"name": "vk_chain", "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/vk_chain.cu",
@@ -1089,7 +1234,8 @@ def main():
         {"name": name, "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/hme_search.cu",
          "replaces": "dsv2_tpu/ops/hme_pallas.py:%d" % line,
-         "launches": hme_launches[name],
+         "launches": sum(hme_paths[name].values()),
+         "launches_by_path": hme_paths[name],
          "max_abs_err": max(c["max_abs_err"] for c in hme_cases),
          "ms": lv["ms"], "plain_ms": lv["plain_ms"],
          "bound_ms": lv["bound_ms"], "bound_by": lv["bound_by"],

@@ -5,8 +5,8 @@ and `dsv2_tpu`'s CLI, whose flag tables, argument parser, overwrite
 prompt and statistics dump are copied here. Encoding covers intra
 (`-gop=0`) and P streams (`-gop=N`: sequential encode_frame on the
 device reference chain); decoding (`d`) runs the device-chain decoder on
-every stream it can hold (ROADMAP lists what raises). DSV2_TORCH_DEVICE picks the device (`cuda`, the default, or
-`cpu`).
+every stream, corrupt ones and degenerate geometries included.
+DSV2_TORCH_DEVICE picks the device (`cuda`, the default, or `cpu`).
 """
 import sys
 

@@ -10,11 +10,15 @@ filters (ops/filters.py, a hand-written CUDA wavefront on the card) and
 border extension into the device reference chain; only the visible
 planes come back, once per chunk of frames.
 
-Not ported (ROADMAP item 18): the twin's host chain — its recovery from
-corrupt planes — and the decoder-arena steps for degenerate geometries.
-Such a stream raises NotImplementedError; it never falls back quietly.
-(Where the twin takes its host chain for scans outside the compact
-upload, the port stays on the device chain with the dense scans.)
+Every picture stays on the device chain, also where the twin drops to
+its host chain, which gives the same bytes: a plane with a bad
+end-of-plane marker (logged at warning level) decodes as the reference
+decodes it, a P plane against an all-zero residual and an intra plane
+zeroed before the filter; at a degenerate geometry (`_needs_arena`) the
+one-frame steps thread the arena, the reference's shared transform
+scratch (3 * width int32, allocated at the first metadata packet that
+needs it, kept for the rest of the stream); scans the compact upload
+cannot carry go up dense. Such pictures take the one-frame steps.
 """
 import numpy as np
 import torch
@@ -34,9 +38,6 @@ DEC_OK = 0
 DEC_ERROR = 1
 DEC_EOS = 2
 DEC_GOT_META = 3
-
-UNPORTED = "ROADMAP item 18 (decode host chain and arena)"
-
 
 def compute_filter_q(cfg_like, q):
     """(ref: src/bmc.c:376-388)."""
@@ -119,6 +120,7 @@ class Decoder:
         self.device = torch.device(device) if device is not None \
             else default_device()
         self._use_arena = False
+        self._arena = None        # the reference's flat scratch, (3*w,)
 
     def _up(self, a):
         """Host array (or a tuple of them) -> tensor(s) on the device."""
@@ -151,6 +153,13 @@ class Decoder:
             if pkt_type == K.PT_META:
                 self.meta = packet.decode_metadata(r)
                 self._use_arena = _needs_arena(self.meta)
+                if self._use_arena and self._arena is None:
+                    log.warning("%dx%d: degenerate transform levels; "
+                                "decoding with the arena",
+                                self.meta.width, self.meta.height)
+                    self._arena = torch.zeros(3 * self.meta.width,
+                                              dtype=torch.int32,
+                                              device=self.device)
                 return DEC_GOT_META, None, -1
             if pkt_type == K.PT_EOS:
                 return DEC_EOS, None, -1
@@ -222,15 +231,6 @@ class Decoder:
 
     def _execute_job(self, job):
         """Device phase of one picture packet (see parse_packet)."""
-        if job["bad_planes"]:
-            raise NotImplementedError(
-                "corrupt plane(s) %s: recovery is the host chain, %s"
-                % (job["bad_planes"], UNPORTED))
-        if self._use_arena:
-            raise NotImplementedError(
-                "%dx%d: degenerate transform levels need the decoder "
-                "arena, %s" % (job["meta"].width, job["meta"].height,
-                               UNPORTED))
         if job["has_ref"] and self.ref_dev is None:
             return DEC_ERROR, None, -1   # a P frame with no reference
         return self._decode_picture_chain(job)
@@ -271,7 +271,8 @@ class Decoder:
                 up(np.int32(job["quant"])), up(np.asarray(job["lls"],
                                                           np.int32)))
         scal = (up(np.int32(fq)), up(np.int32(fthresh)),
-                up(np.int32(job["do_filter"])))
+                up(np.int32(job["do_filter"])), tuple(job["bad_planes"]),
+                self._arena if self._use_arena else None)
         if job["has_ref"]:
             mv = tuple(up(g) for g in _mv_grids(job["mf"]))
             tmc = up(np.int32(K.temporal_mc(job["fno"])))
@@ -407,7 +408,8 @@ def decode_stream_chunked(stream, chunk=None, decoder=None, resident=None):
     single-frame programs). One chunk of pipelining: the host entropy
     decode of the next chunk overlaps the device work and fetch of the
     previous one. Anything irregular — metadata changes, non-ref P, a
-    P frame without a reference — flushes the run and takes the
+    P frame without a reference, a picture with a corrupt plane, a
+    degenerate geometry (the arena) — flushes the run and takes the
     single-frame path.
 
     resident: a ResidentSum — decoded pixels stay on the device; chunked

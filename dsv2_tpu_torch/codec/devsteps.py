@@ -28,8 +28,13 @@ into the device reference chain, plus the scan upload (`scan_upload`:
 vectors). The intra steps take a leading frame dimension (the twin's
 vmap over K frames is that dimension here); the P steps take one frame,
 and the K-frame P chain is a Python loop with the reference kept on the
-device (the twin's lax.scan). The decoder-arena steps are not ported
-(ROADMAP item 18).
+device (the twin's lax.scan). The one-frame chain steps also take the
+planes of a picture that came with a corrupt end-of-plane marker (`bad`:
+the reference skips their inverse transform, so a P plane reconstructs
+against an all-zero residual and an intra plane is zero before the
+filter) and, at degenerate geometries (codec/decoder._needs_arena), the
+decoder's arena: the reference's shared transform scratch, threaded from
+plane to plane and frame to frame (`_arena_apply`).
 """
 import functools
 
@@ -307,23 +312,50 @@ def _clip_u8(px):
     return torch.clamp(px + 128, 0, 255).to(torch.uint8)
 
 
-def _decode_pixels(pcfg, vs, bd, q, lls):
+def _decode_pixels(pcfg, vs, bd, q, lls, arena=None):
     """Per plane: dequantize + inverse SBT -> clamped pixels uint8[...,
     ch, cw]. vs[c] int32[..., total], bd uint8[..., nbv, nbh], q int32[...],
-    lls int32[..., 3]."""
+    lls int32[..., 3]. With an arena (one frame; int32 (3 * w_luma,)),
+    each plane's inverse reads its stale scratch row from the arena and
+    leaves its level-1 scratch there, in place."""
     outs = []
     for c in range(3):
+        scfg = pcfg.sbt_cfg(c)
         coefs = hzcc.make_dequantize(pcfg.hzcc_cfg(c))(vs[c], bd, q,
                                                        lls[..., c])
-        outs.append(_clip_u8(sbt.make_inv_sbt(pcfg.sbt_cfg(c))(coefs, bd,
-                                                                 q)))
+        if arena is None:
+            px = sbt.make_inv_sbt(scfg)(coefs, bd, q)
+        else:
+            stale = arena[2 * scfg.cw:3 * scfg.cw].clone()
+            px, tmp = sbt.make_inv_sbt_arena(scfg)(coefs, bd, q, stale)
+            _arena_apply(arena, tmp, scfg.cw)
+        outs.append(_clip_u8(px))
     return outs
+
+
+def _arena_apply(arena, tmp, wp):
+    """Overlay one plane's level-1 scratch rows tmp (ph, pw) onto the flat
+    arena, in place: flat[wp * (1 + r) + j] per the reference's
+    temp_buf_pad layout (sbt.c:858-860); only the first 3 * w_luma
+    entries are ever read back."""
+    n = int(arena.shape[0])
+    ph = int(tmp.shape[0])
+    r = 0
+    while wp * (1 + r) < n and r < ph:
+        a = wp * (1 + r)
+        ln = min(wp, n - a)
+        arena[a:a + ln] = tmp[r, :ln]
+        r += 1
 
 
 @functools.lru_cache(maxsize=None)
 def make_i_decode_step(w, h, subsamp, blk_w, blk_h, lossless):
-    """step(vs, bd, q, lls) -> the three planes' pixels uint8[..., ch, cw]
-    (dequantize + inverse SBT; leading frame dimensions ride along)."""
+    """step(vs, bd, q, lls, arena=None) -> the three planes' pixels
+    uint8[..., ch, cw] (dequantize + inverse SBT; leading frame
+    dimensions ride along). An arena (one frame) is threaded in place:
+    each plane's inverse reads the stale scratch row 1 at its flat offset
+    and leaves its level-1 scratch behind for later planes and frames
+    (reachable only at extreme aspect ratios; see ops/sbt.degenerate)."""
     pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, False, lossless)
     return functools.partial(_decode_pixels, pcfg)
 
@@ -332,19 +364,26 @@ def make_i_decode_step(w, h, subsamp, blk_w, blk_h, lossless):
 def make_p_decode_step(w, h, subsamp, blk_w, blk_h, lossless):
     """Dequant + inverse SBT + MC prediction + reconstruction of one frame
     (ref: dsv_decoder.c:512-549). step(vs, bd, q, lls, refs, mvx, mvy,
-    flags, submask, dc, tmc) -> per plane the reconstructed canvas uint8
-    (gh, gw); refs are the bordered reference planes."""
+    flags, submask, dc, tmc, bad=(), arena=None) -> per plane the
+    reconstructed canvas uint8 (gh, gw); refs are the bordered reference
+    planes. A plane in `bad` reconstructs against an all-zero residual
+    (the reference skips its inverse transform); the arena as for
+    make_i_decode_step (P planes never read the stale scratch, inter
+    chroma being Haar, but their inverses keep writing it, and later
+    intra frames read what they left)."""
     pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, True, lossless)
 
-    def step(vs, bd, q, lls, refs, mvx, mvy, flags, submask, dc, tmc):
-        pxs = _decode_pixels(pcfg, vs, bd, q, lls)
+    def step(vs, bd, q, lls, refs, mvx, mvy, flags, submask, dc, tmc,
+             bad=(), arena=None):
+        pxs = _decode_pixels(pcfg, vs, bd, q, lls, arena)
         outs = []
         for c in range(3):
             mcc = pcfg.mc_cfg(c)
             pw, ph = pcfg.pdims[c]
             res = torch.zeros((mcc.gh, mcc.gw), dtype=torch.uint8,
                               device=pxs[c].device)
-            res[:ph, :pw] = pxs[c][:ph, :pw]
+            if c not in bad:
+                res[:ph, :pw] = pxs[c][:ph, :pw]
             pred = mc.make_predict(mcc)(refs[c], mvx, mvy, flags, submask,
                                         dc, tmc)
             outs.append(mc.make_reconstruct(mcc)(res, pred, flags))
@@ -438,13 +477,16 @@ def _chain(pcfg, vis):
 
 
 def _id_visible(pcfg, lossless, dense, vs, bd, q, lls, fq, fthresh,
-                do_filter):
+                do_filter, bad=(), arena=None):
     """Intra decode + intra dering filter -> visible planes (shared body
-    of the single-frame chain step and the K-frame step)."""
+    of the single-frame chain step and the K-frame step); the planes in
+    `bad` are zero before the filter."""
     meta = pcfg.meta
     base = make_i_decode_step(meta.width, meta.height, meta.subsamp,
                               pcfg.blk_w, pcfg.blk_h, lossless)
-    vis = _visible(pcfg, base(_expand_vs(vs, dense), bd, q, lls))
+    vis = _visible(pcfg, base(_expand_vs(vs, dense), bd, q, lls, arena))
+    for c in bad:
+        vis[c] = torch.zeros_like(vis[c])
     if not lossless:
         vis[0] = filters.intra_filter_graph(
             pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv, vis[0],
@@ -455,15 +497,16 @@ def _id_visible(pcfg, lossless, dense, vs, bd, q, lls, fq, fthresh,
 @functools.lru_cache(maxsize=None)
 def make_id_chain_step(w, h, subsamp, blk_w, blk_h, lossless, dense):
     """Intra decode + device reference chain: recon -> intra dering filter
-    -> border extension. step(vs, bd, q, lls, fq, fthresh, do_filter) ->
-    (packed visible payload uint8, {"recon": bordered planes}) (ref:
-    dsv_decoder.c:512-549 + bmc.c:390-457); vs in scan_upload's form,
-    dense vectors if `dense`."""
+    -> border extension. step(vs, bd, q, lls, fq, fthresh, do_filter,
+    bad=(), arena=None) -> (packed visible payload uint8, {"recon":
+    bordered planes}) (ref: dsv_decoder.c:512-549 + bmc.c:390-457); vs in
+    scan_upload's form, dense vectors if `dense`; the corrupt planes
+    `bad` and the arena as for make_i_decode_step / _id_visible."""
     pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, False, lossless)
 
-    def step(vs, bd, q, lls, fq, fthresh, do_filter):
+    def step(vs, bd, q, lls, fq, fthresh, do_filter, bad=(), arena=None):
         vis = _id_visible(pcfg, lossless, dense, vs, bd, q, lls, fq,
-                          fthresh, do_filter)
+                          fthresh, do_filter, bad, arena)
         return _packed(vis), _chain(pcfg, vis)
 
     return step
@@ -475,14 +518,16 @@ def make_pd_chain_step(w, h, subsamp, blk_w, blk_h, lossless,
     """P decode + device reference chain: recon -> in-loop luma/chroma
     filters -> border extension, one frame; refs are the previous frame's
     chain planes (ref: dsv_decoder.c:512-549 + bmc.c:459-659); vs in
-    scan_upload's form, dense vectors if `dense`."""
+    scan_upload's form, dense vectors if `dense`; the corrupt planes `bad`
+    and the arena as for make_p_decode_step."""
     pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, True, lossless)
     base = make_p_decode_step(w, h, subsamp, blk_w, blk_h, lossless)
 
     def step(vs, bd, q, lls, refs, mvx, mvy, flags, submask, dc, tmc,
-             fq, fthresh, do_filter):
+             fq, fthresh, do_filter, bad=(), arena=None):
         vis = _visible(pcfg, base(_expand_vs(vs, dense), bd, q, lls,
-                                  refs, mvx, mvy, flags, submask, dc, tmc))
+                                  refs, mvx, mvy, flags, submask, dc, tmc,
+                                  bad, arena))
         if not lossless:
             vis[0] = filters.luma_filter_graph(
                 pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv,

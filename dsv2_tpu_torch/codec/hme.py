@@ -2,44 +2,34 @@
 `dsv2_tpu/codec/hme.py`).
 
 The backend is `enc.hme_backend`, else the `DSV2_HME` environment
-variable, else "auto", as in the twin. Every ported backend searches the
-whole pyramid on the device holding the encoder's reference chain, and
-the device of the tensors picks the implementation:
+variable, else "auto", as in the twin. Every backend searches the whole
+pyramid on the device holding the encoder's reference chain, and the
+device of the tensors picks the implementation:
 - "pallas": the hand-written CUDA kernels 4/5 (ops/hme_gpu,
   csrc/hme_search.cu) for CUDA tensors; lockstep key ("hme_pl", cfg),
   the lanes of a flush one after another;
 - "gang": the lockstep kernels 6/7 (ops/hme_gang, csrc/hme_gang.cu), one
   launch per pyramid level for every lane of a flush; key ("hme_gang",
   cfg);
-- "auto": "pallas".
-For CPU tensors both run their plain PyTorch version (ops/hme_wave). The
-twin's host search and XLA wave ("host", "wave") are not ported and
-raise; any other name raises. (ref: src/hme.c)
+- "auto", "host" and "wave": "pallas". The twin's backends all give the
+  same stream (its host search is its bit-exactness oracle, its wave an
+  XLA program of the whole pyramid); the port's one whole-pyramid search
+  is the kernel pair.
+For CPU tensors both run their plain PyTorch version (ops/hme_wave). Any
+other name raises. (ref: src/hme.c)
 """
 import os
-
-UNPORTED = ("the host and wave motion-search backends are not ported "
-            "(ROADMAP: the twin's host chain, item 18)")
 
 
 def resolve_backend(enc):
     """The effective backend for this encoder: "pallas" or "gang"."""
     backend = getattr(enc, "hme_backend", None) or os.environ.get(
         "DSV2_HME", "auto")
-    if backend == "auto":
+    if backend in ("auto", "host", "wave"):
         return "pallas"
     if backend in ("pallas", "gang"):
         return backend
-    if backend in ("host", "wave"):
-        raise NotImplementedError("hme_backend=%r: %s" % (backend, UNPORTED))
     raise ValueError("unknown hme_backend %r" % (backend,))
-
-
-def is_device_backend(enc):
-    """True when the search runs on the device, so the encoder keeps the
-    whole reference chain there: every ported backend (raises for the
-    unported ones)."""
-    return resolve_backend(enc) in ("pallas", "gang")
 
 
 def motion_est(enc, d):

@@ -11,8 +11,9 @@ division and arithmetic shifts, so coefficients are bit-identical to
 Filter selection per level (ref: sbt.c:19-29, 862-885): L1 luma (ASF93),
 L2A luma (adaptive 5-tap + SHREX), LLI luma level 4, CC chroma mid
 levels, LLP luma P level 4, LOSSLESS mid levels, Haar elsewhere (the
-inverse adds the gradient-nudging "filtered" Haar). The decoder-arena
-inverse `make_inv_sbt_arena` is not ported (ROADMAP item 18).
+inverse adds the gradient-nudging "filtered" Haar). The decoder's
+arena inverse (`make_inv_sbt_arena`) also hands back the level-1
+scratch rows the reference leaves behind.
 
 The JAX twin is functional (`x.at[...].set`); here each transform works
 on a private int32 copy of its input and updates it in place level by
@@ -460,12 +461,15 @@ def _filter_2d_fwd(x, cfg, l, kind, blockdata, carry):
 
 
 def _filter_2d_inv(x, cfg, l, kind, blockdata, stale):
-    """One inv_2d level, in place on x (..., ch, cw). `stale` models the
+    """One inv_2d level, in place on x (..., ch, cw); returns the
+    post-column-pass scratch rows (..., sh, sw). `stale` models the
     reference's scratch row 1 at this point of the inverse (ref:
     sbt.c:461-473): the inverse runs levels high-to-low, so its
     degenerate (sub height 1) levels run FIRST and read whatever the
     preceding transform left in scratch row 1 — the forward pass of the
-    same plane for the encoder's in-loop inverse; None reads zeros."""
+    same plane for the encoder's in-loop inverse, the previous plane or
+    frame for a standalone decode (the decoder arena); None reads
+    zeros."""
     w, h = cfg.cw, cfg.ch
     sw, sh = im.round_shift(w, l - 1), im.round_shift(h, l - 1)
     sub = x[..., :sh, :sw]
@@ -496,6 +500,7 @@ def _filter_2d_inv(x, cfg, l, kind, blockdata, stale):
     else:
         out = run(c, sw, axis=1)
     x[..., :sh, :sw] = out
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -551,13 +556,17 @@ def make_fwd_sbt_carry(cfg: SbtCfg):
 
 
 def _inv_graph(cfg, x, blockdata, q, stale):
-    """q: int32 (..., 1, 1), one quantizer per frame."""
+    """q: int32 (..., 1, 1), one quantizer per frame. Returns (pixels,
+    the level-1 scratch rows (..., ch, cw)): what the reference's level-1
+    inverse leaves in its scratch, the post-column-pass rows of a lifting
+    level or the recombined sub-image of a Haar level."""
     x = x.to(torch.int32, copy=True)
+    tmp_l1 = None
     for l in range(cfg.lvls, 0, -1):
         kind = _kind(cfg, l)
         ovf = _ovf(cfg, l)
         if kind != "haar":
-            _filter_2d_inv(x, cfg, l, kind, blockdata, stale)
+            tmp_l1 = _filter_2d_inv(x, cfg, l, kind, blockdata, stale)
             continue
         sw = im.round_shift(cfg.cw, l - 1)
         sh = im.round_shift(cfg.ch, l - 1)
@@ -571,7 +580,8 @@ def _inv_graph(cfg, x, blockdata, q, stale):
             hqp = torch.div(q, div, rounding_mode="floor")
             out = _haar_inv_filtered(x, sh, sw, ovf, hqp)
         x[..., :sh, :sw] = out
-    return x
+        tmp_l1 = out   # the Haar inverse recombines in its scratch
+    return x, tmp_l1
 
 
 def _check_inv(cfg, x, blockdata, q):
@@ -592,7 +602,21 @@ def make_inv_sbt(cfg: SbtCfg):
     scratch row — encoder in-loop callers use make_inv_sbt_stale."""
     def inv(x, blockdata, q):
         _check_inv(cfg, x, blockdata, q)
-        return _inv_graph(cfg, x, blockdata, q[..., None, None], None)
+        return _inv_graph(cfg, x, blockdata, q[..., None, None], None)[0]
+
+    return inv
+
+
+@functools.lru_cache(maxsize=None)
+def make_inv_sbt_arena(cfg: SbtCfg):
+    """Inverse for the standalone decoder: takes the scratch-row-1 state
+    int32[..., cw] and also returns the level-1 scratch content int32[...,
+    ch, cw] the reference leaves behind; the decoder arena overlays it at
+    this plane's flat offset so later planes and frames read the right
+    staleness (codec/devsteps._arena_apply)."""
+    def inv(x, blockdata, q, stale):
+        _check_inv(cfg, x, blockdata, q)
+        return _inv_graph(cfg, x, blockdata, q[..., None, None], stale)
 
     return inv
 
@@ -601,8 +625,5 @@ def make_inv_sbt(cfg: SbtCfg):
 def make_inv_sbt_stale(cfg: SbtCfg):
     """Inverse taking the scratch-row-1 state int32[..., cw] — the fwd
     carry for the encoder's in-loop inverse."""
-    def inv(x, blockdata, q, stale):
-        _check_inv(cfg, x, blockdata, q)
-        return _inv_graph(cfg, x, blockdata, q[..., None, None], stale)
-
-    return inv
+    inv = make_inv_sbt_arena(cfg)
+    return lambda x, blockdata, q, stale: inv(x, blockdata, q, stale)[0]

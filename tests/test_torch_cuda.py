@@ -1,7 +1,9 @@
 """torch port on the card: the hand-written CUDA kernels (the vk chain,
 the in-loop filter wavefront, the motion search) against their plain
 versions, the motion search's exact square root over every uint32, and
-the device encode and decode paths against the golden streams.
+the device encode and decode paths against the golden streams (corrupt
+streams and the arena geometries too, and the motion search backends
+that alias "pallas").
 
 Marked `cuda`; each test skips (from the `cuda` fixture, never at import)
 where torch sees no GPU. Run them on the card with
@@ -578,6 +580,59 @@ def test_p_encode_golden_cuda(cuda, key):
     n0 = hme_gpu.launches["hme_level0"]
     data = golden.encode(cli, frames[:nfr], meta, qp, gop=gop, device=cuda)
     want = golden.load()[key]
+    assert golden.digest(data) == {k: want[k] for k in ("sha256", "length")}
+    assert hme_gpu.launches["hme_level0"] > n0
+
+
+@pytest.mark.parametrize("trial", range(8))
+def test_decode_corrupt_cuda(cuda, trial):
+    """The corrupt CIF trials on the card: the device chain, its filter
+    kernel included, gives dsv2_tpu's frames (the twin's host chain)."""
+    from dsv2_tpu_torch.codec import decoder
+    from dsv2_tpu_torch.ops import filters
+    from dsv2_tpu_torch.utils import y4m
+    want = golden.load()[golden.corrupt_key(trial)]
+    dec = decoder.Decoder(device=cuda)
+    n0 = sum(filters.wavefront_filter.launches.values())
+    got = golden.decode_frames(decoder, y4m,
+                               golden.corrupt_streams()[trial], decoder=dec)
+    assert got["frames"] == want["frames"] and got["error"] is None
+    assert got["decode"] == want["decode"]
+    assert sum(filters.wavefront_filter.launches.values()) > n0
+
+
+@pytest.mark.parametrize("name,qp,gop", golden.ARENA_CASES)
+def test_arena_golden_cuda(cuda, name, qp, gop):
+    """The degenerate geometries: encoded on the card to dsv2_tpu's
+    stream, decoded on the card with the arena and the filter kernel to
+    its y4m."""
+    from dsv2_tpu_torch import cli
+    from dsv2_tpu_torch.codec import decoder
+    from dsv2_tpu_torch.ops import filters
+    from dsv2_tpu_torch.utils import y4m
+    want = golden.load()[golden.key(name, qp, gop)]
+    frames, meta = read_y4m(golden.input_path(name))
+    data = golden.encode(cli, frames, meta, qp, gop=gop, device=cuda)
+    assert golden.digest(data) == {k: want[k] for k in ("sha256", "length")}
+    dec = decoder.Decoder(device=cuda)
+    n0 = sum(filters.wavefront_filter.launches.values())
+    y = golden.decoded_y4m(decoder, y4m, data, decoder=dec)
+    assert golden.digest(y) == want["decode"] and dec._arena.is_cuda
+    assert sum(filters.wavefront_filter.launches.values()) > n0
+
+
+@pytest.mark.parametrize("backend", ["host", "wave"])
+def test_host_hme_golden_cuda(cuda, backend):
+    """CIF -gop=6 with the backends "host" and "wave", aliases of
+    "pallas" (kernels 4/5): both dsv2_tpu's "host" stream."""
+    from dsv2_tpu_torch import cli
+    from dsv2_tpu_torch.ops import hme_gpu
+    name, qp, gop, nfr, _ = golden.HOST_HME
+    frames, meta = read_y4m(golden.input_path(name))
+    n0 = hme_gpu.launches["hme_level0"]
+    data = golden.encode(cli, frames[:nfr], meta, qp, gop=gop, device=cuda,
+                         backend=backend)
+    want = golden.load()[golden.key(name, qp, gop)]
     assert golden.digest(data) == {k: want[k] for k in ("sha256", "length")}
     assert hme_gpu.launches["hme_level0"] > n0
 

@@ -23,6 +23,7 @@ from dsv2_tpu_torch.codec import decoder, devsteps
 from dsv2_tpu_torch.core import constants as K
 from dsv2_tpu_torch.core.frame import coef_dims, plane_dims
 from dsv2_tpu_torch.ops import framedev, hzcc, mc, sbt
+from dsv2_tpu_torch.utils import packet
 from dsv2_tpu_torch.utils.packet import VideoMeta
 from torch_parity import assert_same, tt
 import torch_port_golden as golden  # after torch_parity (sys.path)
@@ -224,9 +225,12 @@ def test_from_reference():
 
 
 def test_unported_paths_raise():
-    """A corrupt plane and an arena geometry raise; they never fall back
-    quietly. A scan past the compact-upload contract is no longer one of
-    them: the same picture uploaded dense decodes to the same frame."""
+    """The paths that raised before corrupt planes and the arena were
+    ported now decode on the device chain (the name is kept): a corrupt
+    intra plane is zeroed while the others equal the clean decode, and
+    the picture still becomes the device reference; an arena geometry's
+    metadata allocates the arena. A scan past the compact-upload contract
+    decodes to the same frame uploaded dense."""
     key = golden.p_key(golden.P_CASES[0])
     bufs = [b for _, b in jpacket.iter_packets(
         io.BytesIO(golden.read_stream(key)))]
@@ -234,20 +238,29 @@ def test_unported_paths_raise():
     td.parse_packet(bufs[0])
     code, job, _ = td.parse_packet(bufs[1])
     assert code == decoder.DEC_OK and not job["dense"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        td._execute_job(dict(job, bad_planes=[1]))
+    assert not job["has_ref"] and job["is_ref"]
+    code, realize, _ = td._execute_job(dict(job, bad_planes=[1]))
+    assert code == decoder.DEC_OK and td.ref_dev is not None
+    corrupt = realize()
     frames = []
     for change in ({}, dict(cvs=tuple(job["vs"]), dense=True)):
         d = decoder.Decoder(device="cpu")
         d.parse_packet(bufs[0])
         _, realize, _ = d._execute_job(dict(job, **change))
         frames.append(realize())
+        assert d.ref_dev is not None
     for c in range(3):
         assert np.array_equal(frames[0].view(c), frames[1].view(c))
-    td._use_arena = True
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        td._execute_job(job)
-    assert decoder._needs_arena(VideoMeta(width=352, height=16))
+        if c == 1:
+            assert not corrupt.view(c).any()
+        else:
+            assert np.array_equal(corrupt.view(c), frames[0].view(c))
+    ad = decoder.Decoder(device="cpu")
+    meta = VideoMeta(width=352, height=16)
+    assert ad.parse_packet(packet.encode_metadata(meta))[0] == \
+        decoder.DEC_GOT_META
+    assert ad._use_arena and tuple(ad._arena.shape) == (3 * 352,)
+    assert decoder._needs_arena(meta)
     assert not decoder._needs_arena(VideoMeta(width=1920, height=1080))
 
 

@@ -111,26 +111,33 @@ def test_stage_totals():
 
 
 def test_p_frames_raise():
-    """P frames encode through the device motion search only: asking for
-    one of dsv2_tpu's unported backends (host, wave) raises at the first P
-    frame; the default, "pallas" and "gang" encode
-    (tests/test_torch_pencode.py, tests/test_torch_lockstep.py)."""
-    _raises_at_first_p("host")
+    """dsv2_tpu's "host" motion search backend is an alias of "pallas" in
+    the port: the nano P stream equals dsv2_tpu's. (Named when the
+    backend still raised; "pallas" and "gang" are in
+    tests/test_torch_pencode.py and tests/test_torch_lockstep.py, the
+    CIF "host" and "wave" encodes in tests/test_torch_hme.py.)"""
+    _encodes_p("host")
 
 
 def test_p_frames_raise_wave():
-    _raises_at_first_p("wave")
+    """"wave" is an alias of "pallas": the same nano P stream."""
+    _encodes_p("wave")
 
 
-def _raises_at_first_p(backend):
+def _encodes_p(backend):
     from dsv2_tpu_torch import cli
+    from dsv2_tpu_torch.codec import hme
     frames, meta = read_y4m(golden.input_path("nano48x32_420_4f"))
-    enc = cli.make_encoder(meta, cli.default_enc_opts(qp=60, gop=8),
+    enc = cli.make_encoder(meta, cli.default_enc_opts(qp=60, gop=4),
                            device="cpu")
     enc.hme_backend = backend
-    enc.encode_frame(frames[0])          # the I frame needs no search
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enc.encode_frame(frames[1])
+    assert hme.resolve_backend(enc) == "pallas"
+    out = []
+    for fr in frames:
+        out.extend(enc.encode_frame(fr))
+    out.extend(enc.end_of_stream())
+    assert enc.stats.pnum > 0
+    _check(golden.key("nano48x32_420_4f", 60, 4), b"".join(out))
 
 
 @pytest.mark.parametrize("name,qp", FIXTURE_CASES,
@@ -294,6 +301,12 @@ lanes = [fr[0:2], fr[2:4]]
 assert dynbatch.encode_streams_lockstep(lanes, factory, width=2) == [
     golden.encode(cli, s, m, 60, gop=2, eos=False) for s in lanes]
 probe_gang.run("cpu", reps=1, nb=16)
+from dsv2_tpu_torch.codec import decoder
+from dsv2_tpu_torch.utils import y4m
+print("HOSTENC", golden.digest(golden.encode(cli, fr, m, 60, gop=4,
+                                             backend="host"))["sha256"])
+print("CORRUPT", golden.decode_frames(
+    decoder, y4m, golden.corrupt_streams()[0])["decode"]["sha256"])
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "dsv2_tpu")]
 print("PENC", golden.digest(open({out!r} + ".p", "rb").read())["sha256"])
@@ -304,7 +317,8 @@ print("DECODE", golden.digest(open({yout!r}, "rb").read())["sha256"])
 
 def test_jax_free_subprocess(tmp_path):
     """The GPU machine has no JAX: the encode entry points (intra, P and
-    lockstep), the CLI decode and the gang probe run with jax and dsv2_tpu
+    lockstep, P with the backend "host"), the CLI decode, the decode
+    of a corrupt stream and the gang probe run with jax and dsv2_tpu
     unimportable (a subprocess, since this one already imported both)."""
     out = str(tmp_path / "nano.dsv")
     pkey = golden.p_key(golden.P_CASES[0])
@@ -324,3 +338,9 @@ def test_jax_free_subprocess(tmp_path):
     assert line == ["DECODE " + GOLD[pkey]["decode"]["sha256"]]
     line = [ln for ln in res.stdout.splitlines() if ln.startswith("PENC")]
     assert line == ["PENC " + GOLD[pkey]["sha256"]]
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("HOSTENC")]
+    assert line == ["HOSTENC " + GOLD[golden.key(
+        "nano48x32_420_4f", 60, 4)]["sha256"]]
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("CORRUPT")]
+    assert line == ["CORRUPT " + GOLD[golden.corrupt_key(0)]["decode"][
+        "sha256"]]

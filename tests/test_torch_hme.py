@@ -79,8 +79,15 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
 
 
 def test_hme_backend_choice_raises():
+    """The backend mapping: "host", "wave" and "auto" are "pallas"; only
+    an unknown name raises (the name is from when "host" and "wave"
+    raised)."""
     from types import SimpleNamespace
     from dsv2_tpu_torch.codec import hme
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hme.motion_est(SimpleNamespace(hme_backend="host"), None)
-    assert hme.resolve_backend(SimpleNamespace(hme_backend="auto")) == "pallas"
+    for name, want in (("host", "pallas"), ("wave", "pallas"),
+                       ("auto", "pallas"), ("pallas", "pallas"),
+                       ("gang", "gang")):
+        enc = SimpleNamespace(hme_backend=name)
+        assert hme.resolve_backend(enc) == want, name
+    with pytest.raises(ValueError, match="unknown hme_backend"):
+        hme.resolve_backend(SimpleNamespace(hme_backend="xla"))

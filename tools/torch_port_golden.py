@@ -20,7 +20,17 @@ end-of-stream packet, which is that lane's lockstep output. DENSE_CASES
 are streams with planes whose scans the decoder's compact upload cannot
 carry (more than 64 high-band values outside int8): CIF at the CLI's
 default CRF with -gop=6, CIF at -qp=85 (both streams committed) and 3
-FHD frames at -qp=90 -gop=0 (digests only). The port's
+FHD frames at -qp=90 -gop=0 (digests only). CORRUPT: the committed CIF
+CRF stream with 8 trials of seeded byte flips (tests/test_robustness.py's
+scheme: default_rng(7), 6 flips a trial at offsets from 64), each with
+the digest of every frame `dsv2_tpu` decodes from it, of its y4m, the
+error it raises (none do), and its corrupt P and intra planes.
+ARENA_CASES: the degenerate geometries of tests/test_edge_dims.py (4
+seeded synthetic frames at -qp=60 -gop=2), whose decode threads the
+reference's transform scratch (the decoder arena); their decodes are
+cross-checked with `dsv2_tpu/conformance/d28dec.py`. HOST_HME: the CIF
+fixture at -qp=60 -gop=6, 8 frames, through `dsv2_tpu`'s host motion
+search. The port's
 tests and chip_smoke.py compare against these files; the machine with
 the GPU has no JAX.
 
@@ -61,6 +71,15 @@ P_DIGESTS = [("nano48x32_420_4f", 60, 4, 4, None),
 # that need the decoder's dense scan upload; the CIF streams are committed
 DENSE_CASES = [("cif352x288_420_12f", None, 6, 8),
                ("cif352x288_420_12f", 85, 0, 3), (FHD, 90, 0, 3)]
+# the corrupt-stream trials: base stream and the byte-flip scheme
+CORRUPT = dict(stream="cif352x288_420_12f@crf_gop6", seed=7, trials=8,
+               flips=6, start=64)
+# (name, qp, gop) of the degenerate geometries: 352x16 4:2:0 (1-px sub
+# heights), 16x240 4:2:0 (1-px sub widths), 64x500 4:1:1 (chroma first)
+ARENA_CASES = [("synth352x16_420_4f", 60, 2), ("synth16x240_420_4f", 60, 2),
+               ("synth64x500_411_4f", 60, 2)]
+# (name, qp, gop, frames, hme backend) of the host motion search encode
+HOST_HME = ("cif352x288_420_12f", 60, 6, 8, "host")
 
 
 def cases():
@@ -78,6 +97,69 @@ def key(name, qp, gop=0, effort=None):
     if effort is not None:
         k += "_effort%d" % effort
     return k
+
+
+def corrupt_key(i):
+    """Key of corrupt-stream trial i."""
+    return "%s_corrupt%d" % (CORRUPT["stream"], i)
+
+
+def corrupt_streams(data=None):
+    """The CORRUPT trials of stream `data` (default: the committed base
+    stream), in trial order: each flips `flips` bytes at seeded offsets
+    from `start` on, one generator over all trials."""
+    import numpy as np
+    if data is None:
+        data = read_stream(CORRUPT["stream"])
+    rng = np.random.default_rng(CORRUPT["seed"])
+    out = []
+    for _ in range(CORRUPT["trials"]):
+        buf = bytearray(data)
+        for _ in range(CORRUPT["flips"]):
+            pos = int(rng.integers(CORRUPT["start"], len(buf)))
+            buf[pos] ^= int(rng.integers(1, 256))
+        out.append(bytes(buf))
+    return out
+
+
+def count_bad_planes(dec):
+    """Wrap a decoder's parse_packet (dsv2_tpu's or the port's) to count
+    the corrupt planes of the pictures it parses; returns the live
+    counts {"p": ..., "intra": ...}."""
+    counts = {"p": 0, "intra": 0}
+    parse = dec.parse_packet
+
+    def counted(buf):
+        code, job, fno = parse(buf)
+        if job is not None:
+            counts["p" if job["has_ref"] else "intra"] += len(
+                job["bad_planes"])
+        return code, job, fno
+    dec.parse_packet = counted
+    return counts
+
+
+def decode_frames(decoder_mod, y4m_mod, data, decoder=None):
+    """Decode `data` as decoded_y4m does, but keep going only as far as
+    the decoder does: returns dict(frames=[[fno, SHA-256 of the visible
+    planes], ...], decode=the y4m's digest, error=the class name of the
+    exception that ended the decode, or None)."""
+    out = io.BytesIO()
+    writer, frames, error = None, [], None
+    try:
+        for fno, meta, frame in decoder_mod.decode_stream_chunked(
+                io.BytesIO(data), decoder=decoder):
+            if writer is None:
+                writer = y4m_mod.Y4MWriter(
+                    out, meta.width, meta.height, meta.subsamp,
+                    (meta.fps_num, meta.fps_den),
+                    (meta.aspect_num, meta.aspect_den))
+            writer.write_frame([frame.view(c) for c in range(3)])
+            frames.append([int(fno),
+                           hashlib.sha256(frame.tobytes()).hexdigest()])
+    except Exception as exc:   # recorded: the port must fail alike
+        error = type(exc).__name__
+    return dict(frames=frames, decode=digest(out.getvalue()), error=error)
 
 
 def p_key(case):
@@ -109,11 +191,11 @@ def read_stream(k):
 
 def input_path(name):
     """The y4m for a case; a synthetic input (SYNTH, or
-    "synth<w>x<h>_<subs>": 2 frames of synth_input) is generated (seeded)
-    under build/ on first use."""
-    m = re.fullmatch(r"synth(\d+)x(\d+)_(\d+)", name)
+    "synth<w>x<h>_<subs>[_<n>f]": n frames of synth_input, 2 by default)
+    is generated (seeded) under build/ on first use."""
+    m = re.fullmatch(r"synth(\d+)x(\d+)_(\d+)(?:_(\d+)f)?", name)
     if m:
-        return synth_input(int(m[1]), int(m[2]), m[3], 2)
+        return synth_input(int(m[1]), int(m[2]), m[3], int(m[4] or 2))
     if name not in SYNTH:
         return os.path.join(FIXTURES, name + ".y4m")
     path = os.path.join(SYNTH_DIR, name + ".y4m")
@@ -128,17 +210,20 @@ def input_path(name):
 
 
 def encode(cli, frames, meta, qp, batch=None, chunk=16, gop=0, effort=None,
-           eos=True, **enc_kw):
+           eos=True, backend=None, **enc_kw):
     """The -qp=<qp> -gop=<gop> [-effort=<effort>] stream of `frames`
     through a CLI module's make_encoder (dsv2_tpu.cli or
     dsv2_tpu_torch.cli), the CLI's default CRF for qp None: sequential
     encode_frame calls, or the batched path if `batch` (an
     encode_intra_batch) is given; with eos=False without the
-    end-of-stream packet (a lockstep lane's bytes)."""
+    end-of-stream packet (a lockstep lane's bytes); `backend` sets the
+    encoder's hme_backend."""
     opts = dict(gop=gop) if qp is None else dict(qp=qp, gop=gop)
     if effort is not None:
         opts["effort"] = effort
     enc = cli.make_encoder(meta, cli.default_enc_opts(**opts), **enc_kw)
+    if backend is not None:
+        enc.hme_backend = backend
     out = []
     if batch is None:
         for fr in frames:
@@ -472,6 +557,57 @@ def main(argv=None):
         table[k] = entry
         print(k, entry["length"], entry["sha256"], entry["decode"],
               flush=True)
+        _save(table)
+    _main_host_chain(args, table, cli, decoder, y4m, read_y4m)
+
+
+def _main_host_chain(args, table, cli, decoder, y4m, read_y4m):
+    """The cases of the host chains: CORRUPT, ARENA_CASES, HOST_HME."""
+    from dsv2_tpu.conformance import d28dec
+    for i, data in enumerate(corrupt_streams()):
+        k = corrupt_key(i)
+        if args.only and k not in args.only:
+            continue
+        dec = decoder.Decoder()
+        bad = count_bad_planes(dec)
+        entry = decode_frames(decoder, y4m, data, decoder=dec)
+        entry.update(digest(data), bad_planes=bad, trial=i,
+                     base=CORRUPT["stream"])
+        table[k] = entry
+        print(k, len(entry["frames"]), entry["error"], bad, flush=True)
+        _save(table)
+    for name, qp, gop in ARENA_CASES:
+        k = key(name, qp, gop)
+        if args.only and k not in args.only:
+            continue
+        frames, meta = read_y4m(input_path(name))
+        data = encode(cli, frames, meta, qp, gop=gop)
+        dec = decoded_y4m(decoder, y4m, data)
+        tmp = os.path.join(SYNTH_DIR, "arena.%d" % os.getpid())
+        with open(tmp + ".dsv", "wb") as f:
+            f.write(data)
+        d28dec.decode_file(tmp + ".dsv", tmp + ".y4m")
+        with open(tmp + ".y4m", "rb") as f:
+            assert f.read() == dec, (k, "d28dec disagrees")
+        for ext in (".dsv", ".y4m"):
+            os.remove(tmp + ext)
+        table[k] = dict(digest(data), decode=digest(dec), d28dec=True,
+                        input="synthetic (tools/mkfixtures.write_y4m)",
+                        args="-qp=%d -gop=%d" % (qp, gop),
+                        frames=len(frames))
+        print(k, table[k]["length"], table[k]["decode"], flush=True)
+        _save(table)
+    name, qp, gop, nfr, backend = HOST_HME
+    k = key(name, qp, gop)
+    if not args.only or k in args.only:
+        frames, meta = read_y4m(input_path(name))
+        data = encode(cli, frames[:nfr], meta, qp, gop=gop, backend=backend)
+        table[k] = dict(digest(data),
+                        decode=digest(decoded_y4m(decoder, y4m, data)),
+                        input=os.path.relpath(input_path(name), REPO),
+                        args="-qp=%d -gop=%d" % (qp, gop), frames=nfr,
+                        hme_backend=backend)
+        print(k, table[k]["length"], table[k]["sha256"], flush=True)
         _save(table)
 
 
