@@ -13,7 +13,18 @@ frames, through cli.make_encoder + encode_frame; the CLIs (`e` at
 streams x 48 frames at -qp=60 -gop=48, BASELINE config 1) through
 parallel/dynbatch.encode_streams_lockstep with the gang motion search,
 then with groups=2, with kernels 4/5, and in one group of width 3 (the
-flushes split into launches of at most 3 lanes); and the gang cost
+flushes split into launches of at most 3 lanes), every flush of the
+main lockstep run making exactly 3 vk launches (a plane each) and one
+(intra) or two (P: luma; the U and V of every lane) filter launches;
+the kernels of one P flush at its shapes (B = 8 vk chains per plane, 8
+luma planes, 16 U+V planes) against their plain versions
+(batched_kernels); lockstep GOP-parallel decode through
+parallel/gop.decode_gops_parallel of the 8 lanes' stream (384 CIF
+frames, width 8; each lane's y4m against dsv2_tpu's) and of the 32 FHD
+frames encoded at -qp=60 -gop=8 (4 GOPs, width 4; the first GOP equal
+to the committed FHD stream), each frame against the sequential decode;
+the tools parallel_encode --lockstep and parallel_decode in
+subprocesses and encode_gops_parallel with 4 workers; and the gang cost
 probe's tool run. Also an FHD high-quality stream (3 frames at -qp=90
 -gop=0) encoded by the port and decoded with the dense scan upload, and
 20 launches of each of kernels 4-7 (every upper level) on the same
@@ -52,6 +63,7 @@ tests/golden/). Writes only under build/.
 """
 import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -66,7 +78,9 @@ KERNELS = ("vk_chain", "wavefront_filter", "hme_search", "hme_gang",
 P_FRAMES, P_GOP = 8, 8
 LS_WARM_FRAMES = 2      # frames per lane of the lockstep warm run
 LS_PALLAS_FRAMES = 16   # frames per lane of the lockstep run on kernels 4/5
+LS_GROUPS_FRAMES = 16   # frames per lane of the lockstep run in 2 groups
 LS_NARROW = (3, 8)      # (width, frames per lane) of the narrow lockstep run
+LANE_QS = (700, 1500, 2400, 300, 1024, 3000, 60, 1800)   # a q per lane
 REPEATS = 20            # launches of kernels 4-7 that must agree
 # seeded random filter inputs: (label, (width, height, luma block, chroma
 # shift)) — CIF and FHD 4:2:0 geometry
@@ -125,8 +139,10 @@ def main():
     from dsv2_tpu_torch.ops import (_kernels, filters, hme_gang, hme_gpu,
                                     hme_wave, hzcc, scan_pl)
     from dsv2_tpu_torch.parallel import batch, dynbatch
+    from dsv2_tpu_torch.parallel import gop as pgop
     from dsv2_tpu_torch.tools import probe_gang
     from dsv2_tpu_torch.utils import trace, y4m
+    from dsv2_tpu_torch.utils.packet import encode_eos
 
     dev = torch.device("cuda")
     gold = golden.load()
@@ -292,11 +308,12 @@ def main():
     wf_err = 0
     wf_cases = []
 
-    def filter_case(label, call, time_it=False):
-        """Kernel vs plain on one recorded call, one plane of it."""
+    def filter_case(label, call, time_it=False, planes=1):
+        """Kernel vs plain on one recorded call, its first `planes` planes
+        (None: all of them, as one launch)."""
         nonlocal wf_err
         kind, lay, src, props, scal = call
-        src, props, scal = src[:1], props[:1], scal[:1]
+        src, props, scal = src[:planes], props[:planes], scal[:planes]
         got = src.clone()
         wf(kind, lay, got, props, scal)
         torch.cuda.synchronize()
@@ -306,7 +323,8 @@ def main():
         err = int((got.long() - want.long()).abs().max())
         wf_err = max(wf_err, err)
         rec = dict(case=label, kind=kind, plane=[lay.pw, lay.ph],
-                   tile=[lay.tw, lay.th], diagonals=lay.nd, lanes=lay.L,
+                   planes=src.shape[0], tile=[lay.tw, lay.th],
+                   diagonals=lay.nd, lanes=lay.L,
                    changed_px=int((got != src).sum()), max_abs_err=err)
         plan = filters.wavefront_plan(lay, max_smem=_kernels.max_smem())
         rec.update(cluster=plan.C, smem=plan.smem, threads=plan.threads)
@@ -323,7 +341,7 @@ def main():
             # test) as a floor of the work
             rec["bound_ms"], rec["bound_by"] = bound(
                 8 * src.numel() + 4 * props.numel(),
-                3 * lay.ntx * lay.nty * lay.wh * lay.ww)
+                3 * src.shape[0] * lay.ntx * lay.nty * lay.wh * lay.ww)
         wf_cases.append(rec)
         assert err == 0, rec
         return rec
@@ -1042,8 +1060,9 @@ def main():
     # synthetic CIF clip cut into 8 streams of 48 frames at -qp=60 -gop=48
     # through cli.make_encoder + dynbatch.encode_streams_lockstep(width=8),
     # hme_backend="gang"; every lane against its golden digest, then
-    # groups=2 x width 4, then kernels 4/5 ("pallas") on the first
-    # LS_PALLAS_FRAMES frames of each lane.
+    # groups=2 x width 4 on the first LS_GROUPS_FRAMES frames of each lane
+    # (its bytes a prefix of each lane's), then kernels 4/5 ("pallas") on
+    # the first LS_PALLAS_FRAMES frames of each lane.
     name, qp, gop, nlanes, per = golden.LOCKSTEP
     ls_frames, ls_meta = cli.read_y4m(golden.input_path(name))
     streams = [golden.lane_frames(ls_frames, i) for i in range(nlanes)]
@@ -1060,6 +1079,54 @@ def main():
             ls_levels.add(cfg.pyramid_levels)
             return fn(lanes)
         return f
+
+    # the lane-batched chain steps (devsteps.lanewise), counted: each
+    # flush's key, lanes, and the vk and filter launches it made
+    lane_keys = {devsteps.make_input_prep: "input_prep",
+                 devsteps.make_i_chain_step: "i_chain",
+                 devsteps.make_p_chain_step: "p_chain",
+                 devsteps.make_id_chain_step: "id_chain",
+                 devsteps.make_pd_chain_step: "pd_chain"}
+    lanewise = devsteps.lanewise
+    in_flush = [None]
+
+    @contextlib.contextmanager
+    def counting_flushes():
+        flushes = []
+
+        def counted(make_step):
+            builder = lanewise(make_step)
+            key = lane_keys.get(make_step, make_step.__name__)
+
+            def build(cfg):
+                fn = builder(cfg)
+
+                def run(lanes):
+                    vk0, wf0 = vk_fn.launches, dict(wf.launches)
+                    in_flush[0] = key
+                    try:
+                        out = fn(lanes)
+                    finally:
+                        in_flush[0] = None
+                    flushes.append(dict(
+                        key=key, lanes=len(lanes), vk=vk_fn.launches - vk0,
+                        filters={k: wf.launches[k] - wf0[k] for k in wf0
+                                 if wf.launches[k] != wf0[k]}))
+                    return out
+                return run
+            return build
+        devsteps.lanewise = counted
+        try:
+            yield flushes
+        finally:
+            devsteps.lanewise = lanewise
+
+    def by_key(flushes):
+        """{key: flushes} and {key: lanes} of a counted run."""
+        keys = sorted({f["key"] for f in flushes})
+        return ({k: sum(f["key"] == k for f in flushes) for k in keys},
+                {k: sum(f["lanes"] for f in flushes if f["key"] == k)
+                 for k in keys})
 
     def lockstep(strs, backend, **kw):
         def factory():
@@ -1086,18 +1153,46 @@ def main():
                          *luma_of_frame1(lane_calls), time_it=True))
     del lane_calls, lenc
     emit("vk_b1", kernel="vk_chain", cases=vk_b1)
-    warm_s, _ = lockstep([st[:LS_WARM_FRAMES] for st in streams], "gang",
-                         width=nlanes)
+    # the warm run (an I and a P frame per lane) records the kernel calls
+    # of its p_chain flush: the vk chains of 8 lanes per plane, the luma
+    # planes and the U+V planes of 8 lanes
+    flush_calls = {"vk": [], "wf": []}
+
+    def rec_vk(thr, s0, nnz, stats=None):
+        if in_flush[0] == "p_chain":
+            flush_calls["vk"].append((thr.clone(), s0.clone(), nnz.clone()))
+        return vk_fn(thr, s0, nnz, stats)
+
+    def rec_wf(kind, lay, plane_, props, scal):
+        if in_flush[0] == "p_chain":
+            flush_calls["wf"].append((kind, lay, plane_.clone(),
+                                      props.clone(), scal.clone()))
+        return wf(kind, lay, plane_, props, scal)
+    scan_pl.vk_chain, filters.wavefront_filter = rec_vk, rec_wf
+    try:
+        with counting_flushes():
+            warm_s, _ = lockstep([st[:LS_WARM_FRAMES] for st in streams],
+                                 "gang", width=nlanes)
+    finally:
+        scan_pl.vk_chain, filters.wavefront_filter = vk_fn, wf
     trace.enable(True)
     trace.reset()
     reset_counts()
     hme_gang.make_motion_est = counting_gang
     try:
-        dt, out = lockstep(streams, "gang", width=nlanes)
+        with counting_flushes() as ls_flushes:
+            dt, out = lockstep(streams, "gang", width=nlanes)
     finally:
         hme_gang.make_motion_est = make_gang
     stages = trace.totals()
     trace.enable(False)
+    # kernel 1: 3 launches (a plane each) per chain flush; kernel 2: one
+    # per intra flush, two (luma; U+V) per P flush; none elsewhere
+    want_per_flush = {"input_prep": (0, {}), "i_chain": (3, {"intra": 1}),
+                      "p_chain": (3, {"luma": 1, "chroma": 1})}
+    for f in ls_flushes:
+        assert (f["vk"], f["filters"]) == want_per_flush[f["key"]], f
+    ls_flush_count, ls_flush_lanes = by_key(ls_flushes)
     ls_launches = {k: hme_gpu.launches[k]
                    for k in ("hme_gang_level", "hme_gang_level0")}
     ls_filter_launches = dict(wf.launches)
@@ -1119,11 +1214,68 @@ def main():
          sha256=[d["sha256"] for d in digests], hme_flushes=nflush,
          lanes_per_flush=sorted(set(flush_lanes)), hme_launches=ls_launches,
          hme_launches_expected=expect, filter_launches=ls_filter_launches,
-         vk_chain_launches=ls_vk_launches, stage_seconds=stages)
-    dt2, out2 = lockstep(streams, "gang", width=nlanes // 2, groups=2)
-    assert out2 == out, "groups=2 bytes differ"
+         vk_chain_launches=ls_vk_launches, flushes=ls_flush_count,
+         lanes_by_key=ls_flush_lanes,
+         launches_per_flush={k: dict(vk=v[0], filters=v[1])
+                             for k, v in want_per_flush.items()},
+         dispatch_seconds={k[len("lockstep.dispatch."):]: v
+                           for k, v in stages.items()
+                           if k.startswith("lockstep.dispatch.")},
+         run_seconds={k[len("lockstep.run."):]: v for k, v in stages.items()
+                      if k.startswith("lockstep.run.")},
+         stage_seconds=stages)
+
+    # 12a. the kernels of one p_chain flush at its shapes against their
+    # plain versions: kernel 1 on the luma, U and V chains of the 8 lanes
+    # (B = 8), kernel 2 on the 8 luma planes and the 16 U+V planes (each
+    # lane's q); timed with CUDA events, the first lane alone beside them
+    assert len(flush_calls["vk"]) == 3 and [
+        c[0] for c in flush_calls["wf"]] == ["luma", "chroma"], flush_calls
+    vk_batched = [compare("cif_p_flush_%s_b%d" % (pl, nlanes), *call,
+                          time_it=True)
+                  for pl, call in zip(("luma", "u", "v"), flush_calls["vk"])]
+    vk_batched_b1 = compare("cif_p_flush_luma_b1", *(
+        a[:, :1].contiguous() if a.dim() == 2 else a[:1]
+        for a in flush_calls["vk"][0]), time_it=True)
+    wf_batched, wf_batched_b1 = [], []
+    for call in flush_calls["wf"]:
+        n = call[2].shape[0]
+        assert n == nlanes * (2 if call[0] == "chroma" else 1), n
+        wf_batched.append(filter_case("cif_p_flush_%s_x%d" % (call[0], n),
+                                      call, time_it=True, planes=None))
+        wf_batched[-1]["distinct_scalar_rows"] = len(
+            set(map(tuple, call[4].tolist())))
+        wf_batched_b1.append(filter_case("cif_p_flush_%s_x1" % call[0],
+                                         call, time_it=True))
+    assert wf_batched[1]["distinct_scalar_rows"] > 1, wf_batched[1]
+    # at one -qp most lanes share their q: the same U+V planes again with
+    # a q of their own per lane (U and V of a lane share it), the
+    # per-plane scalar mix of a rate-controlled flush
+    kind, lay, uv, props, scal = flush_calls["wf"][1]
+    scal = scal.clone()
+    scal[:, 0] = torch.tensor(LANE_QS[:nlanes], dtype=scal.dtype,
+                              device=scal.device).repeat_interleave(2)
+    wf_batched.append(filter_case(
+        "cif_p_flush_chroma_x%d_q%d" % (uv.shape[0], nlanes),
+        (kind, lay, uv, props, scal), time_it=True, planes=None))
+    wf_batched[-1]["distinct_scalar_rows"] = len(set(map(tuple,
+                                                         scal.tolist())))
+    assert wf_batched[-1]["distinct_scalar_rows"] == nlanes, wf_batched[-1]
+    emit("batched_kernels", lanes=nlanes,
+         max_abs_err=max(r["max_abs_err"] for r in
+                         vk_batched + [vk_batched_b1] + wf_batched
+                         + wf_batched_b1),
+         vk_chain=vk_batched + [vk_batched_b1],
+         wavefront_filter=wf_batched + wf_batched_b1)
+    del flush_calls
+    dt2, out2 = lockstep([st[:LS_GROUPS_FRAMES] for st in streams], "gang",
+                         width=nlanes // 2, groups=2)
+    for o2, o in zip(out2, out):
+        assert o.startswith(o2), "groups=2 bytes differ"
     emit("lockstep_p_encode_groups2", lanes=nlanes, groups=2,
-         width=nlanes // 2, fps=nlanes * per / dt2, seconds=dt2, equal=True)
+         width=nlanes // 2, frames_per_lane=LS_GROUPS_FRAMES,
+         fps=nlanes * LS_GROUPS_FRAMES / dt2, seconds=dt2,
+         equal_to_gang_prefix=True)
     n0 = hme_gpu.launches["hme_level0"]
     dt3, out3 = lockstep([st[:LS_PALLAS_FRAMES] for st in streams], "pallas",
                          width=nlanes)
@@ -1151,7 +1303,160 @@ def main():
     emit("lockstep_p_encode_narrow", lanes=nlanes, width=width,
          frames_per_lane=nfr, fps=nlanes * nfr / dt4, seconds=dt4,
          lanes_per_launch=sorted(set(flush_lanes)), equal_to_gang_prefix=True)
-    del streams, out, out2, out3, out4
+    del out2, out3, out4
+
+    # 12c. main path, lockstep decode (CIF): the 8 lanes' streams just
+    # held to their goldens, concatenated with one end-of-stream packet (8
+    # closed GOPs, 384 frames), through gop.decode_gops_parallel(width=8)
+    # after a warm run; every frame against the port's sequential decode
+    # of the same stream, each lane's y4m against dsv2_tpu's decode of
+    # that lane
+    ls_stream = b"".join(out) + encode_eos()
+
+    def frames_y4m(frames_, m):
+        buf = io.BytesIO()
+        wr = y4m.Y4MWriter(buf, m.width, m.height, m.subsamp,
+                           (m.fps_num, m.fps_den), (m.aspect_num,
+                                                    m.aspect_den))
+        for fr in frames_:
+            wr.write_frame([fr.view(c) for c in range(3)])
+        return buf.getvalue()
+
+    def lockstep_decode(stream, width, label, nfr):
+        """Warm and timed runs of decode_gops_parallel (counts set to 0 just
+        before the timed one), held frame by frame to the sequential
+        decode; returns (phase record, frames)."""
+        seq = [f for _, _, f in decoder.decode_stream_chunked(
+            io.BytesIO(stream), decoder=decoder.Decoder(device=dev))]
+        host_ms(lambda: pgop.decode_gops_parallel(io.BytesIO(stream),
+                                                  width=width, device=dev))
+        trace.enable(True)
+        trace.reset()
+        reset_counts()
+        with counting_flushes() as fl:
+            dt_ms, got = host_ms(lambda: pgop.decode_gops_parallel(
+                io.BytesIO(stream), width=width, device=dev))
+        st = trace.totals()
+        trace.enable(False)
+        assert len(got) == len(seq) == nfr, (label, len(got), len(seq))
+        assert all(g.tobytes() == q.tobytes() for g, q in zip(got, seq)), \
+            (label, "lockstep decode differs from the sequential decode")
+        for f in fl:
+            want_f = (0, {"intra": 1} if f["key"] == "id_chain"
+                      else {"luma": 1, "chroma": 1})
+            assert (f["vk"], f["filters"]) == want_f, f
+        launches = dict(wf.launches)
+        assert vk_fn.launches == 0 and sum(launches.values()) == sum(
+            sum(f["filters"].values()) for f in fl)
+        count, lanes = by_key(fl)
+        return dict(stream=label, gops=len(pgop.split_gop_packets(
+            io.BytesIO(stream))), width=width, frames=nfr,
+            fps=nfr / (dt_ms / 1e3), seconds=dt_ms / 1e3, flushes=count,
+            lanes_by_key=lanes, filter_launches=launches,
+            filter_launches_per_flush={"id_chain": {"intra": 1},
+                                       "pd_chain": {"luma": 1, "chroma": 1}},
+            parse_seconds=st.get("decode.parse"),
+            dispatch_seconds={k[len("lockstep.dispatch."):]: v
+                              for k, v in st.items()
+                              if k.startswith("lockstep.dispatch.")},
+            stage_seconds=st), got
+
+    lsd_rec, lsd_frames = lockstep_decode(ls_stream, nlanes,
+                                          "cif_lockstep_x8", nlanes * per)
+    for i in range(nlanes):
+        yl = frames_y4m(lsd_frames[i * per:(i + 1) * per], ls_meta)
+        assert golden.digest(yl) == want_ls[i]["decode"], ("lane decode", i)
+    lsd_y4m = frames_y4m(lsd_frames, ls_meta)
+    emit("lockstep_decode", golden=True, **lsd_rec)
+    del lsd_frames
+
+    # 12d. lockstep decode at full width: the 32 synthetic FHD frames at
+    # -qp=60 -gop=8 (4 closed GOPs) encoded by the port on the card, its
+    # first GOP against the committed FHD P stream, decoded with
+    # decode_gops_parallel(width=4) against its sequential decode
+    fframes, fmeta = cli.read_y4m(golden.input_path(golden.FHD))
+    fgop = P_GOP
+    fenc_ms, fstream = host_ms(lambda: golden.encode(
+        cli, fframes, fmeta, QP, gop=fgop, device=dev))
+    del fframes
+    first = pgop.split_gop_packets(io.BytesIO(fstream))
+    committed = pgop.split_gop_packets(io.BytesIO(golden.read_stream(pkey)))
+    assert len(committed) == 1 and first[0] == committed[0], \
+        "the FHD stream's first GOP differs from the committed stream"
+    fhd_rec, _ = lockstep_decode(fstream, len(first), "fhd_qp60_gop8_x4",
+                                 len(first) * fgop)
+    emit("lockstep_decode_fhd", encode_seconds=fenc_ms / 1e3,
+         first_gop_equal_committed=True, **fhd_rec)
+    del fstream, first
+
+    # 12e. the tools, in subprocesses through their entry points (each
+    # prints its kernels' launch counts after its own output):
+    # parallel_encode --lockstep of the CIF clip (the lockstep cell's 8
+    # GOPs) to the 8 lanes' bytes plus EOS, parallel_decode of that stream
+    # to the sequential decode's y4m; then encode_gops_parallel (4
+    # workers) of the first 2 GOPs to lanes 0 and 1 plus EOS
+    tool_dir = os.path.join(REPO, "build", "torch_smoke")
+    os.makedirs(tool_dir, exist_ok=True)
+    tenv = dict(os.environ, DSV2_TORCH_DEVICE=dev.type)
+    counter = "\n".join([
+        "import json, runpy, sys",
+        "sys.argv = sys.argv[1:]",
+        "from dsv2_tpu_torch.ops import filters, scan_pl",
+        "try:",
+        "    runpy.run_module(sys.argv[0], run_name='__main__',",
+        "                     alter_sys=True)",
+        "except SystemExit as e:",
+        "    assert not e.code, e.code",
+        "print(json.dumps({'vk_chain': scan_pl.vk_chain.launches,",
+        "                  'wavefront_filter':",
+        "                  dict(filters.wavefront_filter.launches)}))"])
+
+    def tool(module, *args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", counter, module]
+                             + list(args), cwd=REPO, capture_output=True,
+                             text=True, env=tenv, timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        return (time.perf_counter() - t0,
+                json.loads(res.stdout.strip().splitlines()[-1]))
+
+    tenc = os.path.join(tool_dir, "parallel_lockstep.dsv")
+    tdec = os.path.join(tool_dir, "parallel_lockstep.y4m")
+    enc_s, enc_counts = tool("dsv2_tpu_torch.tools.parallel_encode",
+                             golden.input_path(name), tenc, str(nlanes),
+                             "--lockstep", "-qp=%d" % qp, "-gop=%d" % gop)
+    with open(tenc, "rb") as f:
+        assert f.read() == ls_stream, "parallel_encode --lockstep differs"
+    dec_s, dec_counts = tool("dsv2_tpu_torch.tools.parallel_decode", tenc,
+                             tdec, str(nlanes))
+    with open(tdec, "rb") as f:
+        assert f.read() == lsd_y4m, "parallel_decode y4m differs"
+    del lsd_y4m
+    reset_counts()
+
+    def gops_factory():
+        return cli.make_encoder(ls_meta, cli.default_enc_opts(qp=qp,
+                                                              gop=gop),
+                                device=dev)
+    gp_ms, gp = host_ms(lambda: pgop.encode_gops_parallel(
+        streams[0] + streams[1], ls_meta, gop, gops_factory, workers=4))
+    assert gp == out[0] + out[1] + encode_eos(), "encode_gops_parallel"
+    tools_vk = enc_counts["vk_chain"] + vk_fn.launches
+    tools_wf = (sum(enc_counts["wavefront_filter"].values())
+                + sum(dec_counts["wavefront_filter"].values())
+                + sum(wf.launches.values()))
+    assert enc_counts["vk_chain"] > 0 and vk_fn.launches > 0
+    assert all(dec_counts["wavefront_filter"].values()), dec_counts
+    emit("tools_parallel", equal=True,
+         parallel_encode=dict(lanes=nlanes, frames=nlanes * per,
+                              seconds=enc_s, launches=enc_counts),
+         parallel_decode=dict(width=nlanes, frames=nlanes * per,
+                              seconds=dec_s, launches=dec_counts),
+         encode_gops_parallel=dict(workers=4, frames=2 * per,
+                                   seconds=gp_ms / 1e3,
+                                   vk_chain_launches=vk_fn.launches,
+                                   filter_launches=dict(wf.launches)))
+    del streams, out, ls_stream, gp
 
     # 13. the gang cost probe (kernel 8): its tool's run, each probe
     # against its plain version, the times and the block/gang parity
@@ -1193,7 +1498,8 @@ def main():
                 "lockstep_p_encode": ls_vk_launches,
                 "decode_arena": arena_vk,
                 "encode_host_hme": hvk[hbackend],
-                "encode_wave": hvk["wave"]}
+                "encode_wave": hvk["wave"], "lockstep_decode": 0,
+                "lockstep_decode_fhd": 0, "tools_parallel": tools_vk}
     wmain = timed_wf[("intra", meta.width)]
     wf_paths = {"decode": dec_launches,
                 "p_encode": sum(p_filter_launches.values()),
@@ -1203,7 +1509,11 @@ def main():
                 "encode_host_hme": sum(host_recs[hbackend][
                     "filter_launches"].values()),
                 "encode_wave": sum(host_recs["wave"][
-                    "filter_launches"].values())}
+                    "filter_launches"].values()),
+                "lockstep_decode": sum(lsd_rec["filter_launches"].values()),
+                "lockstep_decode_fhd": sum(fhd_rec[
+                    "filter_launches"].values()),
+                "tools_parallel": tools_wf}
     hme_paths = {name: {"p_encode": hme_launches[name],
                         "decode_arena": arena_hme[name],
                         "encode_host_hme": host_recs[hbackend][
@@ -1221,7 +1531,13 @@ def main():
          "bound_ms": luma["bound_ms"], "bound_by": luma["bound_by"],
          "library_ms": None, "met_at_start": luma["met_at_start"],
          "ms_b1": {r["case"]: r["ms"] for r in vk_b1},
-         "bound_ms_b1": {r["case"]: r["bound_ms"] for r in vk_b1}},
+         "bound_ms_b1": {r["case"]: r["bound_ms"] for r in vk_b1},
+         "ms_batched": {r["case"]: r["ms"]
+                        for r in vk_batched + [vk_batched_b1]},
+         "plain_ms_batched": {r["case"]: r["plain_ms"]
+                              for r in vk_batched + [vk_batched_b1]},
+         "bound_ms_batched": {r["case"]: r["bound_ms"]
+                              for r in vk_batched + [vk_batched_b1]}},
         {"name": "wavefront_filter", "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/wavefront_filter.cu",
          "replaces": "dsv2_tpu/ops/filters_pl.py:273",
@@ -1230,7 +1546,13 @@ def main():
          "launches_by_path": wf_paths, "max_abs_err": wf_err,
          "ms": wmain["ms"], "plain_ms": wmain["plain_ms"],
          "bound_ms": wmain["bound_ms"], "bound_by": wmain["bound_by"],
-         "library_ms": None}] + [
+         "library_ms": None,
+         "ms_batched": {r["case"]: r["ms"]
+                        for r in wf_batched + wf_batched_b1},
+         "plain_ms_batched": {r["case"]: r["plain_ms"]
+                              for r in wf_batched + wf_batched_b1},
+         "bound_ms_batched": {r["case"]: r["bound_ms"]
+                              for r in wf_batched + wf_batched_b1}}] + [
         {"name": name, "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/hme_search.cu",
          "replaces": "dsv2_tpu/ops/hme_pallas.py:%d" % line,

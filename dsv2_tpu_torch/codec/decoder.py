@@ -18,7 +18,13 @@ zeroed before the filter; at a degenerate geometry (`_needs_arena`) the
 one-frame steps thread the arena, the reference's shared transform
 scratch (3 * width int32, allocated at the first metadata packet that
 needs it, kept for the rest of the stream); scans the compact upload
-cannot carry go up dense. Such pictures take the one-frame steps.
+cannot carry go up dense. Such pictures decode one at a time.
+
+A picture decoded alone runs its lane-batched chain step
+(devsteps.make_{id,pd}_chain_lanes) as a flush of one lane. Under
+lockstep (parallel/gop.decode_gops_parallel) `dev_submit` is the
+batcher's submit: the pictures of every lane that share a key run as
+one flush of that step.
 """
 import numpy as np
 import torch
@@ -112,6 +118,12 @@ def _mv_grids(mf):
             for a in ("x", "y", "flags", "submask", "dc")]
 
 
+def _submit_one(key, builder, args):
+    """Decoder.dev_submit without a batcher: the step as a flush of one
+    lane."""
+    return builder(key[1])([args])[0]
+
+
 class Decoder:
     def __init__(self, draw_info=0, device=None):
         self.meta = None
@@ -121,6 +133,7 @@ class Decoder:
             else default_device()
         self._use_arena = False
         self._arena = None        # the reference's flat scratch, (3*w,)
+        self.dev_submit = None    # lockstep batcher hook
 
     def _up(self, a):
         """Host array (or a tuple of them) -> tensor(s) on the device."""
@@ -260,29 +273,36 @@ class Decoder:
         """Device-resident decode of one picture: dequant + inverse SBT +
         MC + in-loop filters + border extension; the reference planes
         never leave the device, only the visible output is fetched (in
-        realize)."""
+        realize). The picture's host arrays and its step go under
+        ("pd_chain" | "id_chain", cfg), the scan form, the corrupt planes
+        and the arena flag part of cfg, to `dev_submit` (the lockstep
+        batcher, whose flush stacks and uploads them once per field) or,
+        without one, to a flush of this one lane. A clean picture runs the
+        lane-batched step; an arena decoder's lanes run the one-frame
+        step one after another, each on its own arena."""
         from . import devsteps
         meta = self.meta
         fq, fthresh = _filter_scalars(job)
+        bad = tuple(job["bad_planes"])
+        arena = self._arena if self._use_arena else None
         cfg = (meta.width, meta.height, meta.subsamp, job["blk_w"],
                job["blk_h"], job["lossless"])
-        up = self._up
-        args = (up(tuple(job["cvs"])), up(job["bd_grid"]),
-                up(np.int32(job["quant"])), up(np.asarray(job["lls"],
-                                                          np.int32)))
-        scal = (up(np.int32(fq)), up(np.int32(fthresh)),
-                up(np.int32(job["do_filter"])), tuple(job["bad_planes"]),
-                self._arena if self._use_arena else None)
+        flags = (job["dense"], bad, arena is not None, self.device)
+        args = (tuple(job["cvs"]), job["bd_grid"], np.int32(job["quant"]),
+                np.asarray(job["lls"], np.int32))
         if job["has_ref"]:
-            mv = tuple(up(g) for g in _mv_grids(job["mf"]))
-            tmc = up(np.int32(K.temporal_mc(job["fno"])))
-            step = devsteps.make_pd_chain_step(*cfg, meta.inter_sharpen,
-                                               job["dense"])
-            packed, chain = step(*args, tuple(self.ref_dev["recon"]), *mv,
-                                 tmc, *scal)
+            key = ("pd_chain", cfg + (meta.inter_sharpen,) + flags)
+            make = devsteps.make_pd_chain_step
+            args += ((tuple(self.ref_dev["recon"]),)
+                     + tuple(_mv_grids(job["mf"]))
+                     + (K.temporal_mc(job["fno"]),))
         else:
-            packed, chain = devsteps.make_id_chain_step(
-                *cfg, job["dense"])(*args, *scal)
+            key = ("id_chain", cfg + flags)
+            make = devsteps.make_id_chain_step
+        submit = self.dev_submit or _submit_one
+        packed, chain = submit(key, devsteps.lanewise(make),
+                               args + (fq, fthresh, job["do_filter"], bad,
+                                       arena))
         if job["is_ref"]:
             self.ref_dev = chain
 

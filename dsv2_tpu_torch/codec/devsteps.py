@@ -16,10 +16,13 @@ prep (`make_input_prep`: bordered planes + motion search pyramid) and
 the chain steps (`make_i_chain_step`, `make_p_chain_step`): the
 reconstruction goes through the in-loop filters, border extension and
 the pyramid without leaving the device. Under lockstep
-(parallel/dynbatch) `lanewise` makes each of them a builder that runs
-the lanes of a flush one after another; each lane then fetches its own
-outputs (`fetch_sparse_outs`: the twin's merged per-flush fetch exists
-for a TPU link's per-transfer cost and is not ported).
+(parallel/dynbatch) `lanewise` gives each of them, and the decode chain
+steps below, its lane-batched form (`make_*_lanes`: the lanes of a
+flush stacked on a leading dimension, one vk launch per plane and one
+filter launch per filter kind for all of them, as the twin's vmap);
+each lane then fetches its own part (`fetch_sparse_outs` of its
+LaneOut: the twin's merged per-flush fetch exists for a TPU link's
+per-transfer cost and is not ported).
 
 Decode (device chain): dequantize -> inverse SBT -> (P) motion
 compensation and reconstruction -> in-loop filters -> border extension
@@ -37,6 +40,7 @@ decoder's arena: the reference's shared transform scratch, threaded from
 plane to plane and frame to frame (`_arena_apply`).
 """
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -129,6 +133,34 @@ def make_i_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
     return step
 
 
+def _p_encode(pcfg, srcs, refs, mvx, mvy, flags, submask, dc, bd, eprm_m,
+              mlt_m, q, tmc):
+    """The P encode chain over leading (lane) dimensions: per plane the MC
+    prediction, residual, forward SBT, quantize, in-loop inverse and
+    reconstruction. srcs (..., gh, gw) uint8 canvases, refs the bordered
+    reference planes, the maps (..., nbv, nbh), q and tmc (...). Returns
+    (recons, lls, vs): the reconstructed canvases, the DC coefficients
+    (nfr,) and scans (nfr, total) with the leading dimensions flattened."""
+    recons, lls, vs = [], [], []
+    for c in range(3):
+        mcc = pcfg.mc_cfg(c)
+        cw, ch = pcfg.cdims[c]
+        pw, ph = pcfg.pdims[c]
+        pred = mc.make_predict(mcc)(refs[c], mvx, mvy, flags, submask, dc,
+                                    tmc)
+        res = mc.make_subtract(mcc)(srcs[c], pred, flags)
+        x = torch.zeros(res.shape[:-2] + (ch, cw), dtype=torch.int32,
+                        device=res.device)
+        x[..., :ph, :] = res[..., :ph, :cw].to(torch.int32) - 128
+        coefs, v, rpx = _code_plane(pcfg, c, x, bd, q, True, (eprm_m, mlt_m))
+        res2 = res.clone()
+        res2[..., :ph, :pw] = rpx[..., :ph, :pw]
+        recons.append(mc.make_reconstruct(mcc)(res2, pred, flags))
+        lls.append(coefs[..., 0, 0].reshape(-1))
+        vs.append(v.reshape(-1, v.shape[-1]))
+    return recons, lls, vs
+
+
 @functools.lru_cache(maxsize=None)
 def make_p_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy):
     """One P frame: step(srcs, refs, mvx, mvy, flags, submask, dc, bd,
@@ -144,23 +176,8 @@ def make_p_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy):
 
     def step(srcs, refs, mvx, mvy, flags, submask, dc, bd, eprm_m, mlt_m,
              q, tmc):
-        recons, lls, vs = [], [], []
-        for c in range(3):
-            mcc = pcfg.mc_cfg(c)
-            cw, ch = pcfg.cdims[c]
-            pw, ph = pcfg.pdims[c]
-            pred = mc.make_predict(mcc)(refs[c], mvx, mvy, flags, submask,
-                                        dc, tmc)
-            res = mc.make_subtract(mcc)(srcs[c], pred, flags)
-            x = torch.zeros((ch, cw), dtype=torch.int32, device=res.device)
-            x[:ph, :] = res[:ph, :cw].to(torch.int32) - 128
-            coefs, v, rpx = _code_plane(pcfg, c, x, bd, q, True,
-                                        (eprm_m, mlt_m))
-            res2 = res.clone()
-            res2[:ph, :pw] = rpx[:ph, :pw]
-            recons.append(mc.make_reconstruct(mcc)(res2, pred, flags))
-            lls.append(coefs[0, 0][None])
-            vs.append(v[None])
+        recons, lls, vs = _p_encode(pcfg, srcs, refs, mvx, mvy, flags,
+                                    submask, dc, bd, eprm_m, mlt_m, q, tmc)
         buf, smalls = _finish_blob(lls, vs, pcfg)
         return recons, buf, smalls, vs
 
@@ -222,12 +239,27 @@ def make_i_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
 
 def _chroma_filters(pcfg, vis, mvx, mvy, flags, q):
     """The inter chroma filter of U and V in one launch: both planes share
-    the geometry, the motion field and q."""
+    the geometry, the motion field and q; with leading (lane) dimensions,
+    the U and V of every lane, (L, 2, ph, pw), in that one launch."""
     mcc = pcfg.mc_cfg(1)
     uv = filters.chroma_filter_graph(
         pcfg.pdims[1][0], pcfg.pdims[1][1], pcfg.nbh, pcfg.nbv, mcc.bw,
-        mcc.bh, torch.stack([vis[1], vis[2]]), mvx, mvy, flags, q)
-    return uv[0], uv[1]
+        mcc.bh, torch.stack([vis[1], vis[2]], dim=-3), mvx, mvy, flags, q)
+    return uv[..., 0, :, :], uv[..., 1, :, :]
+
+
+def _p_filters(pcfg, inter_sharpen, vis, mvx, mvy, flags, submask, q, tmc,
+               fq, fthresh, do_filter):
+    """The in-loop filters of a P picture, in place on the visible planes
+    vis (..., ph, pw): one luma launch, one chroma launch (U and V)."""
+    if pcfg.lossless:
+        return vis
+    vis[0] = filters.luma_filter_graph(
+        pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv, pcfg.blk_w,
+        pcfg.blk_h, inter_sharpen, vis[0], mvx, mvy, flags, submask, fq,
+        fthresh, do_filter, tmc)
+    vis[1], vis[2] = _chroma_filters(pcfg, vis, mvx, mvy, flags, q)
+    return vis
 
 
 @functools.lru_cache(maxsize=None)
@@ -253,48 +285,152 @@ def make_p_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
             srcs.append(srcs_full[c][B:B + mcc.gh, B:B + mcc.gw])
         recons, buf, smalls, vs = base(srcs, refs, mvx, mvy, flags, submask,
                                        dc, bd, eprm_m, mlt_m, q, tmc)
-        vis = _visible(pcfg, recons)
-        if not lossless:
-            vis[0] = filters.luma_filter_graph(
-                pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv,
-                blk_w, blk_h, inter_sharpen, vis[0], mvx, mvy, flags,
-                submask, fq, fthresh, do_filter, tmc)
-            vis[1], vis[2] = _chroma_filters(pcfg, vis, mvx, mvy, flags, q)
+        vis = _p_filters(pcfg, inter_sharpen, _visible(pcfg, recons), mvx,
+                         mvy, flags, submask, q, tmc, fq, fthresh, do_filter)
         return buf, smalls, vs, _chain_outputs(pcfg, levels, vis)
 
     return step
 
 
+class LaneOut(NamedTuple):
+    """One lane's output of a lane-batched encode chain step, read like the
+    one-frame step's (buf, smalls, vs, chain): the flush's merged blob and
+    metadata (the _finish_blob layout with one frame per lane), this
+    lane's scans (1, total) per plane and device reference chain, and the
+    lane's index, which fetch_sparse_outs reads its part of the blob by."""
+    buf: torch.Tensor
+    smalls: torch.Tensor
+    vs: list
+    chain: dict
+    lane: int
+
+
+def _lane_views(out, i):
+    """Lane i of a dict of per-plane lists of (L, ...) tensors."""
+    return {k: [t[i] for t in v] for k, v in out.items()}
+
+
+def _upload_ints(rows, device):
+    """Per-lane Python (or numpy) ints, rows[k][i] for field k and lane i,
+    as one int32 (nfields, L) tensor: one upload per flush."""
+    return xfer.upload(np.asarray(rows, dtype=np.int32), device)
+
+
+def _encode_lanes(buf, smalls, vs, chain, nlanes):
+    return [LaneOut(buf, smalls, [v[i:i + 1] for v in vs],
+                    _lane_views(chain, i), i) for i in range(nlanes)]
+
+
+@functools.lru_cache(maxsize=None)
+def make_input_prep_lanes(w, h, subsamp, levels):
+    """make_input_prep over the lanes of a flush: fn(lanes) -> one output
+    per lane (views of the flush's (L, ...) planes)."""
+    prep = make_input_prep(w, h, subsamp, levels)
+
+    def run(lanes):
+        out = prep(*(torch.stack(v) for v in zip(*lanes)))
+        return [_lane_views(out, i) for i in range(len(lanes))]
+
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def make_i_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
+                       levels):
+    """make_i_chain_step over the lanes of a flush: lanes are its argument
+    tuples (xs, bd, q, fq, fthresh, do_filter); one blob (one vk launch
+    per plane) and one intra filter launch for every lane. Returns a
+    LaneOut per lane."""
+    pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
+                 blk_w, blk_h, False, lossless, do_psy)
+
+    def run(lanes):
+        xs, bd, q, fq, fthresh, do_filter = zip(*lanes)
+        xs = [torch.cat([x[c] for x in xs]) for c in range(3)]
+        bd, q = torch.cat(bd), torch.cat(q)
+        lls, vs, recons = encode_planes(pcfg, xs, bd, q, True)
+        buf, smalls = _finish_blob(lls, vs, pcfg)
+        vis = _visible(pcfg, recons)
+        if not lossless:
+            sc = _upload_ints((fq, fthresh, do_filter), bd.device)
+            vis[0] = filters.intra_filter_graph(
+                pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv,
+                vis[0], bd, sc[0], sc[1] * sc[2])
+        return _encode_lanes(buf, smalls, vs,
+                             _chain_outputs(pcfg, levels, vis), len(lanes))
+
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def make_p_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
+                       levels, inter_sharpen):
+    """make_p_chain_step over the lanes of a flush: lanes are its argument
+    tuples; the P encode chain runs over (L, ...) stacks of the lanes'
+    planes and maps, the blob is one vk launch per plane, the filters one
+    luma and one chroma (U and V of every lane) launch. Each lane's
+    reference is stacked from whatever flush made it. Returns a LaneOut
+    per lane."""
+    pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
+                 blk_w, blk_h, True, lossless, do_psy)
+    B = framedev.B
+
+    def run(lanes):
+        a = list(zip(*lanes))
+        srcs = [torch.stack([s[c][B:B + pcfg.mc_cfg(c).gh,
+                                  B:B + pcfg.mc_cfg(c).gw] for s in a[0]])
+                for c in range(3)]
+        refs = [torch.stack([r[c] for r in a[1]]) for c in range(3)]
+        mvx, mvy, flags, submask, dc, bd, eprm_m, mlt_m, q = (
+            torch.stack(a[k]) for k in range(2, 11))
+        tmc, fq, fthresh, do_filter = _upload_ints(a[11:15], q.device)
+        recons, lls, vs = _p_encode(pcfg, srcs, refs, mvx, mvy, flags,
+                                    submask, dc, bd, eprm_m, mlt_m, q, tmc)
+        buf, smalls = _finish_blob(lls, vs, pcfg)
+        vis = _p_filters(pcfg, inter_sharpen, _visible(pcfg, recons), mvx,
+                         mvy, flags, submask, q, tmc, fq, fthresh, do_filter)
+        return _encode_lanes(buf, smalls, vs,
+                             _chain_outputs(pcfg, levels, vis), len(lanes))
+
+    return run
+
+
 def lanewise(make_step):
-    """Lockstep builder of a one-frame step: builder(cfg) -> fn(lanes),
-    which runs make_step(*cfg) once per lane of the flush, one after
-    another on the same device and kernels, and returns the per-lane
-    outputs as a list. (The twin vmaps the step over the lanes; one
-    filter and one vk launch per flush for all lanes is a later step.)"""
-    def builder(cfg):
-        step = make_step(*cfg)
-        return lambda lanes: [step(*args) for args in lanes]
-    return builder
+    """The lockstep builder of a one-frame chain step (or the input prep):
+    builder(cfg) -> fn(lanes), `lanes` the queued argument tuples of
+    make_step(*cfg), returning one output per lane. It is the step's
+    lane-batched form (_LANES), run once for all lanes of the flush, as
+    the twin's vmap does; a step without one raises KeyError."""
+    batched = _LANES[make_step]
+    return lambda cfg: batched(*cfg)
 
 
 def fetch_sparse_outs(step_out):
-    """Host fetch of a one-frame step's outputs: the metadata, then one
-    copy of the occupied blob prefix. Returns (vscans, lls) per plane,
-    each vscan ("blob", bytes of the device blob) or, on the per-plane
-    contract fallback, ("dense", the int32 scan array)."""
+    """Host fetch of a one-frame step's outputs, or of one lane's
+    (LaneOut): the metadata, then the occupied blob bytes of the frame's
+    (lane's) planes. Returns (vscans, lls) per plane, each vscan ("blob",
+    bytes of the device blob) or, on the per-plane contract fallback,
+    ("dense", the int32 scan array)."""
     buf, smalls, vs = step_out[:3]
-    sm = smalls.cpu().numpy().reshape(3, 4)
-    useds = sm[:, 2].astype(np.int64)
-    offs = np.concatenate([[0], np.cumsum(useds)[:-1]])
-    packed = xfer.slice_packed(buf, int(useds.sum())).cpu().numpy()
+    lane = step_out[4] if len(step_out) > 4 else 0
+    sm = smalls.cpu().numpy().reshape(3, 4, -1)
+    useds = sm[:, 2, :].astype(np.int64)             # (plane, frame)
+    if useds.shape[1] == 1:   # one frame: the occupied prefix
+        offs = np.cumsum(useds[:, 0]) - useds[:, 0]
+        packed = xfer.slice_packed(buf, int(useds.sum()))
+    else:   # a lane of a flush: its three ranges, gathered on the device
+        offs = (np.cumsum(useds) - useds.reshape(-1)).reshape(useds.shape)
+        packed = torch.cat([buf[int(o):int(o + u)] for o, u in
+                            zip(offs[:, lane], useds[:, lane])])
+        offs = np.cumsum(useds[:, lane]) - useds[:, lane]
+    packed = packed.cpu().numpy()   # one copy
     vscans, lls = [], []
     for c in range(3):
-        _, ll, used, fb = (int(x) for x in sm[c])
+        _, ll, used, fb = (int(x) for x in sm[c, :, lane])
         if fb:
             vscans.append(("dense", vs[c][0].cpu().numpy()))
         else:
-            o = int(offs[c])
-            vscans.append(("blob", packed[o:o + used]))
+            vscans.append(("blob", packed[offs[c]:offs[c] + used]))
         lls.append(ll)
     return vscans, lls
 
@@ -366,8 +502,9 @@ def make_p_decode_step(w, h, subsamp, blk_w, blk_h, lossless):
     (ref: dsv_decoder.c:512-549). step(vs, bd, q, lls, refs, mvx, mvy,
     flags, submask, dc, tmc, bad=(), arena=None) -> per plane the
     reconstructed canvas uint8 (gh, gw); refs are the bordered reference
-    planes. A plane in `bad` reconstructs against an all-zero residual
-    (the reference skips its inverse transform); the arena as for
+    planes. Leading (lane) dimensions ride along (without an arena). A
+    plane in `bad` reconstructs against an all-zero residual (the
+    reference skips its inverse transform); the arena as for
     make_i_decode_step (P planes never read the stale scratch, inter
     chroma being Haar, but their inverses keep writing it, and later
     intra frames read what they left)."""
@@ -380,10 +517,10 @@ def make_p_decode_step(w, h, subsamp, blk_w, blk_h, lossless):
         for c in range(3):
             mcc = pcfg.mc_cfg(c)
             pw, ph = pcfg.pdims[c]
-            res = torch.zeros((mcc.gh, mcc.gw), dtype=torch.uint8,
-                              device=pxs[c].device)
+            res = torch.zeros(bd.shape[:-2] + (mcc.gh, mcc.gw),
+                              dtype=torch.uint8, device=pxs[c].device)
             if c not in bad:
-                res[:ph, :pw] = pxs[c][:ph, :pw]
+                res[..., :ph, :pw] = pxs[c][..., :ph, :pw]
             pred = mc.make_predict(mcc)(refs[c], mvx, mvy, flags, submask,
                                         dc, tmc)
             outs.append(mc.make_reconstruct(mcc)(res, pred, flags))
@@ -528,12 +665,8 @@ def make_pd_chain_step(w, h, subsamp, blk_w, blk_h, lossless,
         vis = _visible(pcfg, base(_expand_vs(vs, dense), bd, q, lls,
                                   refs, mvx, mvy, flags, submask, dc, tmc,
                                   bad, arena))
-        if not lossless:
-            vis[0] = filters.luma_filter_graph(
-                pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv,
-                blk_w, blk_h, inter_sharpen, vis[0], mvx, mvy, flags,
-                submask, fq, fthresh, do_filter, tmc)
-            vis[1], vis[2] = _chroma_filters(pcfg, vis, mvx, mvy, flags, q)
+        vis = _p_filters(pcfg, inter_sharpen, vis, mvx, mvy, flags, submask,
+                         q, tmc, fq, fthresh, do_filter)
         return _packed(vis), _chain(pcfg, vis)
 
     return step
@@ -580,3 +713,107 @@ def make_id_chain_multi(w, h, subsamp, blk_w, blk_h, lossless, dense):
                                    fq, fthresh, do_filter))
 
     return step
+
+
+def _stack_up(vals, device):
+    """Per-lane host arrays (or tuples of them: the compact scan form) ->
+    one array per field with a leading lane dimension, uploaded once."""
+    if isinstance(vals[0], tuple):
+        return tuple(_stack_up(v, device) for v in zip(*vals))
+    return xfer.upload(np.ascontiguousarray(np.stack(vals)), device)
+
+
+def _up_lane(args, device):
+    """One lane's host arguments on the device, as the one-frame steps
+    take them (ints and 0-d values become 0-d int32 tensors)."""
+    if isinstance(args, tuple):
+        return tuple(_up_lane(a, device) for a in args)
+    if isinstance(args, torch.Tensor) or args is None:
+        return args
+    return xfer.upload(np.ascontiguousarray(np.asarray(
+        args, np.int32 if isinstance(args, int) else None)), device)
+
+
+def _lanewise_decode(step, lanes, device):
+    """Lanes whose one-frame step cannot batch (each threads its own arena
+    in place): the step once per lane, host arguments uploaded per lane;
+    the last two arguments (bad, arena) pass as they are."""
+    return [step(*_up_lane(tuple(a[:-2]), device), *a[-2:]) for a in lanes]
+
+
+@functools.lru_cache(maxsize=None)
+def make_id_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless, dense, bad,
+                        arena, device):
+    """make_id_chain_step over the lanes of a flush. Lanes are its argument
+    tuples (vs, bd, q, lls, fq, fthresh, do_filter, bad, arena), host
+    arrays and ints standing in for tensors; the lanes share the scan
+    form (`dense`) and the corrupt planes (`bad`). The decode runs over
+    (L, ...) stacks uploaded once per field, one intra filter launch for
+    every lane. Returns (packed payload, {"recon": bordered planes}) per
+    lane, views of the flush's. With the arena (degenerate geometries)
+    the lanes run one after another, each on its own arena."""
+    pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, False, lossless)
+    dev = torch.device(device)
+    if arena:
+        step = make_id_chain_step(w, h, subsamp, blk_w, blk_h, lossless,
+                                  dense)
+        return lambda lanes: _lanewise_decode(step, lanes, dev)
+
+    def run(lanes):
+        vs, bd, q, lls, fq, fthresh, do_filter = list(zip(*lanes))[:7]
+        sc = _upload_ints((q, fq, fthresh, do_filter), dev)
+        vis = _id_visible(pcfg, lossless, dense, _stack_up(vs, dev),
+                          _stack_up(bd, dev), sc[0], _stack_up(lls, dev),
+                          sc[1], sc[2], sc[3], bad)
+        packed, chain = _packed(vis), _chain(pcfg, vis)
+        return [(packed[i], _lane_views(chain, i))
+                for i in range(len(lanes))]
+
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def make_pd_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless,
+                        inter_sharpen, dense, bad, arena, device):
+    """make_pd_chain_step over the lanes of a flush. Lanes are its argument
+    tuples (vs, bd, q, lls, refs, mvx, mvy, flags, submask, dc, tmc, fq,
+    fthresh, do_filter, bad, arena), host arrays and ints standing in for
+    tensors, refs each lane's device reference planes (stacked per flush:
+    whatever flush made them). The decode and MC run over (L, ...) stacks,
+    one luma and one chroma (U and V of every lane) filter launch.
+    Returns (packed payload, {"recon": bordered planes}) per lane; with
+    the arena the lanes run one after another, as make_id_chain_lanes."""
+    pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, True, lossless)
+    dev = torch.device(device)
+    if arena:
+        step = make_pd_chain_step(w, h, subsamp, blk_w, blk_h, lossless,
+                                  inter_sharpen, dense)
+        return lambda lanes: _lanewise_decode(step, lanes, dev)
+    base = make_p_decode_step(w, h, subsamp, blk_w, blk_h, lossless)
+
+    def run(lanes):
+        a = list(zip(*lanes))
+        refs = [torch.stack([r[c] for r in a[4]]) for c in range(3)]
+        mvx, mvy, flags, submask, dc = xfer.upload(
+            np.stack([np.stack(g) for g in a[5:10]]), dev)
+        q, tmc, fq, fthresh, do_filter = _upload_ints(
+            (a[2], a[10], a[11], a[12], a[13]), dev)
+        vis = _visible(pcfg, base(
+            _expand_vs(_stack_up(a[0], dev), dense), _stack_up(a[1], dev), q,
+            _stack_up(a[3], dev), refs, mvx, mvy, flags, submask, dc, tmc,
+            bad))
+        vis = _p_filters(pcfg, inter_sharpen, vis, mvx, mvy, flags, submask,
+                         q, tmc, fq, fthresh, do_filter)
+        packed, chain = _packed(vis), _chain(pcfg, vis)
+        return [(packed[i], _lane_views(chain, i))
+                for i in range(len(lanes))]
+
+    return run
+
+
+# the lane-batched form of each one-frame step (lanewise)
+_LANES = {make_input_prep: make_input_prep_lanes,
+          make_i_chain_step: make_i_chain_lanes,
+          make_p_chain_step: make_p_chain_lanes,
+          make_id_chain_step: make_id_chain_lanes,
+          make_pd_chain_step: make_pd_chain_lanes}

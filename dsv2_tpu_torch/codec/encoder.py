@@ -495,7 +495,7 @@ class Encoder:
                 outs = self._p_step(d, pcfg, inter_filter)
             else:
                 outs = self._i_step(d, pcfg)
-            if len(outs) == 4:  # chain step: keep the device reference
+            if len(outs) > 3:  # chain step: keep the device reference
                 d.dev.update(outs[3])
         with stage("encode.fetch"):
             vscans, lls = devsteps.fetch_sparse_outs(outs)

@@ -611,28 +611,45 @@ wavefront_filter.launches = _launches
 # the three filters: uint8 planes (..., ph, pw) in and out
 # ---------------------------------------------------------------------------
 
-def _scalars(nb, device, *vals):
-    """(nb, 8) int32: each value (int, numpy int or tensor of nb values)
-    broadcast over the batch, zero-padded to 8 columns."""
+def _lead(t, lead):
+    """Broadcast t, a single value or one whose dimensions are leading
+    dimensions of the planes from the left (a lane's value over its U and
+    V planes), to `lead`."""
+    if t.numel() == 1:
+        t = t.reshape(())
+    return t.reshape(t.shape + (1,) * (len(lead) - t.dim())).expand(lead)
+
+
+def _scalars(lead, device, *vals):
+    """(nb, 8) int32 for planes with leading dimensions `lead` (nb their
+    product): each value (int, numpy int, or a tensor over the first of
+    those dimensions, e.g. one per lane of (L, 2) stacked U and V planes)
+    broadcast per plane, zero-padded to 8 columns."""
+    nb = int(np.prod(lead, dtype=np.int64))
     sc = torch.zeros((nb, 8), dtype=_I32, device=device)
     for k, v in enumerate(vals):
-        sc[:, k] = torch.as_tensor(v, device=device).to(_I32).reshape(-1)
+        t = torch.as_tensor(v, device=device).to(_I32)
+        sc[:, k] = _lead(t, lead).reshape(-1)
     return sc
 
 
 def _run(kind, lay, vis_u8, props, *scal):
     """Pad the batch of visible planes into the layout, run the wavefront,
-    crop and cast back to uint8. props broadcast over the planes' leading
-    dimensions (U and V share one motion field)."""
+    crop and cast back to uint8. props (..., NP, nty, ntx) and the
+    scalars broadcast over the planes' leading dimensions from the left
+    (U and V of a lane share its motion field and q)."""
     lead = vis_u8.shape[:-2]
     vis = vis_u8.reshape((-1, lay.ph, lay.pw))
     nb = vis.shape[0]
     plane = torch.zeros((nb, lay.HP, lay.WP), dtype=_I32, device=vis.device)
     plane[:, lay.mr:lay.mr + lay.ph, lay.mc:lay.mc + lay.pw] = vis
-    props = props.to(_I32).expand(lead + props.shape[-3:]).reshape(
-        (nb,) + props.shape[-3:]).contiguous()
+    pl = props.shape[:-3]
+    props = props.to(_I32).reshape(
+        pl + (1,) * (len(lead) - len(pl)) + props.shape[-3:]).expand(
+        lead + props.shape[-3:]).reshape((nb,) + props.shape[-3:]
+                                         ).contiguous()
     wavefront_filter(kind, lay, plane, props,
-                     _scalars(nb, vis.device, *scal))
+                     _scalars(lead, vis.device, *scal))
     out = plane[:, lay.mr:lay.mr + lay.ph, lay.mc:lay.mc + lay.pw]
     return out.to(torch.uint8).reshape(vis_u8.shape)
 
@@ -662,7 +679,8 @@ def luma_filter_graph(pw, ph, nbh, nbv, blk_w, blk_h, inter_sharpen,
                       vis_u8, mvx, mvy, flags, submask,
                       fq, fthresh, do_filter, tmc):
     """Inter luma filter (ref: bmc.c:459-602). mvx/mvy/flags/submask:
-    (..., nbv, nbh) int32 grids; fq/fthresh/do_filter/tmc per plane."""
+    (..., nbv, nbh) int32 grids; fq/fthresh/do_filter/tmc per plane
+    (ints, or tensors over the leading dimensions)."""
     ntx, nty, fx, fy = _tile_maps(pw, ph, nbh, nbv)
     if ntx <= 0 or nty <= 0:
         return vis_u8
@@ -689,7 +707,9 @@ def chroma_filter_graph(pw, ph, nbh, nbv, bw, bh, vis_u8,
                         mvx, mvy, flags, q):
     """Inter chroma filter, block-granular (ref: bmc.c:604-659). bw/bh:
     chroma block pixel dims. vis_u8 may stack planes that share the motion
-    grids (U and V: (2, ph, pw) with (nbv, nbh) grids) into one launch."""
+    grids and q into one launch: U and V, (2, ph, pw) with (nbv, nbh)
+    grids, or the U and V of L lanes, (L, 2, ph, pw) with (L, nbv, nbh)
+    grids and q (L,)."""
     if nbh <= 0 or nbv <= 0 or pw < 8 or ph < 8:
         return vis_u8
     lay = _layout(pw, ph, bw, bh, nbh, nbv)

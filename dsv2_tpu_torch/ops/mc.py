@@ -9,6 +9,12 @@ block-window reductions, and mode selection is a per-pixel select.
 
 Gathers clamp their indices by hand, as the twin's do: torch raises on an
 index out of range where JAX clamps.
+
+Every function takes leading (lane) dimensions: the planes (..., h, w),
+the MV maps (..., nbv, nbh) and tmc (...) of a lockstep flush's lanes
+(the twin vmaps the one-plane function); each lane's gathers clamp into
+its own plane. Without leading dimensions they are the one-plane
+functions.
 """
 import functools
 from typing import NamedTuple
@@ -63,9 +69,9 @@ def _qidx(cfg):
 
 
 def _bcast(m, cfg):
-    """(nbv, nbh) per-block map -> (gh, gw) per-pixel map."""
+    """(..., nbv, nbh) per-block map -> (..., gh, gw) per-pixel map."""
     jj, ii, _, _ = on_device(m.device, _grids, cfg)
-    return m[jj][:, ii]
+    return m[..., jj, :][..., ii]
 
 
 def _hpf_a(a, b, c, d):
@@ -95,22 +101,33 @@ def _qp_blend(f, b, c, phase):
 
 
 def _win_gather(ref, offy, offx, wh, ww):
-    """One gather of per-block (wh, ww) windows: out[j, i, r, c] =
-    ref[clip(offy[j,i] + r), clip(offx[j,i] + c)] — MV offsets are
-    constant per block, so every tap is a static slice of this canvas."""
+    """One gather of per-block (wh, ww) windows: out[..., j, i, r, c] =
+    ref[..., clip(offy[..., j, i] + r), clip(offx[..., j, i] + c)] — MV
+    offsets are constant per block, so every tap is a static slice of
+    this canvas. Leading dimensions index planes: each clamps into its
+    own."""
     dev = ref.device
-    ry = torch.clamp(offy[:, :, None]
+    hp, wp = ref.shape[-2:]
+    ry = torch.clamp(offy[..., None]
                      + torch.arange(wh, dtype=_I32, device=dev),
-                     0, ref.shape[0] - 1).long()
-    rx = torch.clamp(offx[:, :, None]
+                     0, hp - 1).long()
+    rx = torch.clamp(offx[..., None]
                      + torch.arange(ww, dtype=_I32, device=dev),
-                     0, ref.shape[1] - 1).long()
-    return ref[ry[:, :, :, None], rx[:, :, None, :]].to(_I32)
+                     0, wp - 1).long()
+    idx = ry[..., :, None] * wp + rx[..., None, :]
+    flat = ref.reshape(-1, hp * wp)
+    n = flat.shape[0]
+    lane = torch.arange(n, device=dev).reshape((n,) + (1,) * 4)
+    out = flat[lane, idx.reshape((n,) + idx.shape[-4:])]
+    return out.reshape(idx.shape).to(_I32)
 
 
 def _blocks_to_plane(bk, cfg):
-    """(nbv, nbh, bh, bw) block tensor -> (gh, gw) plane."""
-    return bk.permute(0, 2, 1, 3).reshape(cfg.gh, cfg.gw)
+    """(..., nbv, nbh, bh, bw) block tensor -> (..., gh, gw) plane."""
+    lead = bk.shape[:-4]
+    nd = len(lead)
+    return bk.permute(tuple(range(nd)) + (nd, nd + 2, nd + 1, nd + 3)
+                      ).reshape(lead + (cfg.gh, cfg.gw))
 
 
 def _block_mean(x, n):
@@ -120,9 +137,10 @@ def _block_mean(x, n):
 
 @functools.lru_cache(maxsize=None)
 def make_predict(cfg: McCfg):
-    """Returns fn(ref bordered uint8 (h+2B, w+2B), mvx, mvy, flags,
-    submask, dc, tmc) -> prediction canvas (gh, gw) uint8. The MV maps
-    are (nbv, nbh) int32; tmc is an int32 scalar tensor."""
+    """Returns fn(ref bordered uint8 (..., h+2B, w+2B), mvx, mvy, flags,
+    submask, dc, tmc) -> prediction canvas (..., gh, gw) uint8. The MV
+    maps are (..., nbv, nbh) int32; tmc is an int, a one-value int32
+    tensor, or one value per lane (...)."""
     limx = cfg.w - cfg.bw + B - 1
     limy = cfg.h - cfg.bh + B - 1
     sbw, sbh = cfg.bw // 2, cfg.bh // 2
@@ -143,7 +161,7 @@ def make_predict(cfg: McCfg):
         offy_w = torch.clamp(pyb, -B, limy) + B
 
         def bb(m):  # per-block -> block-tensor broadcast
-            return m[:, :, None, None]
+            return m[..., None, None]
 
         if cfg.is_luma:
             wins = _win_gather(ref, offy_w, offx_w, cfg.bh, cfg.bw)
@@ -156,11 +174,14 @@ def make_predict(cfg: McCfg):
             dxp = mvx & 3
             dyp = mvy & 3
             tmc_odd = (tmc & 1) != 0
+            if isinstance(tmc_odd, torch.Tensor):   # one value, or per lane
+                tmc_odd = (tmc_odd.reshape(()) if tmc_odd.numel() == 1
+                           else tmc_odd[..., None, None])
             dqtx = bb(large | ((dxp & 1) == 0) | tmc_odd)
             dqty = bb(large | ((dyp & 1) == 0) | tmc_odd)
             rows = []
             for t in range(4):
-                a, b, c, d = (C[:, :, t:t + cfg.bh, k:k + cfg.bw]
+                a, b, c, d = (C[..., t:t + cfg.bh, k:k + cfg.bw]
                               for k in range(4))
                 fv = torch.where(dqtx, _hpf_a(a, b, c, d),
                                  _hpf_b(a, b, c, d))
@@ -173,7 +194,7 @@ def make_predict(cfg: McCfg):
                                      cfg)
         else:
             C = _win_gather(ref, offy_w, offx_w, cfg.bh + 1, cfg.bw + 1)
-            wins = C[:, :, :cfg.bh, :cfg.bw]
+            wins = C[..., :cfg.bh, :cfg.bw]
             wholepel = _blocks_to_plane(wins, cfg)
             dxc = mvx & (hf - 1)
             dyc = mvy & (vf - 1)
@@ -181,9 +202,9 @@ def make_predict(cfg: McCfg):
             f1 = dxc * (vf - dyc)
             f2 = (hf - dxc) * dyc
             f3 = dxc * dyc
-            p01 = C[:, :, :cfg.bh, 1:cfg.bw + 1]
-            p10 = C[:, :, 1:cfg.bh + 1, :cfg.bw]
-            p11 = C[:, :, 1:cfg.bh + 1, 1:cfg.bw + 1]
+            p01 = C[..., :cfg.bh, 1:cfg.bw + 1]
+            p10 = C[..., 1:cfg.bh + 1, :cfg.bw]
+            p11 = C[..., 1:cfg.bh + 1, 1:cfg.bw + 1]
             inter = _blocks_to_plane(
                 (bb(f0) * wins + bb(f1) * p01 + bb(f2) * p10
                  + bb(f3) * p11 + af) >> sf, cfg)
@@ -194,8 +215,8 @@ def make_predict(cfg: McCfg):
         # canvas blocks (same clamped offsets), so no extra gather
         full_avg = _block_mean(wins, cfg.bw * cfg.bh)
         q_avg = torch.stack([
-            _block_mean(wins[:, :, g:g + sbh, fx:fx + sbw], sbw * sbh)
-            for g in (0, sbh) for fx in (0, sbw)])    # (4, nbv, nbh)
+            _block_mean(wins[..., g:g + sbh, fx:fx + sbw], sbw * sbh)
+            for g in (0, sbh) for fx in (0, sbw)], dim=-3)  # (..., 4, v, h)
 
         if cfg.is_luma:
             has_dc = dc != 0
@@ -203,11 +224,13 @@ def make_predict(cfg: McCfg):
             has_dc = torch.zeros_like(dc, dtype=torch.bool)
         dc_val = dc & 0xFF
         fill_all = torch.where(has_dc, dc_val, full_avg)
-        fill_q = torch.where(has_dc[None], dc_val[None], q_avg)
+        fill_q = torch.where(has_dc[..., None, :, :], dc_val[..., None, :, :],
+                             q_avg)
 
-        jj, ii, _, _ = on_device(dev, _grids, cfg)
         qidx = on_device(dev, _qidx, cfg)
-        fill_q_pix = fill_q[:, jj][:, :, ii].gather(0, qidx[None])[0]
+        fill_q_pix = _bcast(fill_q, cfg).gather(
+            -3, qidx.expand(fill_q.shape[:-3] + (1,) + qidx.shape))[..., 0,
+                                                                     :, :]
         qmask_pix = ((_bcast(submask, cfg) >> qidx.to(_I32)) & 1) != 0
         all_intra = _bcast(submask == K.MASK_ALL_INTRA, cfg)
         intra_pix = torch.where(
@@ -222,9 +245,9 @@ def make_predict(cfg: McCfg):
 
 @functools.lru_cache(maxsize=None)
 def make_subtract(cfg: McCfg):
-    """Returns fn(res uint8 (gh, gw), pred uint8 (gh, gw), flags (nbv, nbh)
-    int32) -> the residual canvas uint8, per-block modes (ref:
-    bmc.c:989-1055)."""
+    """Returns fn(res uint8 (..., gh, gw), pred uint8 (..., gh, gw), flags
+    (..., nbv, nbh) int32) -> the residual canvas uint8, per-block modes
+    (ref: bmc.c:989-1055)."""
 
     def f(res, pred, flags):
         r = res.to(_I32)
@@ -248,9 +271,9 @@ def make_subtract(cfg: McCfg):
 
 @functools.lru_cache(maxsize=None)
 def make_reconstruct(cfg: McCfg):
-    """Returns fn(res uint8 (gh, gw), pred uint8 (gh, gw), flags (nbv, nbh)
-    int32) -> reconstructed canvas uint8, per-block modes (ref:
-    bmc.c:925-987)."""
+    """Returns fn(res uint8 (..., gh, gw), pred uint8 (..., gh, gw), flags
+    (..., nbv, nbh) int32) -> reconstructed canvas uint8, per-block modes
+    (ref: bmc.c:925-987)."""
 
     def f(res, pred, flags):
         r = res.to(_I32)

@@ -1,9 +1,10 @@
-"""Lockstep device-call batching for multi-stream encoding (port of
-`dsv2_tpu/parallel/dynbatch.py`).
+"""Lockstep device-call batching for multi-stream encoding and decoding
+(port of `dsv2_tpu/parallel/dynbatch.py`).
 
-N per-GOP encoder threads run the unmodified per-frame pipeline; whenever
-a thread reaches a device step (input prep, motion search, frame chain
-step) it submits (key, builder, args) here and blocks. When every running
+N per-GOP encoder (decoder) threads run the unmodified per-frame
+pipeline; whenever a thread reaches a device step (input prep, motion
+search, frame chain step) it submits (key, builder, args) here and
+blocks. When every running
 thread is blocked on a submission, the last one to block becomes the
 flusher: for each key it picks, it runs builder(cfg) ONCE over the queued
 lanes and hands each thread its lane of the output.
@@ -14,10 +15,13 @@ of the queued argument tuples; fn returns a list with one output per
 lane, or a dict of tensors with a leading lane dimension (lane i gets
 {k: v[i]}, views that cost nothing). The motion search of a flush is one
 launch per pyramid level for every lane (ops/hme_gang, key "hme_gang");
-the other steps run their lanes one after another
-(codec/devsteps.lanewise). The twin pads every batch to `width` with
-copies of lane 0 so that each XLA program compiles once; nothing
-compiles per shape here, so the port runs the lanes it has.
+the input prep and the chain steps of encode and decode run their
+lane-batched forms (codec/devsteps.lanewise): one vk launch per plane
+and one filter launch per filter kind for every lane of the flush. The
+twin pads every batch to `width` with copies of lane 0 so that each XLA
+program compiles once; nothing compiles per shape here, so the port runs
+the lanes it has. `run_lanes` runs the lane threads of a group, for
+encode here and for decode in parallel/gop.decode_gops_parallel.
 
 Threads and the device: each lane's host work runs in its own thread,
 the flush in whichever thread blocked last. Every thread launches on
@@ -206,27 +210,26 @@ def encode_streams_lockstep(stream_frames, enc_factory, width=None,
     return results
 
 
-def _encode_group(stream_frames, enc_factory, width):
-    n = len(stream_frames)
+def run_lanes(n, width, lane_fn):
+    """Run lane_fn(i, submit) for lanes i in range(n), each in a thread of
+    its own, under one LockstepBatcher of `width` (submit is its
+    submit); returns the lanes' results in order and raises the first
+    lane's error once every thread has ended. Every lane counts as
+    running before any thread starts, so the first flush waits for all
+    of them (the twin counts each thread in from inside it, and an early
+    thread can flush alone)."""
     batcher = LockstepBatcher(width)
     results = [None] * n
     errors = []
 
     def run(i):
         try:
-            enc = enc_factory()
-            enc.dev_submit = batcher.submit
-            chunks = []
-            for fr in stream_frames[i]:
-                chunks.extend(enc.encode_frame(fr))
-            results[i] = b"".join(chunks)
+            results[i] = lane_fn(i, batcher.submit)
         except BaseException as exc:
             errors.append(exc)
         finally:
             batcher.thread_done()
 
-    # every lane counts as running before any can submit, so the first
-    # flush waits for all of them
     for _ in range(n):
         batcher.thread_begin()
     threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
@@ -237,3 +240,15 @@ def _encode_group(stream_frames, enc_factory, width):
     if errors:
         raise errors[0]
     return results
+
+
+def _encode_group(stream_frames, enc_factory, width):
+    def lane(i, submit):
+        enc = enc_factory()
+        enc.dev_submit = submit
+        chunks = []
+        for fr in stream_frames[i]:
+            chunks.extend(enc.encode_frame(fr))
+        return b"".join(chunks)
+
+    return run_lanes(len(stream_frames), width, lane)

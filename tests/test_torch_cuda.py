@@ -770,3 +770,102 @@ def test_probe_gang_vs_plain(cuda, nb):
             want = plain(mode, *(t.cpu() for t in (plane, cx, cy)))
             assert torch.equal(got.cpu(), want), (probe.__name__, mode)
     assert torch.equal(pg.scalar(plane).cpu(), pg.scalar_plain(plane.cpu()))
+
+
+def _to(x, dev):
+    """Tensors (in lists and tuples too) moved to dev."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, dev) for v in x)
+    return x
+
+
+@pytest.mark.parametrize("step", ["i_chain", "p_chain", "id_chain",
+                                  "pd_chain"])
+def test_chain_lanes_cuda(cuda, step):
+    """The lane-batched chain steps of a lockstep flush at the lockstep
+    cell's shapes: 8 CIF lanes, each with its own q, filter scalars,
+    motion field and reference, so kernel 1 runs B = 8 chains per plane
+    and kernel 2 8 luma (or intra) planes and 16 U+V planes with 8 q's.
+    The card's output equals the plain versions' (the same builder on the
+    CPU) bit for bit, each lane's fetch included, with one vk launch per
+    plane and one filter launch per kind for the flush."""
+    import test_torch_lockstep_batch as lb
+    from dsv2_tpu_torch.codec import devsteps
+    from dsv2_tpu_torch.core import constants as K
+    from dsv2_tpu_torch.ops import filters, scan_pl
+    w, h, subsamp = lb.CIF
+    n = 8
+    decode = step in ("id_chain", "pd_chain")
+    if decode:
+        isP = step == "pd_chain"
+        lanes = lb.decode_lanes("cif", isP, False, (), False, 5, n)[0]
+        base = (w, h, subsamp, lb.BLK, lb.BLK, False) + ((1,) if isP
+                                                         else ())
+        make = (devsteps.make_pd_chain_step if isP
+                else devsteps.make_id_chain_step)
+        cpu_cfg = base + (False, (), False, "cpu")
+        dev_cfg = base + (False, (), False, cuda)
+        dev_lanes = [a[:4] + (_to(a[4], cuda),) + a[5:] if isP else a
+                     for a in lanes]
+        kinds = {"luma": 1, "chroma": 1} if isP else {"intra": 1}
+    else:
+        isP = step == "p_chain"
+        lanes = (lb.p_lanes if isP else lb.i_lanes)("cif", 6, n)
+        cpu_cfg = dev_cfg = ((w, h, subsamp, lb.BLK, lb.BLK, False,
+                              K.PSY_ALL, lb.LEVELS) + ((1,) if isP else ()))
+        make = (devsteps.make_p_chain_step if isP
+                else devsteps.make_i_chain_step)
+        dev_lanes = _to(lanes, cuda)
+        kinds = {"luma": 1, "chroma": 1} if isP else {"intra": 1}
+    want = devsteps.lanewise(make)(cpu_cfg)(lanes)
+    vk0 = scan_pl.vk_chain.launches
+    wf0 = dict(filters.wavefront_filter.launches)
+    got = devsteps.lanewise(make)(dev_cfg)(dev_lanes)
+    torch.cuda.synchronize()
+    assert scan_pl.vk_chain.launches - vk0 == (0 if decode else 3)
+    assert {k: v - wf0[k] for k, v in filters.wavefront_filter.launches
+            .items() if v != wf0[k]} == kinds
+    for i in range(n):
+        if decode:
+            assert got[i][0].is_cuda
+            assert torch.equal(got[i][0].cpu(), want[i][0])
+            for g, wv in zip(got[i][1]["recon"], want[i][1]["recon"]):
+                assert torch.equal(g.cpu(), wv)
+        else:
+            lb._check_lane_out(got[i], want[i], i)
+
+
+@pytest.mark.parametrize("key", sorted(golden.load()["gops"]))
+def test_decode_gops_parallel_cuda(cuda, key):
+    """Lockstep GOP-parallel decode on the card against dsv2_tpu's
+    per-frame digests, at widths 1 and every GOP."""
+    import hashlib
+    import io
+    from dsv2_tpu_torch.ops import filters
+    from dsv2_tpu_torch.parallel import gop
+    want = golden.load()["gops"][key]["frames"]
+    data = golden.read_stream(key)
+    for width in (1, None):
+        n0 = sum(filters.wavefront_filter.launches.values())
+        frames = gop.decode_gops_parallel(io.BytesIO(data), width=width,
+                                          device=cuda)
+        assert [hashlib.sha256(f.tobytes()).hexdigest()
+                for f in frames] == want
+        assert sum(filters.wavefront_filter.launches.values()) > n0
+
+
+def test_decode_gops_parallel_corrupt_cuda(cuda):
+    """The 8 corrupt-stream trials (2 GOPs each) through the lockstep
+    decode on the card: their corrupt planes share a flush's key and
+    batch; every frame against dsv2_tpu's sequential decode (the GOPs
+    are independent, so the frames are the same)."""
+    import hashlib
+    import io
+    from dsv2_tpu_torch.parallel import gop
+    gold = golden.load()
+    for i, data in enumerate(golden.corrupt_streams()):
+        frames = gop.decode_gops_parallel(io.BytesIO(data), device=cuda)
+        assert [hashlib.sha256(f.tobytes()).hexdigest() for f in frames] \
+            == [d for _, d in gold[golden.corrupt_key(i)]["frames"]], i

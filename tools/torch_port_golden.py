@@ -16,7 +16,17 @@ kept as digests only (nano and odd 4:2:0, lossless 4:4:4, nano at
 bench.p_lockstep cuts it): the synthetic CIF 352x288 4:2:0 384-frame
 clip cut into 8 streams of 48 frames at -qp=60 -gop=48; each lane's entry
 is the digest of `dsv2_tpu`'s sequential encode of its frames with no
-end-of-stream packet, which is that lane's lockstep output. DENSE_CASES
+end-of-stream packet, which is that lane's lockstep output, and
+("decode") the digest of the y4m `dsv2_tpu` decodes from that stream
+with an end-of-stream packet appended. GOPS are two small multi-GOP
+streams (tiny64x48_420_6f at -qp=60 -gop=2, 3 GOPs, its stream
+committed; the committed CIF CRF stream below, 2 GOPs with dense scans):
+each entry under "gops" holds the packet count of every GOP
+`dsv2_tpu.parallel.gop.split_gop_packets` finds and the digest of every
+frame `dsv2_tpu.parallel.gop.decode_gops_parallel` decodes, and the tiny
+one the digest of `dsv2_tpu.parallel.gop.encode_gops_parallel`'s stream
+(a fresh encoder per GOP, which the committed single-encoder stream is
+not). DENSE_CASES
 are streams with planes whose scans the decoder's compact upload cannot
 carry (more than 64 high-band values outside int8): CIF at the CLI's
 default CRF with -gop=6, CIF at -qp=85 (both streams committed) and 3
@@ -59,6 +69,9 @@ CIF_LS = "cif352x288_420_384f"
 SYNTH = {FHD: FHD_SHAPE, CIF_LS: (352, 288, 384)}
 # (name, qp, gop, lanes, frames per lane) of the lockstep P cell
 LOCKSTEP = (CIF_LS, 60, 48, 8, 48)
+# (name, qp or None for the CLI's default CRF, gop) of the multi-GOP
+# streams held under "gops" (both committed under tests/golden/)
+GOPS = [("tiny64x48_420_6f", 60, 2), ("cif352x288_420_12f", None, 6)]
 # (name, qp, gop, frames) of the committed P streams
 P_CASES = [("tiny64x48_422_4f", 60, 4, 4), ("cif352x288_420_12f", 60, 12, 12),
            (FHD, 60, 8, 8)]
@@ -171,6 +184,11 @@ def lane_key(i):
     """Key of lane i of the lockstep cell."""
     name, qp, gop = LOCKSTEP[:3]
     return key(name, qp, gop) + "_lane%d" % i
+
+
+def gops_streams():
+    """(key, stream bytes) of every GOPS entry, from tests/golden/."""
+    return [(key(*g), read_stream(key(*g))) for g in GOPS]
 
 
 def lane_frames(frames, i, nfr=None):
@@ -520,17 +538,21 @@ def main(argv=None):
                   if not args.only or lane_key(i) in args.only]
     if todo_lanes:
         frames, meta = read_y4m(input_path(name))
+    from dsv2_tpu.utils.packet import encode_eos
     for i in todo_lanes:
         k = lane_key(i)
         fr = lane_frames(frames, i)
-        table[k] = dict(digest(encode(cli, fr, meta, qp, gop=gop, eos=False)),
+        data = encode(cli, fr, meta, qp, gop=gop, eos=False)
+        table[k] = dict(digest(data),
                         input="synthetic %dx%d %d frames "
                         "(tools/mkfixtures.write_y4m)" % SYNTH[name],
                         args="-qp=%d -gop=%d" % (qp, gop), lane=i,
                         frames="%d-%d" % (i * per, i * per + len(fr) - 1),
-                        eos=False)
+                        eos=False, decode=digest(decoded_y4m(
+                            decoder, y4m, data + encode_eos())))
         print(k, table[k]["length"], table[k]["sha256"], flush=True)
         _save(table)
+    _main_gops(args, table, cli, read_y4m)
     for name, qp, gop, nfr, effort in todo:
         k = key(name, qp, gop, effort)
         if args.only and k not in args.only:
@@ -559,6 +581,36 @@ def main(argv=None):
               flush=True)
         _save(table)
     _main_host_chain(args, table, cli, decoder, y4m, read_y4m)
+
+
+def _main_gops(args, table, cli, read_y4m):
+    """The GOPS entries; the tiny stream is encoded and committed here."""
+    from dsv2_tpu.parallel import gop as jgop
+    gops = table.setdefault("gops", {})
+    for name, qp, gop in GOPS:
+        k = key(name, qp, gop)
+        if args.only and k not in args.only and "gops" not in args.only:
+            continue
+        entry = {}
+        if qp is not None:
+            frames, meta = read_y4m(input_path(name))
+            if not os.path.exists(stream_path(k)):
+                with open(stream_path(k), "wb") as f:
+                    f.write(encode(cli, frames, meta, qp, gop=gop))
+            entry["encode_gops_parallel"] = digest(jgop.encode_gops_parallel(
+                frames, meta, gop, lambda: cli.make_encoder(
+                    meta, cli.default_enc_opts(qp=qp, gop=gop))))
+        data = read_stream(k)
+        frames = jgop.decode_gops_parallel(io.BytesIO(data))
+        gops[k] = dict(entry, **digest(data),
+                       stream=os.path.relpath(stream_path(k), REPO),
+                       packets_per_gop=[len(c) for c in
+                                        jgop.split_gop_packets(
+                                            io.BytesIO(data))],
+                       frames=[hashlib.sha256(f.tobytes()).hexdigest()
+                               for f in frames])
+        print(k, gops[k]["packets_per_gop"], len(frames), flush=True)
+        _save(table)
 
 
 def _main_host_chain(args, table, cli, decoder, y4m, read_y4m):

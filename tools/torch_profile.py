@@ -4,7 +4,9 @@
     python3 tools/torch_profile.py [--out DIR] [--wavefront | --phases |
                                     --hme [--src CSRC ...]
                                     [--hme-levels all|upper|base] |
-                                    --vk [--src CSRC ...]]
+                                    --vk [--src CSRC ...] |
+                                    --lockstep [--pkg ROOT ...]
+                                    [--profile]]
 
 Input: the seeded synthetic clip of chip_smoke.py's main path (1920x1080
 4:2:0, 32 frames, -qp=60 -gop=0, chunk 16). Prints one JSON line each:
@@ -100,6 +102,26 @@ With --vk it prints only:
   vk_sweep  FHD luma, FHD P luma and the CIF lane over chunk lengths
            128-2048, warm-ups 0-512 and 64-256 walkers per block: ms,
            the share of chunks met at their first row, rows re-walked.
+
+With --lockstep it prints only, for each --pkg ROOT (a checkout root
+holding dsv2_tpu_torch/, each run in a process of its own in the order
+given: the parent's and this one's in turns, to compare; default this
+checkout):
+
+  lockstep  the 8 corrupt-stream trials of chip_smoke.py's
+           decode_corrupt (pictures one at a time) and the committed CIF
+           -gop=12 P stream (chunked chain steps), decoded against their
+           goldens: fps of each of 3 timed runs after a warm one;
+           the lockstep cell of chip_smoke.py (the seeded CIF clip as 8
+           lanes of 48 frames at -qp=60 -gop=48, width 8, gang motion
+           search, after a warm run; every lane against its golden
+           digest): fps, and the lockstep.dispatch and lockstep.run
+           seconds by key; where the package has parallel/gop.py, the
+           lockstep decode of the 8 lanes' stream (width 8): fps,
+           decode.parse and dispatch seconds. With --profile also the
+           device busy share of the lockstep encode and decode under
+           torch.profiler (union of the kernel and copy intervals over
+           host wall time, the profiler on).
 
 Needs CUDA and nvcc; writes under build/ and DIR (default chiprun_out/).
 """
@@ -1024,7 +1046,146 @@ def vk_study(srcs):
              plans=sweep, nvidia_smi=smi)
 
 
+LOCKSTEP_PASSES = 3    # timed runs of each decode in --lockstep
+
+
+def lockstep_study(pkgs, profile=False):
+    """--lockstep: lockstep_run of each package root, one process each."""
+    for root in pkgs:
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--lockstep-run",
+             os.path.abspath(root), str(int(profile))],
+            capture_output=True, text=True)
+        sys.stdout.write(res.stdout)
+        sys.stdout.flush()
+        if res.returncode:
+            sys.exit("lockstep run of %s failed:\n%s"
+                     % (root, res.stderr[-4000:]))
+
+
+def lockstep_run(root, profile):
+    """The --lockstep measurements with the dsv2_tpu_torch of `root`."""
+    import io
+    import torch
+    sys.path.insert(0, root)
+    import dsv2_tpu_torch
+    assert os.path.dirname(os.path.dirname(os.path.abspath(
+        dsv2_tpu_torch.__file__))) == root, dsv2_tpu_torch.__file__
+    import torch_port_golden as golden
+    from dsv2_tpu_torch import cli
+    from dsv2_tpu_torch.codec import decoder
+    from dsv2_tpu_torch.parallel import dynbatch
+    from dsv2_tpu_torch.utils import trace, y4m
+    from dsv2_tpu_torch.utils.packet import encode_eos
+    dev = torch.device("cuda")
+    gold = golden.load()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def timed(fn, prof=False):
+        """(wall s, fn(), stage seconds, device busy share or None) of one
+        run; under torch.profiler if prof."""
+        torch.cuda.synchronize()
+        trace.reset()
+        t0 = time.perf_counter()
+        if prof:
+            with torch.profiler.profile(activities=acts) as pr:
+                out = fn()
+                torch.cuda.synchronize()
+        else:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy = kernel_busy_ms(pr)[0] / (wall * 1e3) if prof else None
+        return wall, out, trace.totals(), busy
+
+    def by(st, prefix):
+        return {k[len(prefix):]: v for k, v in st.items()
+                if k.startswith(prefix)}
+
+    trace.enable(True)
+    rec = dict(pkg=os.path.relpath(root, REPO), nvidia_smi=smi)
+    trials = golden.corrupt_streams()
+
+    def corrupt():
+        n = 0
+        for i, data in enumerate(trials):
+            got = golden.decode_frames(decoder, y4m, data,
+                                       decoder=decoder.Decoder(device=dev))
+            assert got["frames"] == gold[golden.corrupt_key(i)]["frames"]
+            n += len(got["frames"])
+        return n
+    corrupt()
+    rec["corrupt_fps"] = [n / w for w, n, _, _ in
+                          (timed(corrupt) for _ in range(LOCKSTEP_PASSES))]
+    pkey = golden.p_key(golden.P_CASES[1])
+    pstream = golden.read_stream(pkey)
+
+    def p_decode():
+        y = golden.decoded_y4m(decoder, y4m, pstream,
+                               decoder=decoder.Decoder(device=dev))
+        assert golden.digest(y) == gold[pkey]["decode"]
+    p_decode()
+    rec["cif_p_decode_fps"] = [golden.P_CASES[1][3] / timed(p_decode)[0]
+                               for _ in range(LOCKSTEP_PASSES)]
+
+    name, qp, gop, nlanes, per = golden.LOCKSTEP
+    frames, meta = cli.read_y4m(golden.input_path(name))
+    streams = [golden.lane_frames(frames, i) for i in range(nlanes)]
+    del frames
+
+    def factory():
+        enc = cli.make_encoder(meta, cli.default_enc_opts(qp=qp, gop=gop),
+                               device=dev)
+        enc.hme_backend = "gang"
+        return enc
+
+    def encode(nfr=per):
+        return dynbatch.encode_streams_lockstep(
+            [st[:nfr] for st in streams], factory, width=nlanes)
+    encode(2)
+    wall, out, st, _ = timed(encode)
+    assert [golden.digest(o)["sha256"] for o in out] == [
+        gold[golden.lane_key(i)]["sha256"] for i in range(nlanes)]
+    rec.update(lockstep_fps=nlanes * per / wall, lockstep_seconds=wall,
+               dispatch_seconds=by(st, "lockstep.dispatch."),
+               run_seconds=by(st, "lockstep.run."))
+    if profile:
+        rec["device_busy_share"] = timed(encode, prof=True)[3]
+    try:
+        from dsv2_tpu_torch.parallel import gop
+    except ImportError:
+        gop = None
+    if gop is not None:
+        data = b"".join(out) + encode_eos()
+
+        def ls_decode():
+            return gop.decode_gops_parallel(io.BytesIO(data), width=nlanes,
+                                            device=dev)
+        ls_decode()
+        wall, fr, st, _ = timed(ls_decode)
+        assert len(fr) == nlanes * per
+        rec.update(lockstep_decode_fps=len(fr) / wall,
+                   lockstep_decode_parse_seconds=st.get("decode.parse"),
+                   lockstep_decode_dispatch_seconds=by(
+                       st, "lockstep.dispatch."))
+        if profile:
+            rec["lockstep_decode_busy_share"] = timed(ls_decode,
+                                                      prof=True)[3]
+    emit("lockstep", **rec)
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--lockstep-run"]:
+        import torch
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        assert torch.cuda.is_available(), "needs an NVIDIA GPU"
+        return lockstep_run(argv[1], bool(int(argv[2])))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
     ap.add_argument("--wavefront", action="store_true",
@@ -1045,6 +1206,16 @@ def main(argv=None):
     ap.add_argument("--hme-levels", default="all",
                     choices=("all", "upper", "base"),
                     help="with --hme: the levels to study")
+    ap.add_argument("--lockstep", action="store_true",
+                    help="only the lockstep encode and decode and the "
+                    "decodes of chain steps, per package root")
+    ap.add_argument("--pkg", action="append",
+                    help="with --lockstep: a checkout root holding "
+                    "dsv2_tpu_torch/, in the order given (default: this "
+                    "checkout)")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --lockstep: also the device busy share of "
+                    "a profiled lockstep encode and decode")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1058,6 +1229,8 @@ def main(argv=None):
     if args.vk:
         return vk_study(args.src or [os.path.join(REPO, "dsv2_tpu_torch",
                                                    "csrc")])
+    if args.lockstep:
+        return lockstep_study(args.pkg or [REPO], args.profile)
     if args.hme:
         return hme_study(args.src or [os.path.join(REPO, "dsv2_tpu_torch",
                                                     "csrc")],
