@@ -35,7 +35,14 @@ byte-flip trials of the committed CIF CRF stream decoded frame by frame
 and 64x500 4:1:1 (4 frames at -qp=60 -gop=2) encoded and decoded with
 the arena (decode_arena), and the CIF fixture at -qp=60 -gop=6, 8
 frames, encoded with the motion search backends "host" and "wave",
-aliases of "pallas" (encode_host_hme).
+aliases of "pallas" (encode_host_hme). Then BASELINE configs 3-5, each
+encoded and decoded against dsv2_tpu's digests: FHD 4:4:4 at -qp=100
+-gop=0 through encode_intra_batch (fhd_lossless444_intra), 60 CIF
+frames at the default CRF with -gop=60 -effort=10
+(cif_crf_gop60_effort10) and 16 frames of 1280x720 at the default CRF
+with -gop=250 (hd720_gop250), both through encode_frame; and every
+case of the encoder's flag sweep through cli.main on the card, raw UYVY
+input included, with 4 lockstep cases on the gang kernels (cli_sweep).
 Before that it builds every CUDA kernel of those paths from this
 checkout (one nvcc per source, all at once) and holds each against
 its plain PyTorch version: the vk chain on random chains, on the
@@ -69,7 +76,6 @@ import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NFRAMES, CHUNK, QP = 32, 16, 60
@@ -78,7 +84,7 @@ KERNELS = ("vk_chain", "wavefront_filter", "hme_search", "hme_gang",
 P_FRAMES, P_GOP = 8, 8
 LS_WARM_FRAMES = 2      # frames per lane of the lockstep warm run
 LS_PALLAS_FRAMES = 16   # frames per lane of the lockstep run on kernels 4/5
-LS_GROUPS_FRAMES = 16   # frames per lane of the lockstep run in 2 groups
+LS_GROUPS_FRAMES = 8    # frames per lane of the lockstep run in 2 groups
 LS_NARROW = (3, 8)      # (width, frames per lane) of the narrow lockstep run
 LANE_QS = (700, 1500, 2400, 300, 1024, 3000, 60, 1800)   # a q per lane
 REPEATS = 20            # launches of kernels 4-7 that must agree
@@ -141,7 +147,7 @@ def main():
     from dsv2_tpu_torch.parallel import batch, dynbatch
     from dsv2_tpu_torch.parallel import gop as pgop
     from dsv2_tpu_torch.tools import probe_gang
-    from dsv2_tpu_torch.utils import trace, y4m
+    from dsv2_tpu_torch.utils import packet, trace, y4m
     from dsv2_tpu_torch.utils.packet import encode_eos
 
     dev = torch.device("cuda")
@@ -168,8 +174,8 @@ def main():
 
     # 2. build every kernel of the paths from this checkout, in parallel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
-        libs = dict(zip(KERNELS, ex.map(_kernels.build, KERNELS)))
+    libs = _kernels.build_all()
+    assert sorted(libs) == sorted(KERNELS), libs
     for name in KERNELS:
         for e in _kernels.entries(name):
             _kernels.entry(e)
@@ -1478,6 +1484,223 @@ def main():
     emit("gang_probe", launches=dict(probe_gang.launches),
          plain_ms_gang_full=pg_plain_ms, **probe)
 
+    # 14. BASELINE configs 3-5 (tools/torch_port_golden.CONFIGS):
+    # fhd_lossless444_intra (1920x1080 4:4:4 at -qp=100 -gop=0, 8 frames,
+    # encode_intra_batch in chunks of 4: lossless, planes on the per-plane
+    # contract fallback, kernel 1 on full-size chroma chains of 4 frames),
+    # cif_crf_gop60_effort10 (the lockstep cell's CIF clip, its first 60
+    # frames at the CLI's default CRF, -gop=60 -effort=10, encode_frame)
+    # and hd720_gop250 (1280x720 at the default CRF, -gop=250, 16 frames,
+    # encode_frame: a geometry no other phase runs). Each: a warm run on
+    # its first frames (recording the kernel calls; its stream decoded),
+    # then the encode and the decode of the whole clip, each with every
+    # count set to 0 just before and read just after, the stream and the
+    # y4m against dsv2_tpu's digests; then the recorded calls (kernel 1
+    # on the 4:4:4 U chains; at 720p kernel 1 at B = 1, kernel 2 on the
+    # P frame's luma and chroma planes and kernels 4/5) against their
+    # plain versions.
+    def counts():
+        """Launches of kernels 1, 2 (by kind), 4/5 and 6/7 since the last
+        reset_counts()."""
+        return dict(vk_chain=vk_fn.launches, filter=dict(wf.launches),
+                    **{k: hme_gpu.launches[k] for k in (
+                        "hme_level", "hme_level0", "hme_gang_level",
+                        "hme_gang_level0")})
+
+    @contextlib.contextmanager
+    def recording_calls(vk_calls, wf_calls, me_calls):
+        """Record every vk chain call (inputs copied), every filter call
+        (recording) and the first motion search's (cfg, inputs)."""
+        def rec_vk(thr, s0, nnz, stats=None):
+            vk_calls.append((thr.clone(), s0.clone(), nnz.clone()))
+            return vk_fn(thr, s0, nnz, stats)
+
+        def rec_me(cfg):
+            fn = make_me(cfg)
+
+            def f(*inputs):
+                if not me_calls:
+                    me_calls.append((cfg, inputs))
+                return fn(*inputs)
+            return f
+        scan_pl.vk_chain, hme_gpu.make_motion_est = rec_vk, rec_me
+        try:
+            with recording(wf_calls):
+                yield
+        finally:
+            scan_pl.vk_chain, hme_gpu.make_motion_est = vk_fn, make_me
+
+    trace.enable(True)
+    cfg_counts = {}
+    for phase, (cname, cqp, cgop, cnfr, ceff, cchunk) in \
+            golden.CONFIGS.items():
+        want = gold[golden.config_key(phase)]
+        cframes, cmeta = cli.read_y4m(golden.input_path(cname))
+        cframes = cframes[:cnfr]
+        copts = dict(gop=cgop) if cqp is None else dict(qp=cqp, gop=cgop)
+        if ceff is not None:
+            copts["effort"] = ceff
+
+        def cencode(fr):
+            enc = cli.make_encoder(cmeta, cli.default_enc_opts(**copts),
+                                   device=dev)
+            if cchunk is None:
+                out = [b for f in fr for b in enc.encode_frame(f)]
+            else:
+                out = batch.encode_intra_batch(enc, fr, chunk=cchunk)
+            return enc, b"".join(out + enc.end_of_stream())
+
+        def cdecode(data_):
+            return golden.decoded_y4m(decoder, y4m, data_,
+                                      decoder=decoder.Decoder(device=dev))
+
+        nwarm = cchunk or 2
+        vk_calls, wf_calls, me_calls = [], [], []
+        with recording_calls(vk_calls, wf_calls, me_calls):
+            warm_ms, (_, wdata) = host_ms(lambda: cencode(cframes[:nwarm]))
+        warm_dec_ms, _ = host_ms(lambda: cdecode(wdata))
+        trace.reset()
+        reset_counts()
+        enc_ms, (cenc, cdata) = host_ms(lambda: cencode(cframes))
+        enc_counts, enc_stages = counts(), trace.totals()
+        assert golden.digest(cdata) == {k: want[k] for k in (
+            "sha256", "length")}, (phase, golden.digest(cdata))
+        trace.reset()
+        reset_counts()
+        dec_ms, cy = host_ms(lambda: cdecode(cdata))
+        dec_counts, dec_stages = counts(), trace.totals()
+        assert golden.digest(cy) == want["decode"], (phase, "decode")
+        assert enc_counts["vk_chain"] > 0 and dec_counts["vk_chain"] == 0
+        if cchunk is None:
+            assert enc_counts["hme_level0"] > 0, enc_counts
+            assert enc_counts["filter"]["luma"] > 0, enc_counts
+            assert dec_counts["filter"]["luma"] > 0, dec_counts
+        cfg_counts[phase] = (enc_counts, dec_counts)
+        kernels_ = []
+        if cchunk is not None:
+            # the U chains of the first chunk (B = 4 full-size planes)
+            kernels_.append(compare("%s_u_chunk" % phase, *vk_calls[1],
+                                    time_it=True))
+        elif phase == "hd720_gop250":
+            kernels_.append(compare("hd720_p_frame1_luma_b1",
+                                    *luma_of_frame1(vk_calls), time_it=True))
+            firsts_ = {}
+            for call in wf_calls:
+                if call[0] != "intra":   # the intra kind: phase 9, at FHD
+                    firsts_.setdefault((call[0], call[1].pw), call)
+            for (kind, pw), call in sorted(firsts_.items()):
+                kernels_.append(filter_case("hd720_%s_%d" % (kind, pw), call,
+                                            time_it=True))
+            kernels_.append(hme_vs_plain("hd720_p_frame1", *me_calls[0],
+                                         time_it=True))
+        del vk_calls, wf_calls, me_calls
+        emit(phase, stream=golden.config_key(phase), frames=cnfr,
+             args=want["args"], path=want["path"], golden=True,
+             fps=cnfr / (enc_ms / 1e3), seconds=enc_ms / 1e3,
+             decode_fps=cnfr / (dec_ms / 1e3), decode_seconds=dec_ms / 1e3,
+             warm_frames=nwarm, warm_seconds=warm_ms / 1e3,
+             warm_decode_seconds=warm_dec_ms / 1e3, bytes=len(cdata),
+             blob_fallbacks=cenc.stats.blob_fallbacks,
+             launches=enc_counts, decode_launches=dec_counts,
+             stage_seconds=enc_stages, decode_stage_seconds=dec_stages,
+             kernels=kernels_)
+        del cframes, cdata, cy, cenc
+
+    # 14a. the repaired entry points on the card: encode_intra_batch at
+    # gop != 0 (tools/torch_port_golden.BATCH_GOP: tiny at -qp=60 -gop=2 in
+    # chunks of 3, CIF at the default CRF with -gop=6 in chunks of 4), and
+    # Decoder.decode_packet over the committed CIF CRF stream, each frame
+    # against dsv2_tpu's digest
+    surf = {}
+    for bcase in golden.BATCH_GOP:
+        bname, bqp, bgop, bchunk = bcase
+        bframes, bmeta = cli.read_y4m(golden.input_path(bname))
+        reset_counts()
+        b_ms, bdata = host_ms(lambda: golden.encode(
+            cli, bframes, bmeta, bqp, batch=batch.encode_intra_batch,
+            chunk=bchunk, gop=bgop, device=dev))
+        assert golden.digest(bdata) == {k: gold[golden.batch_key(bcase)][k]
+                                        for k in ("sha256", "length")}, bcase
+        surf[golden.batch_key(bcase)] = dict(seconds=b_ms / 1e3,
+                                             launches=counts())
+    crf = golden.CORRUPT["stream"]
+    pdec = decoder.Decoder(device=dev)
+    pframes = []
+    reset_counts()
+    for _, buf in packet.iter_packets(io.BytesIO(golden.read_stream(crf))):
+        code, frame, _ = pdec.decode_packet(buf)
+        if code == decoder.DEC_EOS:
+            break
+        if code == decoder.DEC_OK and frame is not None:
+            pframes.append(hashlib.sha256(frame.tobytes()).hexdigest())
+    assert pframes == gold["gops"][crf]["frames"], "decode_packet"
+    surf["decode_packet:" + crf] = dict(frames=len(pframes),
+                                        launches=counts())
+    emit("surface", golden=True, cases=surf)
+
+    # 15. cli_sweep: every case of the encoder's flag sweep (tools/
+    # torch_port_golden.SWEEP: tests/test_sweep.py's cases, then each flag
+    # they leave out) and the raw UYVY input through cli.main in process
+    # on the card, and the GANG cases (2 lockstep lanes at effort 3,
+    # lossless, -bszx=1 -bszy=0, ABR) through encode_streams_lockstep with
+    # the gang kernels; each case's launches of kernels 1, 2, 4/5 and 6/7
+    # counted from 0, its stream and the port's decode of it against
+    # dsv2_tpu's digests.
+    sweep_recs, sweep_total = [], {}
+
+    def sweep_add(c):
+        for k, v in c.items():
+            n = sum(v.values()) if isinstance(v, dict) else v
+            sweep_total[k] = sweep_total.get(k, 0) + n
+
+    sweep_out = os.path.join(outdir, "sweep.dsv")
+    for skey, sname, sargs in golden.sweep_cases():
+        golden.input_path(sname)    # a raw input is generated untimed
+        reset_counts()
+        s_ms, sdata = host_ms(lambda: golden.cli_encode(
+            cli, sname, sargs, sweep_out))
+        c = counts()
+        assert golden.digest(sdata) == {k: gold[skey][k] for k in (
+            "sha256", "length")}, skey
+        assert golden.digest(golden.decoded_y4m(
+            decoder, y4m, sdata, decoder=decoder.Decoder(device=dev))) == \
+            gold[skey]["decode"], (skey, "decode")
+        assert c["vk_chain"] > 0, (skey, c)
+        sweep_add(c)
+        sweep_recs.append(dict(case=skey, seconds=s_ms / 1e3,
+                               bytes=len(sdata), launches=c))
+    for gname, gn, gargs in golden.GANG:
+        glanes, gmeta = golden.gang_lanes(gname, gn)
+
+        def gfactory():
+            enc = cli.make_encoder(gmeta, golden.cli_opts(cli, gargs),
+                                   device=dev)
+            enc.hme_backend = "gang"
+            return enc
+        reset_counts()
+        s_ms, gouts = host_ms(lambda: dynbatch.encode_streams_lockstep(
+            glanes, gfactory, width=gn))
+        c = counts()
+        assert c["hme_gang_level0"] > 0 and c["hme_level0"] == 0, c
+        for i, gdata in enumerate(gouts):
+            gk = golden.gang_key(gname, gargs, i)
+            assert golden.digest(gdata) == {k: gold[gk][k] for k in (
+                "sha256", "length")}, gk
+            assert golden.digest(golden.decoded_y4m(
+                decoder, y4m, gdata + encode_eos(),
+                decoder=decoder.Decoder(device=dev))) == \
+                gold[gk]["decode"], (gk, "decode")
+        sweep_add(c)
+        sweep_recs.append(dict(case="gang:%s %s" % (gname, " ".join(gargs)),
+                               lanes=gn, seconds=s_ms / 1e3, launches=c))
+    trace.enable(False)
+    assert all(sweep_total[k] > 0 for k in (
+        "vk_chain", "filter", "hme_level", "hme_level0", "hme_gang_level",
+        "hme_gang_level0")), sweep_total
+    emit("cli_sweep", cases=len(sweep_recs), golden=True,
+         seconds=sum(r["seconds"] for r in sweep_recs),
+         launches=sweep_total, by_case=sweep_recs)
+
     assert not [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "dsv2_tpu")], \
         "the port imported jax or dsv2_tpu"
@@ -1499,7 +1722,11 @@ def main():
                 "decode_arena": arena_vk,
                 "encode_host_hme": hvk[hbackend],
                 "encode_wave": hvk["wave"], "lockstep_decode": 0,
-                "lockstep_decode_fhd": 0, "tools_parallel": tools_vk}
+                "lockstep_decode_fhd": 0, "tools_parallel": tools_vk,
+                **{ph: c[0]["vk_chain"] for ph, c in cfg_counts.items()},
+                "surface": sum(c["launches"]["vk_chain"]
+                               for c in surf.values()),
+                "cli_sweep": sweep_total["vk_chain"]}
     wmain = timed_wf[("intra", meta.width)]
     wf_paths = {"decode": dec_launches,
                 "p_encode": sum(p_filter_launches.values()),
@@ -1513,14 +1740,26 @@ def main():
                 "lockstep_decode": sum(lsd_rec["filter_launches"].values()),
                 "lockstep_decode_fhd": sum(fhd_rec[
                     "filter_launches"].values()),
-                "tools_parallel": tools_wf}
+                "tools_parallel": tools_wf,
+                **{ph: sum(c[0]["filter"].values())
+                   for ph, c in cfg_counts.items()},
+                **{ph + "_decode": sum(c[1]["filter"].values())
+                   for ph, c in cfg_counts.items()},
+                "surface": sum(sum(c["launches"]["filter"].values())
+                               for c in surf.values()),
+                "cli_sweep": sweep_total["filter"]}
     hme_paths = {name: {"p_encode": hme_launches[name],
                         "decode_arena": arena_hme[name],
                         "encode_host_hme": host_recs[hbackend][
                             "hme_launches"][name],
                         "encode_wave": host_recs["wave"]["hme_launches"][
-                            name]}
+                            name],
+                        **{ph: c[0][name] for ph, c in cfg_counts.items()},
+                        "cli_sweep": sweep_total[name]}
                  for name in ("hme_level", "hme_level0")}
+    gang_paths = {name: {"lockstep_p_encode": ls_launches[name],
+                         "cli_sweep": sweep_total[name]}
+                  for name in ("hme_gang_level", "hme_gang_level0")}
     print(json.dumps({"kernels": [
         {"name": "vk_chain", "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/vk_chain.cu",
@@ -1569,7 +1808,8 @@ def main():
         {"name": name, "route": "cuda",
          "source": "dsv2_tpu_torch/csrc/hme_gang.cu",
          "replaces": "dsv2_tpu/ops/hme_gang.py:%d" % line,
-         "launches": ls_launches[name], "max_abs_err": gang_err,
+         "launches": sum(gang_paths[name].values()),
+         "launches_by_path": gang_paths[name], "max_abs_err": gang_err,
          "ms": lv["ms"], "plain_ms": lv["plain_ms"],
          "bound_ms": lv["bound_ms"], "bound_by": lv["bound_by"],
          "library_ms": None, **extra}

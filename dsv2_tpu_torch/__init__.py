@@ -18,6 +18,11 @@ import os
 
 import torch
 
+from .core.constants import (  # noqa: F401
+    SUBSAMP_444, SUBSAMP_422, SUBSAMP_UYVY, SUBSAMP_420, SUBSAMP_411,
+    SUBSAMP_410,
+)
+
 __version__ = "0.1.0"
 
 DEVICE_ENV = "DSV2_TORCH_DEVICE"

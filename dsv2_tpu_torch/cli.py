@@ -269,6 +269,11 @@ def cmd_encode(argv, device=None):
         inp.close()
     if io["verbose"]:
         print_stats(enc, len(data), frno - opts["sfr"], fps)
+        from .utils import log
+        if log.get_level() >= log.LEVEL_INFO:
+            n, nbytes = log.mem_report()
+            log.info("device buffers live: %d (%.1f MiB)", n,
+                     nbytes / 1048576)
     return 0
 
 

@@ -141,6 +141,11 @@ class Decoder:
             return tuple(self._up(x) for x in a)
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
 
+    def decode_packet(self, buf):
+        """Decode one packet buffer. Returns (code, Frame|None, fno)."""
+        code, realize, fno = self.decode_packet_lazy(buf)
+        return code, (realize() if realize is not None else None), fno
+
     def decode_packet_lazy(self, buf):
         """Decode one packet buffer with a deferred pixel fetch: returns
         (code, realize|None, fno) where realize() -> Frame; the fetch of

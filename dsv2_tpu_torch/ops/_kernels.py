@@ -89,6 +89,15 @@ def build(name):
     return so
 
 
+def build_all():
+    """Build every kernel source at once (one nvcc each, in threads);
+    returns {source name: library path}."""
+    from concurrent.futures import ThreadPoolExecutor
+    names = sorted({_SOURCE.get(n, n) for n in _ENTRY})
+    with ThreadPoolExecutor(len(names)) as ex:
+        return dict(zip(names, ex.map(build, names)))
+
+
 def entries(source):
     """The entry point names of csrc/<source>.cu."""
     return [n for n in _ENTRY if _SOURCE.get(n, n) == source]

@@ -73,13 +73,14 @@ def _device_batch_fn(w_, h_, subsamp, blk_w, blk_h, lossless, do_psy,
 
 
 def encode_intra_batch(enc, frame_planes, chunk=16):
-    """Encode a list of (y, u, v) frames with gop=0 semantics in chunked
+    """Encode a list of (y, u, v) frames, every one intra, in chunked
     device batches on enc.device, overlapping each chunk's host
     serialization with the next chunk's device compute. Returns the
-    packet byte chunks (same as sequential encode_frame calls,
-    byte-for-byte)."""
-    if enc.gop != K.GOP_INTRA:
-        raise NotImplementedError("encode_intra_batch needs gop=0")
+    packet byte chunks: at gop=0 the same as sequential encode_frame
+    calls, byte-for-byte; at any other gop `dsv2_tpu`'s
+    encode_intra_batch stream, a metadata packet at each GOP start
+    (`enc.gop` frames apart) before an intra picture. No reconstruction
+    is built: no frame of the batch is a reference."""
     out = []
     pending = None
     for lo in range(0, len(frame_planes), chunk):

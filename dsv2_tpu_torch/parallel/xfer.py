@@ -5,10 +5,11 @@ plane's FINAL entropy-coded scan blob (ops/scan_pl) is merged into one
 flat byte buffer, and the host fetches the occupied prefix with one copy
 into pinned memory — entropy-coded size on the wire, and the host
 serializer is a memcpy. The twin's "dense" and "packed" formats are not
-ported (ROADMAP item 6): they exist for slow device links, and a card's
-host link is not one. Per-plane content outside the blob contract still
-falls back to the int32 scan and the native host coder (codec semantics,
-not a device fallback).
+ported (ROADMAP, "Not to port"): they exist for slow device links, a
+card's host link is not one, and every format gives the same bytes.
+Per-plane content outside the blob contract still falls back to the
+int32 scan and the native host coder (codec semantics, not a device
+fallback).
 """
 import torch
 

@@ -411,7 +411,10 @@ LEVEL0_CASES = ([("odd100x62_420_4f", tmv, e, {}) for e in (0, 4, 5, 8, 10)
                    ("cif352x288_420_12f", True, 10, dict(blk=32)),
                    ("synth352x16_420", True, 10, {}),
                    ("synth16x240_420", True, 10, {}),
-                   ("synth64x500_411", True, 10, {})])
+                   ("synth64x500_411", True, 10, {})]
+                # the block sizes -bszx=0 -bszy=0 and -bszx=1 -bszy=0 force
+                + [("tiny64x48_420_6f", tmv, 10, dict(blk=blk))
+                   for blk in (16, (32, 16)) for tmv in (False, True)])
 
 
 @pytest.mark.parametrize("name,has_tmv,effort,kw", LEVEL0_CASES,
@@ -667,6 +670,32 @@ def test_hme_gang_vs_plain(cuda, name, has_tmv):
         want = hme_wave.make_motion_est(wcfg)(*_cpu(inputs))
         for k in golden.HME_OUTPUTS:
             assert got[k].is_cuda and got[k].dtype == want[k].dtype, k
+            assert torch.equal(got[k][i].cpu(), want[k]), (i, k)
+
+
+# (input, effort, hme_case keywords) of the gang kernels' modes: the
+# efforts below 4 (no subpel) and below 6/8 (no chroma intra test,
+# half-pel only), lossless 4:4:4
+GANG_MODES = [("odd100x62_420_4f", 0, {}), ("odd100x62_420_4f", 3, {}),
+              ("tiny64x48_444_4f", 10, dict(lossless=True, quant=1))]
+
+
+@pytest.mark.parametrize("name,effort,kw", GANG_MODES,
+                         ids=["%s-e%d%s" % (c[0], c[1], "-lossless" * bool(
+                             c[2])) for c in GANG_MODES])
+@pytest.mark.parametrize("has_tmv", [False, True])
+def test_hme_gang_modes_vs_plain(cuda, name, effort, kw, has_tmv):
+    """The gang kernels (6/7) for 2 lanes at efforts 0 and 3 and lossless
+    against the plain version lane by lane on every field (exact)."""
+    from dsv2_tpu_torch.ops import hme_gang, hme_wave
+    frames, meta = read_y4m(golden.input_path(name))
+    cfg, lanes = golden.hme_lanes(frames, meta, 2, has_tmv=has_tmv,
+                                  effort=effort, device=cuda, **kw)
+    wcfg = hme_wave.WaveCfg(**cfg)
+    got = hme_gang.make_motion_est(wcfg)(lanes)
+    for i, inputs in enumerate(lanes):
+        want = hme_wave.make_motion_est(wcfg)(*_cpu(inputs))
+        for k in golden.HME_OUTPUTS:
             assert torch.equal(got[k][i].cpu(), want[k]), (i, k)
 
 

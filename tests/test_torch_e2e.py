@@ -251,6 +251,9 @@ def test_no_dsv2_tpu_imports():
                     bad.append("%s:%d %s" % (os.path.relpath(path, REPO),
                                              node.lineno, n))
     assert len(_port_sources()) > 30
+    assert {os.path.join(REPO, "dsv2_tpu_torch", *f) for f in (
+        ("conformance", "d28dec.py"), ("conformance", "__init__.py"),
+        ("utils", "bc2.py"))} <= set(_port_sources())
     assert not bad, bad
 
 
@@ -307,6 +310,12 @@ print("HOSTENC", golden.digest(golden.encode(cli, fr, m, 60, gop=4,
                                              backend="host"))["sha256"])
 print("CORRUPT", golden.decode_frames(
     decoder, y4m, golden.corrupt_streams()[0])["decode"]["sha256"])
+import numpy as np
+from dsv2_tpu_torch import conformance
+from dsv2_tpu_torch.utils import bc2
+with open({pinp!r}, "rb") as f:
+    assert len(list(conformance.decode_stream(f))) == 4
+bc2.srgb_to_bc2(*[np.arange(256, dtype=np.uint8)] * 3)
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "dsv2_tpu")]
 print("PENC", golden.digest(open({out!r} + ".p", "rb").read())["sha256"])
@@ -318,8 +327,9 @@ print("DECODE", golden.digest(open({yout!r}, "rb").read())["sha256"])
 def test_jax_free_subprocess(tmp_path):
     """The GPU machine has no JAX: the encode entry points (intra, P and
     lockstep, P with the backend "host"), the CLI decode, the decode
-    of a corrupt stream and the gang probe run with jax and dsv2_tpu
-    unimportable (a subprocess, since this one already imported both)."""
+    of a corrupt stream, the gang probe, the conformance decoder and the
+    BC2 library run with jax and dsv2_tpu unimportable (a subprocess,
+    since this one already imported both)."""
     out = str(tmp_path / "nano.dsv")
     pkey = golden.p_key(golden.P_CASES[0])
     code = JAX_FREE.format(repo=REPO, tools=os.path.join(REPO, "tools"),

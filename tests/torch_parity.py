@@ -26,6 +26,11 @@ import pytest
 import torch
 
 os.environ.setdefault("DSV2_TORCH_DEVICE", "cpu")
+# Under pytest-xdist each worker runs its own torch: one intra-op thread
+# per worker keeps the workers from oversubscribing the cores (the port's
+# CPU path is many small ops, which extra threads only slow down).
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))  # torch_port_golden
 CSRC = os.path.join(REPO, "dsv2_tpu_torch", "csrc")

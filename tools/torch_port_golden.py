@@ -93,6 +93,56 @@ ARENA_CASES = [("synth352x16_420_4f", 60, 2), ("synth16x240_420_4f", 60, 2),
                ("synth64x500_411_4f", 60, 2)]
 # (name, qp, gop, frames, hme backend) of the host motion search encode
 HOST_HME = ("cif352x288_420_12f", 60, 6, 8, "host")
+# (name, qp or None for the CLI's default CRF, gop, chunk) of the batched
+# intra encodes at gop != 0 (encode_intra_batch: every frame intra, a
+# metadata packet at each GOP start; chunk boundaries inside GOPs)
+BATCH_GOP = [("tiny64x48_420_6f", 60, 2, 3), ("cif352x288_420_12f", None, 6, 4)]
+# BASELINE configs 3-5 as chip_smoke.py phases: phase -> (name, qp or None
+# for the CLI's default CRF, gop, frames, effort or None, chunk of
+# encode_intra_batch or None for sequential encode_frame)
+CONFIGS = {
+    "fhd_lossless444_intra": ("synth1920x1080_444_8f", 100, 0, 8, None, 4),
+    "cif_crf_gop60_effort10": (CIF_LS, None, 60, 60, 10, None),
+    "hd720_gop250": ("synth1280x720_420_16f", None, 250, 16, None, None),
+}
+# the CLI flag sweep: every case of tests/test_sweep.py's SWEEP (fixture,
+# CLI arguments), then each encoder flag SWEEP leaves out at a
+# non-default value on tiny64x48_420_6f -qp=60 -gop=48
+_TINY = ["-qp=60", "-gop=48"]
+SWEEP = [
+    ("tiny64x48_420_6f", ["-gop=48", "-rc_mode=1", "-kbps=300"]),
+    ("tiny64x48_420_6f", ["-gop=3", "-rc_mode=1", "-kbps=180",
+                          "-rc_pergop=1"]),
+    ("qcif176x144_420_10f", ["-gop=48", "-rc_mode=1", "-kbps=600"]),
+    ("tiny64x48_444_4f", _TINY),
+    ("tiny64x48_411_4f", _TINY),
+    ("tiny64x48_410_4f", _TINY),
+    ("qcif176x144_420_10f", _TINY),
+    ("qcif176x144_420_10f", _TINY + ["-scd=0"]),
+    ("tiny64x48_420_6f", _TINY + ["-tempaq=0"]),
+    ("tiny64x48_420_6f", _TINY + ["-stabref=2"]),
+    ("tiny64x48_420_6f", _TINY + ["-bszx=0", "-bszy=0"]),
+    ("tiny64x48_420_6f", _TINY + ["-bszx=1", "-bszy=0"]),
+    ("tiny64x48_420_6f", _TINY + ["-effort=0"]),
+    ("tiny64x48_420_6f", _TINY + ["-effort=3"]),
+    ("tiny64x48_420_6f", _TINY + ["-effort=10"]),
+    ("tiny64x48_420_6f", ["-qp=100", "-gop=48", "-effort=10"]),
+    ("qcif176x144_420_10f", _TINY + ["-varint=0", "-ipct=50"]),
+] + [("tiny64x48_420_6f", _TINY + extra) for extra in (
+    ["-psy=0"], ["-ifilter=0"], ["-pfilter=0"], ["-psharp=0"], ["-dib=0"],
+    ["-pyrlevels=2"], ["-skipthresh=100"], ["-scpct=50"],
+    ["-minqp=40", "-maxqp=70"], ["-iminqp=50"],
+    ["-minqstep=100", "-maxqstep=200"])]
+# raw packed UYVY input (tests/test_sweep.py's test_cli_sweep_uyvy): the
+# frames of tiny64x48_422_4f packed as UYVY, no y4m header
+UYVY = ("tiny64x48_422_4f", ["-qp=60", "-gop=48", "-fmt=5", "-w=64",
+                             "-h=48"])
+# lockstep lanes through the gang motion search: (fixture, lanes, CLI
+# arguments); each lane's golden is dsv2_tpu's sequential encode of its
+# frames (the fixture's frames cut into `lanes` equal parts), no EOS
+GANG = [("tiny64x48_420_6f", 2, args) for args in (
+    _TINY + ["-effort=3"], ["-qp=100", "-gop=48"],
+    _TINY + ["-bszx=1", "-bszy=0"], ["-gop=48", "-rc_mode=1", "-kbps=300"])]
 
 
 def cases():
@@ -110,6 +160,78 @@ def key(name, qp, gop=0, effort=None):
     if effort is not None:
         k += "_effort%d" % effort
     return k
+
+
+def config_key(phase):
+    """Key of a CONFIGS entry."""
+    name, qp, gop, _, effort, chunk = CONFIGS[phase]
+    return key(name, qp, gop, effort) + ("" if chunk is None else "_batch")
+
+
+def batch_key(case):
+    """Key of a BATCH_GOP entry."""
+    return key(*case[:3]) + "_batch"
+
+
+def sweep_key(name, args):
+    """Key of a SWEEP (or the UYVY) case: the input and its CLI
+    arguments."""
+    return "cli:%s %s" % (name, " ".join(args))
+
+
+def gang_key(name, args, lane):
+    """Key of lane `lane` of a GANG case."""
+    return "gang:%s %s lane%d" % (name, " ".join(args), lane)
+
+
+def cli_opts(cli, args):
+    """A CLI module's encoder options for `args` ("-name=value" strings),
+    as its argument parser sets them."""
+    return cli.default_enc_opts(**{a[1:].split("=")[0]: int(a.split("=")[1])
+                                   for a in args})
+
+
+def uyvy_input(path, name):
+    """Write the frames of y4m input `name` packed as UYVY (U Y V Y, no
+    header; 4:2:2) to `path`."""
+    import numpy as np
+    from dsv2_tpu_torch.cli import read_y4m
+    frames, _ = read_y4m(input_path(name))
+    with open(path, "wb") as f:
+        for yp, up, vp in frames:
+            h, w = yp.shape
+            packed = np.empty((h, w * 2), dtype=np.uint8)
+            packed[:, 0::4] = up
+            packed[:, 1::2] = yp
+            packed[:, 2::4] = vp
+            f.write(packed.tobytes())
+
+
+def sweep_cases():
+    """(key, input name, CLI arguments) of every SWEEP case and the UYVY
+    case (its input "<y4m name>.uyvy")."""
+    return [(sweep_key(n, a), n, a) for n, a in
+            SWEEP + [(UYVY[0] + ".uyvy", UYVY[1])]]
+
+
+def cli_encode(cli, name, args, out):
+    """The stream a CLI module's `e` writes for input `name` (raw UYVY
+    for a ".uyvy" name, else y4m) and `args` (in process; `out` is the
+    file it writes)."""
+    raw = name.endswith(".uyvy")
+    rc = cli.main(["e", "-y", "-inp=" + input_path(name), "-out=" + out]
+                  + ([] if raw else ["-y4m=1"]) + list(args))
+    assert rc in (None, 0), (name, args, rc)
+    with open(out, "rb") as f:
+        return f.read()
+
+
+def gang_lanes(name, nlanes):
+    """(frames of each lane, meta) of a GANG case."""
+    from dsv2_tpu_torch.cli import read_y4m
+    frames, meta = read_y4m(input_path(name))
+    per = len(frames) // nlanes
+    return [frames[i * per:(i + 1) * per] for i in range(nlanes)], meta
 
 
 def corrupt_key(i):
@@ -210,7 +332,16 @@ def read_stream(k):
 def input_path(name):
     """The y4m for a case; a synthetic input (SYNTH, or
     "synth<w>x<h>_<subs>[_<n>f]": n frames of synth_input, 2 by default)
-    is generated (seeded) under build/ on first use."""
+    or "<name>.uyvy" (uyvy_input of y4m input <name>) is generated
+    (seeded) under build/ on first use."""
+    if name.endswith(".uyvy"):
+        path = os.path.join(SYNTH_DIR, name)
+        if not os.path.exists(path):
+            os.makedirs(SYNTH_DIR, exist_ok=True)
+            tmp = path + ".%d.tmp" % os.getpid()
+            uyvy_input(tmp, name[:-len(".uyvy")])
+            os.replace(tmp, path)
+        return path
     m = re.fullmatch(r"synth(\d+)x(\d+)_(\d+)(?:_(\d+)f)?", name)
     if m:
         return synth_input(int(m[1]), int(m[2]), m[3], int(m[4] or 2))
@@ -280,8 +411,9 @@ def hme_case(frames, meta, has_tmv=False, effort=10, quant=1200,
     reference the frame itself; one block of the source is a copy of the
     reference (skip) and one a flat patch (intra), so the refine, subpel,
     skip, intra and EPRM branches fire. Blocks are the encoder's size for
-    the frame unless `blk` is given. Returns (WaveCfg field dict, inputs
-    tuple) with the planes as tensors on `device`."""
+    the frame unless `blk` is given (a size, or (width, height) as
+    -bszx/-bszy force them). Returns (WaveCfg field dict, inputs tuple)
+    with the planes as tensors on `device`."""
     import numpy as np
     import torch
     from dsv2_tpu_torch.core import constants as K
@@ -305,9 +437,10 @@ def hme_case(frames, meta, has_tmv=False, effort=10, quant=1200,
     ogr = [f0[c].astype(np.uint8) for c in range(3)]
     if blk is None:
         blk = K.MAX_BLOCK_SIZE if min(w, h) > 1280 else K.MIN_BLOCK_SIZE
-    src[0][:blk, :blk] = ref[0][:blk, :blk]
-    src[0][blk:2 * blk, blk:blk + blk // 2] = 200
-    nbh, nbv = -(-w // blk), -(-h // blk)
+    bw, bh = (blk, blk) if isinstance(blk, int) else blk
+    src[0][:bh, :bw] = ref[0][:bh, :bw]
+    src[0][bh:2 * bh, bw:bw + bw // 2] = 200
+    nbh, nbv = -(-w // bw), -(-h // bh)
     lvls = im.lb2(min(w, h))
     while (1 << lvls) > max(nbh, nbv):
         lvls -= 1
@@ -326,7 +459,7 @@ def hme_case(frames, meta, has_tmv=False, effort=10, quant=1200,
     else:
         tmv = np.zeros((2, nbv, nbh), np.int32)
     tmv = torch.as_tensor(tmv).to(dev)
-    cfg = dict(nbh=nbh, nbv=nbv, blk_w=blk, blk_h=blk, vid_w=w, vid_h=h,
+    cfg = dict(nbh=nbh, nbv=nbv, blk_w=bw, blk_h=bh, vid_w=w, vid_h=h,
                subsamp=sub, effort=effort, lossless=lossless,
                pyramid_levels=lvls, has_tmv=has_tmv,
                skip_thresh_neg=skip_thresh < 0,
@@ -354,17 +487,19 @@ def synth_input(w, h, subs, nframes):
     return path
 
 
-def hme_lanes(frames, meta, n, has_tmv=False, effort=10, device="cpu"):
+def hme_lanes(frames, meta, n, has_tmv=False, effort=10, device="cpu",
+              quant=None, **kw):
     """(WaveCfg field dict, [inputs of lane 0..n-1]): hme_case inputs of n
     lockstep lanes sharing one WaveCfg, each lane from another frame,
-    shift, noise seed and quant."""
+    shift, noise seed and quant (`quant` for every lane if given); `kw`
+    go to hme_case (lossless, blk)."""
     lanes = []
     for i in range(n):
         cfg, inputs = hme_case(frames[i % len(frames):], meta,
                                has_tmv=has_tmv, effort=effort,
-                               quant=600 + 170 * i,
+                               quant=600 + 170 * i if quant is None else quant,
                                shift=(3 - i % 5, 2 - i % 3), seed=i,
-                               device=device)
+                               device=device, **kw)
         lanes.append(inputs)
     return cfg, lanes
 
@@ -551,7 +686,7 @@ def main(argv=None):
                         eos=False, decode=digest(decoded_y4m(
                             decoder, y4m, data + encode_eos())))
         print(k, table[k]["length"], table[k]["sha256"], flush=True)
-        _save(table)
+        _save(table, k)
     _main_gops(args, table, cli, read_y4m)
     for name, qp, gop, nfr, effort in todo:
         k = key(name, qp, gop, effort)
@@ -579,8 +714,9 @@ def main(argv=None):
         table[k] = entry
         print(k, entry["length"], entry["sha256"], entry["decode"],
               flush=True)
-        _save(table)
+        _save(table, k)
     _main_host_chain(args, table, cli, decoder, y4m, read_y4m)
+    _main_surface(args, table, cli, decoder, y4m, read_y4m)
 
 
 def _main_gops(args, table, cli, read_y4m):
@@ -610,7 +746,7 @@ def _main_gops(args, table, cli, read_y4m):
                        frames=[hashlib.sha256(f.tobytes()).hexdigest()
                                for f in frames])
         print(k, gops[k]["packets_per_gop"], len(frames), flush=True)
-        _save(table)
+        _save(table, "gops")
 
 
 def _main_host_chain(args, table, cli, decoder, y4m, read_y4m):
@@ -627,7 +763,7 @@ def _main_host_chain(args, table, cli, decoder, y4m, read_y4m):
                      base=CORRUPT["stream"])
         table[k] = entry
         print(k, len(entry["frames"]), entry["error"], bad, flush=True)
-        _save(table)
+        _save(table, k)
     for name, qp, gop in ARENA_CASES:
         k = key(name, qp, gop)
         if args.only and k not in args.only:
@@ -648,7 +784,7 @@ def _main_host_chain(args, table, cli, decoder, y4m, read_y4m):
                         args="-qp=%d -gop=%d" % (qp, gop),
                         frames=len(frames))
         print(k, table[k]["length"], table[k]["decode"], flush=True)
-        _save(table)
+        _save(table, k)
     name, qp, gop, nfr, backend = HOST_HME
     k = key(name, qp, gop)
     if not args.only or k in args.only:
@@ -660,14 +796,87 @@ def _main_host_chain(args, table, cli, decoder, y4m, read_y4m):
                         args="-qp=%d -gop=%d" % (qp, gop), frames=nfr,
                         hme_backend=backend)
         print(k, table[k]["length"], table[k]["sha256"], flush=True)
-        _save(table)
+        _save(table, k)
 
 
-def _save(table):
-    os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-    with open(GOLDEN, "w") as f:
-        json.dump(table, f, indent=1, sort_keys=True)
-        f.write("\n")
+def _save(table, k):
+    """Merge entry `k` of `table` into the golden file as it is on disk,
+    under a lock, so that runs with distinct --only keys can run at
+    once."""
+    import fcntl
+    os.makedirs(SYNTH_DIR, exist_ok=True)
+    with open(os.path.join(SYNTH_DIR, "golden.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        disk = load() if os.path.exists(GOLDEN) else {}
+        disk[k] = table[k]
+        tmp = GOLDEN + ".%d.tmp" % os.getpid()
+        with open(tmp, "w") as f:
+            json.dump(disk, f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, GOLDEN)
+
+
+def _main_surface(args, table, cli, decoder, y4m, read_y4m):
+    """BATCH_GOP, CONFIGS, the sweep (SWEEP and UYVY) and GANG. --only
+    also takes the group names "batch_gop", "configs", "sweep" and
+    "gang", and the CONFIGS phase names."""
+    from dsv2_tpu.parallel.batch import encode_intra_batch
+    from dsv2_tpu.utils.packet import encode_eos
+
+    def wanted(k, *groups):
+        return not args.only or any(g in args.only for g in (k,) + groups)
+
+    def record(k, data, **kw):
+        table[k] = dict(digest(data), **kw)
+        table[k].setdefault("decode", digest(decoded_y4m(decoder, y4m,
+                                                         data)))
+        print(k, table[k]["length"], table[k]["sha256"], flush=True)
+        _save(table, k)
+
+    for case in BATCH_GOP:
+        name, qp, gop, chunk = case
+        if not wanted(batch_key(case), "batch_gop"):
+            continue
+        frames, meta = read_y4m(input_path(name))
+        data = encode(cli, frames, meta, qp, batch=encode_intra_batch,
+                      chunk=chunk, gop=gop)
+        record(batch_key(case), data, frames=len(frames), chunk=chunk,
+               input=os.path.relpath(input_path(name), REPO),
+               args=("" if qp is None else "-qp=%d " % qp) + "-gop=%d" % gop,
+               path="encode_intra_batch")
+    for phase, (name, qp, gop, nfr, effort, chunk) in CONFIGS.items():
+        if not wanted(config_key(phase), phase, "configs"):
+            continue
+        frames, meta = read_y4m(input_path(name))
+        frames = frames[:nfr]
+        data = encode(cli, frames, meta, qp, gop=gop, effort=effort,
+                      batch=None if chunk is None else encode_intra_batch,
+                      chunk=chunk or 16)
+        del frames
+        record(config_key(phase), data, frames=nfr, phase=phase,
+               chunk=chunk, input="synthetic (tools/mkfixtures.write_y4m)",
+               args=("" if qp is None else "-qp=%d " % qp) + "-gop=%d" % gop
+               + ("" if effort is None else " -effort=%d" % effort),
+               path="encode_frame" if chunk is None else "encode_intra_batch")
+    tmp = os.path.join(SYNTH_DIR, "sweep.%d.dsv" % os.getpid())
+    for k, name, a in sweep_cases():
+        if wanted(k, "sweep"):
+            record(k, cli_encode(cli, name, a, tmp), args=" ".join(a),
+                   input=os.path.relpath(input_path(name), REPO),
+                   raw=name.endswith(".uyvy"))
+    if os.path.exists(tmp):
+        os.remove(tmp)
+    for name, nlanes, a in GANG:
+        lanes, meta = gang_lanes(name, nlanes)
+        for i, fr in enumerate(lanes):
+            k = gang_key(name, a, i)
+            if not wanted(k, "gang"):
+                continue
+            enc = cli.make_encoder(meta, cli_opts(cli, a))
+            data = b"".join(b for f in fr for b in enc.encode_frame(f))
+            record(k, data, lane=i, frames=len(fr), eos=False,
+                   args=" ".join(a), decode=digest(decoded_y4m(
+                       decoder, y4m, data + encode_eos())))
 
 
 if __name__ == "__main__":
