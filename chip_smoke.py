@@ -25,7 +25,7 @@ frames encoded at -qp=60 -gop=8 (4 GOPs, width 4; the first GOP equal
 to the committed FHD stream), each frame against the sequential decode;
 the tools parallel_encode --lockstep and parallel_decode in
 subprocesses and encode_gops_parallel with 4 workers; and the gang cost
-probe's tool run. Also an FHD high-quality stream (3 frames at -qp=90
+probe's tool run (each probe on the whole card and as one walker). Also an FHD high-quality stream (3 frames at -qp=90
 -gop=0) encoded by the port and decoded with the dense scan upload, and
 20 launches of each of kernels 4-7 (every upper level) on the same
 inputs that must agree. Then the inputs dsv2_tpu takes its host chain
@@ -1464,25 +1464,38 @@ def main():
                                    filter_launches=dict(wf.launches)))
     del streams, out, ls_stream, gp
 
-    # 13. the gang cost probe (kernel 8): its tool's run, each probe
-    # against its plain version, the times and the block/gang parity
+    # 13. the gang cost probe (kernel 8): its tool's run at both launch
+    # shapes (the whole card: a warp per block or gang; one walker: the
+    # TPU tool's sequential walk), each probe against its plain version,
+    # the times and the block/gang parity (that of the plain versions)
     reset_counts()
     probe = probe_gang.run(dev, reps=20)
     probe_launches = sum(probe_gang.launches.values())
     assert all(probe_gang.launches.values()), probe_gang.launches
+    assert {r.get("walkers") for r in probe["probes"]} == {0, 1, None}
     probe_err = max(r["max_abs_err"] for r in probe["probes"])
     assert probe_err == 0, probe
     pg_plane, pg_cx, pg_cy = probe_gang.inputs(device=dev)
-    pg_plain_ms, _ = host_ms(lambda: probe_gang.gang_plain(
-        "full", pg_plane, pg_cx, pg_cy))
-    pg_full = next(r for r in probe["probes"]
-                   if (r["variant"], r["mode"]) == ("gang", "full"))
+    pg_plain = {}
+    for variant, plain in (("block", probe_gang.block_plain),
+                           ("gang", probe_gang.gang_plain)):
+        pg_plain[variant] = host_ms(lambda: plain("full", pg_plane, pg_cx,
+                                                  pg_cy))
+    assert probe["parity_mismatch_blocks"] == int(
+        (pg_plain["block"][1] != pg_plain["gang"][1]).sum()), probe
+    pg_ms = {"%s_%s_w%d" % (r["variant"], r["mode"], r["walkers"]): r["ms"]
+             for r in probe["probes"] if r["variant"] != "scalar"}
+    pg_ns = {"%s_%s_w%d" % (r["variant"], r["mode"], r["walkers"]):
+             r["ns_per_eval"] for r in probe["probes"]
+             if r["variant"] != "scalar"}
     # the plane read once, cx, cy and the sums; ~20 integer operations per
     # pixel of each evaluation's 16x16 window
     pg_bound = bound(pg_plane.numel() + 12 * probe_gang.NB,
                      20 * 256 * probe_gang.NB * probe_gang.EVALS)
     emit("gang_probe", launches=dict(probe_gang.launches),
-         plain_ms_gang_full=pg_plain_ms, **probe)
+         plain_ms_full={k: v[0] for k, v in pg_plain.items()},
+         bound_ms=pg_bound[0], bound_by=pg_bound[1], nvidia_smi=smi,
+         **probe)
 
     # 14. BASELINE configs 3-5 (tools/torch_port_golden.CONFIGS):
     # fhd_lossless444_intra (1920x1080 4:4:4 at -qp=100 -gop=0, 8 frames,
@@ -1820,9 +1833,11 @@ def main():
          "source": "dsv2_tpu_torch/csrc/probe_gang.cu",
          "replaces": "tools/probe_gang.py:33",
          "launches": probe_launches, "max_abs_err": probe_err,
-         "ms": pg_full["ms"], "plain_ms": pg_plain_ms,
+         "ms": pg_ms["gang_full_w0"], "plain_ms": pg_plain["gang"][0],
          "bound_ms": pg_bound[0], "bound_by": pg_bound[1],
-         "library_ms": None}]}), flush=True)
+         "library_ms": None, "ms_by_probe": pg_ms,
+         "ns_per_eval": pg_ns,
+         "plain_ms_block": pg_plain["block"][0]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,6 +61,7 @@
 #include <algorithm>
 
 #include "hme_sched.cuh"
+#include "metr.cuh"
 
 namespace {
 
@@ -127,16 +128,12 @@ __device__ __forceinline__ int wmul(int a, int b) {
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
 }
-__device__ __forceinline__ int iabs(int x) { return x < 0 ? -x : x; }
 __device__ __forceinline__ int fdiv(int a, int b) {  // floor, b > 0
   int q = a / b;
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 __device__ __forceinline__ int divt(int a, int b) { return a / b; }
 __device__ __forceinline__ int sar_r2(int v) { return (v + 2) >> 2; }
-__device__ __forceinline__ int uavg4(int a, int b, int c, int d) {
-  return (a + b + c + d + 2) >> 2;
-}
 
 __device__ __forceinline__ Win win(const Plane& pl, int x, int y, int h,
                                    int w) {

@@ -36,7 +36,7 @@ _ENTRY = {"vk_chain": ("dsv2t_vk_chain",
           "hme_gang": ("dsv2t_hme_gang",
                        [_I, _I, _I, _P, _P, _P, _P, _I, _P]),
           "probe_gang": ("dsv2t_probe_gang",
-                         [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P])}
+                         [_I, _I, _P, _P, _P, _P] + [_I] * 6 + [_P])}
 # one source may hold several entry points
 _SOURCE = {"hme_level": "hme_search", "hme_level0": "hme_search",
            "isqrt_check": "hme_search"}
@@ -288,12 +288,27 @@ def hme_gang(l0, tw, geom, ptrs, scal, dev, sched, workers=0):
          ctypes.c_void_p(sched.data_ptr()), int(workers))
 
 
-def probe_gang(variant, mode, plane, cx, cy, out, nb, evals):
-    """Launch csrc/probe_gang.cu on the current stream: variant 0/1/2
-    (block, gang, scalar), mode 0/1/2 (full, read, compute); plane (HP,
-    WP) uint8, cx/cy (nb,) int32, out int32; checked by the caller
-    (dsv2_tpu_torch/tools/probe_gang.py)."""
+def probe_gang(variant, mode, plane, cx, cy, out, nb, evals, ctas, warps):
+    """A launcher of csrc/probe_gang.cu on the current stream: variant
+    0/1/2 (block, gang, scalar), mode 0/1/2 (full, read, compute); plane
+    (HP, WP) uint8, cx/cy (nb,) int32, out zeroed int32; the block and
+    gang probes on `ctas` CTAs of `warps` warps (launch_shape); checked by
+    the caller (dsv2_tpu_torch/tools/probe_gang.py). Returns a callable
+    that launches the kernel once on the plane's device, which must be
+    the current one, with these arguments (bound once, so that a timing
+    loop's launches cost one C call each: a warp per block finishes in
+    less time than a device switch and a stream lookup take on the host)
+    and raises if the launch fails."""
+    import torch
+    fn = entry("probe_gang")
     hp, wp = plane.shape
-    _run("probe_gang", plane.device, int(variant), int(mode),
-         *(_ptr(t) for t in (plane, cx, cy, out)), int(nb), int(evals),
-         int(hp), int(wp))
+    args = (int(variant), int(mode), *(_ptr(t) for t in (plane, cx, cy, out)),
+            int(nb), int(evals), int(hp), int(wp), int(ctas), int(warps),
+            ctypes.c_void_p(torch.cuda.current_stream(
+                plane.device).cuda_stream))
+
+    def launch():
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError("probe_gang launch failed: cudaError %d" % rc)
+    return launch

@@ -786,15 +786,18 @@ def test_lockstep_golden_cuda(cuda, backend):
     assert hme_gpu.launches[key] > n0[key]
 
 
-@pytest.mark.parametrize("nb", [16, 704])
-def test_probe_gang_vs_plain(cuda, nb):
-    """Every probe kernel (kernel 8) against its plain version, exact."""
+@pytest.mark.parametrize("walkers", [0, 1])
+@pytest.mark.parametrize("nb", [16, 701, 704])
+def test_probe_gang_vs_plain(cuda, nb, walkers):
+    """Every probe kernel (kernel 8) against its plain version, exact, on
+    the whole card (a warp per block or gang) and as one walker; 701
+    leaves a gang tail of 5 slots that stay 0."""
     from dsv2_tpu_torch.tools import probe_gang as pg
     plane, cx, cy = pg.inputs(nb, device=cuda)
     for mode in pg.MODES:
         for probe, plain in ((pg.block, pg.block_plain),
                              (pg.gang, pg.gang_plain)):
-            got = probe(mode, plane, cx, cy)
+            got = probe(mode, plane, cx, cy, walkers=walkers)
             assert got.is_cuda
             want = plain(mode, *(t.cpu() for t in (plane, cx, cy)))
             assert torch.equal(got.cpu(), want), (probe.__name__, mode)

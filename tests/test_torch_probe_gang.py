@@ -5,12 +5,25 @@ window read (:55-68), the metric (:70-76), the per-block kernel
 (:84-104), the ganged kernel (:129-159) and the computed-index load
 (:184-191), at a small NB; plus the block/gang parity count of :224-228
 (the gang's horizontal roll wraps across the 128-wide tile, and each
-evaluation overwrites its sums). Tolerance: none, integers.
+evaluation overwrites its sums). The kernel's launch shape
+(launch_shape: every block in exactly one warp's work, the gang tail in
+none, walkers=1 one warp of one CTA) for NB in 1, 7, 8, 16, 701, 704 on
+1 and 132 SMs. And the kernel source itself, built by the host C++
+compiler against the CUDA shim of tests/torch_parity.py (each warp an OS
+thread running its lanes as fibers; csrc/cp_async.cuh replaced by
+CP_ASYNC_HOST, whose copies land only at the wait that must cover
+them), against the plain versions at both launch shapes and more.
+Tolerance: none, integers.
 """
+import ctypes
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from torch_parity import (I_, P_, _cxx, _finish, _host_source, _start_build,
+                          _write_shim, in_time, ptr)
 from dsv2_tpu_torch.tools import probe_gang as pg
 
 NB = 24          # 3 gangs of 8
@@ -128,3 +141,160 @@ def test_probe_parity_mismatch():
            != np_gang("full", npl, ncx, ncy, 1))
     assert one.sum() > 0
     assert all(r["max_abs_err"] == 0 for r in res["probes"])
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("nb", [1, 7, 8, 16, 701, 704])
+def test_launch_shape(nb, sms):
+    """Every block (gang slot) in exactly one warp's work, in order
+    within a warp; none past nb, none in the gang tail; CTAs of at most
+    MAX_WARPS warps, none empty; walkers=0 a warp per unit on min(units,
+    sms) CTAs; walkers=1 one CTA of one warp over every block in order."""
+    for variant in pg.VARIANTS:
+        units = nb if variant == "block" else nb // pg.G
+        for walkers in (0, 1, 3, 2000):
+            sh = pg.launch_shape(nb, variant, walkers, sms)
+            assert sh.units == units
+            if units == 0:
+                assert sh == (0, 0, 0)
+                continue
+            assert 1 <= sh.ctas <= units
+            assert 1 <= sh.warps <= pg.MAX_WARPS[variant]
+            blocks = []
+            for k in range(sh.ctas):
+                assert len(sh.cta_units(k)) > 0
+                for w in range(sh.warps):
+                    us = list(sh.warp_units(k, w))
+                    assert us == sorted(us)
+                    if walkers == 0:
+                        assert len(us) <= 1
+                    blocks += [b for u in us
+                               for b in pg.unit_blocks(variant, u)]
+            assert sorted(blocks) == list(range(units * (
+                1 if variant == "block" else pg.G)))
+            assert max(blocks) < nb
+            if walkers == 0:
+                assert sh.ctas == min(units, sms) or sh.warps == \
+                    pg.MAX_WARPS[variant]
+            if walkers == 1:
+                assert (sh.ctas, sh.warps) == (1, 1)
+                assert list(sh.warp_units(0, 0)) == list(range(units))
+
+
+CP_ASYNC_HOST = r"""
+#pragma once
+#include <vector>
+#include "cuda_shim.h"
+namespace cpa {
+// a lane's copies by group: a group lands only at the wait that must
+// cover it (a read before that sees the shim's 0xCD fill)
+struct Copy {
+  void* dst;
+  const void* src;
+  int bytes;
+};
+struct Pending {
+  std::vector<std::vector<Copy>> groups;
+  std::vector<Copy> open;
+};
+inline thread_local Pending pending[32];  // a warp's lanes (one OS thread)
+inline void copy16(void* dst, const void* src, int bytes) {
+  const uint8_t* base = shim_smem();
+  const uint8_t* p = (const uint8_t*)dst;
+  if ((((uintptr_t)dst | (uintptr_t)src) & 15) || bytes < 0 || bytes > 16)
+    abort();
+  if (p < base || p + 16 > base + shim_w->cta->smem.size()) abort();
+  pending[shim_w->cur].open.push_back({dst, src, bytes});
+}
+inline void commit() {
+  Pending& l = pending[shim_w->cur];
+  l.groups.push_back(std::move(l.open));
+  l.open.clear();
+}
+inline void wait1() {
+  Pending& l = pending[shim_w->cur];
+  while (l.groups.size() > 1) {
+    for (const Copy& c : l.groups.front()) {
+      std::memset(c.dst, 0, 16);
+      std::memcpy(c.dst, c.src, c.bytes);
+    }
+    l.groups.erase(l.groups.begin());
+  }
+}
+}  // namespace cpa
+"""
+
+
+@pytest.fixture(scope="module")
+def host_probe(tmp_path_factory):
+    """csrc/probe_gang.cu built for the host against the shim."""
+    d = str(tmp_path_factory.mktemp("probe_host"))
+    cxx = _cxx()
+    _write_shim(d)
+    with open(os.path.join(d, "cp_async.cuh"), "w") as f:
+        f.write(CP_ASYNC_HOST)
+    fn = _finish(*_start_build(cxx, d, "probe_gang",
+                               _host_source("probe_gang"))).dsv2t_probe_gang
+    fn.restype = I_
+    fn.argtypes = [I_, I_, P_, P_, P_, P_] + [I_] * 6 + [P_]
+    return fn
+
+
+def host_run(fn, variant, mode, plane, cx, cy, evals, shape):
+    nb = cx.shape[0]
+    out = torch.zeros(128 if variant == "scalar" else nb, dtype=torch.int32)
+    hp, wp = plane.shape
+    rc = in_time(lambda: fn(
+        (*pg.VARIANTS, "scalar").index(variant), pg.MODES.index(mode),
+        ptr(plane), ptr(cx), ptr(cy), ptr(out), nb, evals, hp, wp,
+        shape.ctas, shape.warps, None), 120)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("nb,walkers,sms", [(16, 0, 132), (16, 1, 132),
+                                            (37, 0, 4), (37, 3, 132)])
+def test_probe_kernel_host(host_probe, nb, walkers, sms):
+    """The kernel source (host build) equals the plain versions in every
+    mode: a warp per unit, one walker, several units per warp (3
+    walkers over 37 blocks: a restaged double buffer), a gang tail."""
+    plane, cx, cy = pg.inputs(nb)
+    assert plane.data_ptr() % 16 == 0
+    for variant, plain in (("block", pg.block_plain),
+                           ("gang", pg.gang_plain)):
+        shape = pg.launch_shape(nb, variant, walkers, sms)
+        for mode in pg.MODES:
+            got = host_run(host_probe, variant, mode, plane, cx, cy, 2, shape)
+            assert torch.equal(got, plain(mode, plane, cx, cy, 2)), \
+                (variant, mode, shape)
+    got = host_run(host_probe, "scalar", "full", plane, cx, cy, 0,
+                   pg.Shape(0, 0, 0))
+    assert torch.equal(got, pg.scalar_plain(plane))
+
+
+def test_probe_kernel_host_edges(host_probe):
+    """Windows at the plane's corners (clipped; the last row's second
+    chunk past the plane's end, zero-filled and never read), negative
+    and large coordinates, block/compute's x added, and the entry's
+    refusals: a width not a multiple of 16, a shape with no warp."""
+    plane, _, _ = pg.inputs(8)
+    cx = torch.tensor([-5, 0, pg.WP - 16, pg.WP + 40, 3, 1000, 17, 250],
+                      dtype=torch.int32)
+    cy = torch.tensor([-9, pg.HP - 16, pg.HP + 3, 0, pg.HP - 17, 7, 500, 33],
+                      dtype=torch.int32)
+    for variant, plain in (("block", pg.block_plain),
+                           ("gang", pg.gang_plain)):
+        for walkers in (0, 1):
+            shape = pg.launch_shape(8, variant, walkers, 132)
+            for mode in pg.MODES:
+                got = host_run(host_probe, variant, mode, plane, cx, cy, 3,
+                               shape)
+                assert torch.equal(got, plain(mode, plane, cx, cy, 3)), \
+                    (variant, mode, walkers)
+    out = torch.zeros(8, dtype=torch.int32)
+    narrow = plane[:, :pg.WP - 8].contiguous()
+    for args in ((narrow, pg.WP - 8, 8, 1), (plane, pg.WP, 0, 1),
+                 (plane, pg.WP, 8, 0), (plane, pg.WP, 8, 33)):
+        p, wp, ctas, warps = args
+        assert host_probe(0, 0, ptr(p), ptr(cx), ptr(cy), ptr(out), 8, 1,
+                          pg.HP, wp, ctas, warps, None) != 0

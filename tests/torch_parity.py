@@ -247,6 +247,9 @@ inline int __any_sync(unsigned m, bool p) { return __ballot_sync(m, p) != 0; }
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T __ldcg(const T* p) { return *p; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
+  return (unsigned)((((uint64_t)hi << 32) | lo) >> (sh & 31));
+}
 inline int __clz(int v) { return v ? __builtin_clz((unsigned)v) : 32; }
 inline int __ffs(int v) { return __builtin_ffs(v); }
 inline float __fsqrt_rn(float x) { return std::sqrt(x); }

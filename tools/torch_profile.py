@@ -6,7 +6,8 @@
                                     [--hme-levels all|upper|base] |
                                     --vk [--src CSRC ...] |
                                     --lockstep [--pkg ROOT ...]
-                                    [--profile]]
+                                    [--profile] |
+                                    --probe [--src CSRC ...]]
 
 Input: the seeded synthetic clip of chip_smoke.py's main path (1920x1080
 4:2:0, 32 frames, -qp=60 -gop=0, chunk 16). Prints one JSON line each:
@@ -122,6 +123,24 @@ checkout):
            device busy share of the lockstep encode and decode under
            torch.profiler (union of the kernel and copy intervals over
            host wall time, the profiler on).
+
+With --probe it prints only:
+
+  probe_plain  the plain version of the gang cost probe (kernel 8) on the
+           card, full mode (CUDA events, mean of 10 after a warm-up).
+  probe_kernel  per source directory of --src in turn (the parent's and
+           this one's in turns, to compare; the parent's one-warp source
+           is recognised by its arguments): device ms (CUDA events, mean
+           of 20 after a warm-up) and ns per evaluation of every probe
+           (block, gang x full, read, compute) at NB = 704, EVALS = 16, on
+           the whole card (w0: launch_shape's default) and as one walker
+           (w1; the parent's only shape); equality with the plain
+           versions; ms of the full probes at 1, 4, 16 and 64 evaluations
+           (evaluations that were hoisted or folded would not add time);
+           ptxas's registers and spills, and per kernel function the
+           SASS instructions of some opcodes (shared and global loads,
+           shuffles, branches; cuobjdump -sass, whose whole listing goes
+           to DIR/probe_sass_<source>.txt).
 
 Needs CUDA and nvcc; writes under build/ and DIR (default chiprun_out/).
 """
@@ -1046,6 +1065,133 @@ def vk_study(srcs):
              plans=sweep, nvidia_smi=smi)
 
 
+PROBE_EVALS = (1, 4, 16, 64)   # the evaluation sweep of --probe
+
+
+def _probe_lib(src_dir, out_dir, sass_path):
+    """Build src_dir/probe_gang.cu under out_dir with ptxas's report;
+    returns (C entry, whether it takes a launch shape, the report's
+    lines, per kernel function its SASS instructions by opcode
+    (cuobjdump -sass, whose listing goes to sass_path) or None where the
+    toolkit has no cuobjdump)."""
+    import collections
+    import ctypes
+    import re
+    from dsv2_tpu_torch.ops import _kernels
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(src_dir, "probe_gang.cu")
+    so = os.path.join(out_dir, "libprobe_gang.so")
+    res = subprocess.run([_kernels._nvcc()] + _kernels.NVCC_FLAGS
+                         + ["-Xptxas", "-v", "-o", so, src],
+                         check=True, capture_output=True, text=True)
+    ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    with open(src) as f:
+        shaped = "int ctas, int warps" in f.read()
+    fn = ctypes.CDLL(so).dsv2t_probe_gang
+    fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [I, I, P, P, P, P] + [I] * (6 if shaped else 4) + [P]
+    sass = None
+    dump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    if os.path.exists(dump):
+        out = subprocess.run([dump, "-sass", so], capture_output=True,
+                             text=True).stdout
+        with open(sass_path, "w") as f:
+            f.write(out)
+        sass, cur = {}, None
+        for ln in out.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                cur = sass.setdefault(m.group(1), collections.Counter())
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                          ln)
+            if cur is not None and m:
+                cur[m.group(1)] += 1
+        sass = {k: {op: n for op, n in v.items()
+                    if op in ("LDS", "LDG", "SHFL", "STS", "STG", "BRA",
+                              "SHF", "IMAD", "IADD3", "LDGSTS")}
+                for k, v in sass.items()}
+    return fn, shaped, ptxas, sass
+
+
+def probe_study(srcs, out):
+    """--probe: the gang cost probe's kernels of each source directory of
+    `srcs` in turn (see the module docstring); the SASS listings go to
+    out/probe_sass_<source>.txt."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from dsv2_tpu_torch.tools import probe_gang as pg
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    emit("device", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda)
+    tags = {d: os.path.relpath(os.path.abspath(d), REPO) for d in srcs}
+
+    os.makedirs(out, exist_ok=True)
+
+    def build(d):
+        tag = tags[d].replace(os.sep, "_")
+        return d, _probe_lib(d, os.path.join(REPO, "build", "torch_profile",
+                                             "probe_" + tag),
+                             os.path.join(out, "probe_sass_%s.txt" % tag))
+    with ThreadPoolExecutor(len(tags)) as ex:
+        libs = dict(ex.map(build, list(tags)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plane, cx, cy = pg.inputs(device=dev)
+    nb = cx.shape[0]
+    want = {}
+    for variant, plain in (("block", pg.block_plain),
+                           ("gang", pg.gang_plain)):
+        for mode in pg.MODES:
+            want[variant, mode] = plain(mode, plane, cx, cy)
+        emit("probe_plain", variant=variant, mode="full",
+             ms=dev_ms(lambda: plain("full", plane, cx, cy), 10))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launcher(fn, shaped, variant, mode, walkers, evals=pg.EVALS):
+        out = torch.zeros(nb, dtype=torch.int32, device=dev)
+        args = [pg.VARIANTS.index(variant), pg.MODES.index(mode),
+                plane.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+                out.data_ptr(), nb, evals, *plane.shape]
+        if shaped:
+            sh = pg.launch_shape(nb, variant, walkers, sms)
+            args += [sh.ctas, sh.warps]
+        args.append(stream)
+
+        def run():
+            assert fn(*args) == 0
+        return run, out
+
+    for d in srcs:
+        fn, shaped, ptxas, sass = libs[d]
+        ms, ns, equal = {}, {}, True
+        for variant in pg.VARIANTS:
+            for mode in pg.MODES:
+                for w in (0, 1) if shaped else (1,):
+                    run, out = launcher(fn, shaped, variant, mode, w)
+                    run()
+                    torch.cuda.synchronize()
+                    equal &= torch.equal(out, want[variant, mode])
+                    key = "%s_%s_w%d" % (variant, mode, w)
+                    ms[key] = dev_ms(run, 20)
+                    ns[key] = ms[key] * 1e6 / (nb * pg.EVALS)
+        sweep = {}
+        for variant in pg.VARIANTS:
+            for w in (0, 1) if shaped else (1,):
+                sweep["%s_full_w%d" % (variant, w)] = {
+                    e: dev_ms(launcher(fn, shaped, variant, "full", w, e)[0],
+                              20) for e in PROBE_EVALS}
+        emit("probe_kernel", source=tags[d], shaped=shaped, equal=equal,
+             ms=ms, ns_per_eval=ns, ms_by_evals=sweep, ptxas=ptxas,
+             sass=sass, nvidia_smi=smi)
+        assert equal, tags[d]
+
+
 LOCKSTEP_PASSES = 3    # timed runs of each decode in --lockstep
 
 
@@ -1198,8 +1344,11 @@ def main(argv=None):
     ap.add_argument("--vk", action="store_true",
                     help="only the vk chain kernel: ms per source, per "
                     "pass, and the sweep of its plan")
+    ap.add_argument("--probe", action="store_true",
+                    help="only the gang cost probe kernels: ms per source "
+                    "and launch shape, ms by evaluations, ptxas and SASS")
     ap.add_argument("--src", action="append",
-                    help="with --hme or --vk: a directory of kernel "
+                    help="with --hme, --vk or --probe: a directory of kernel "
                     "sources to study, in the order given (default: this "
                     "checkout's "
                     "dsv2_tpu_torch/csrc)")
@@ -1231,6 +1380,9 @@ def main(argv=None):
                                                    "csrc")])
     if args.lockstep:
         return lockstep_study(args.pkg or [REPO], args.profile)
+    if args.probe:
+        return probe_study(args.src or [os.path.join(REPO, "dsv2_tpu_torch",
+                                                      "csrc")], args.out)
     if args.hme:
         return hme_study(args.src or [os.path.join(REPO, "dsv2_tpu_torch",
                                                     "csrc")],
