@@ -68,6 +68,7 @@ and the result line {"ok": true, "device": {...}}. Needs CUDA, nvcc and
 this repository (no JAX: the golden streams and digests come from
 tests/golden/). Writes only under build/.
 """
+import collections
 import contextlib
 import hashlib
 import io
@@ -154,14 +155,63 @@ def main():
     gold = golden.load()
     wf = filters.wavefront_filter
 
+    # the kernels' launch counters (`launch.<name>`) and the lockstep
+    # flushes' records come from utils/trace, which counts while tracing
+    trace.enable(True)
+
     def reset_counts():
-        scan_pl.vk_chain.launches = 0
-        for k in filters.KINDS:
-            wf.launches[k] = 0
-        for k in hme_gpu.launches:
-            hme_gpu.launches[k] = 0
+        """Every launch count (and span record) set to 0."""
+        trace.reset()
         for k in probe_gang.launches:
             probe_gang.launches[k] = 0
+
+    def launched(name):
+        """Launches counted as `launch.<name>` since reset_counts()."""
+        return trace.counters().get("launch." + name, 0)
+
+    def wf_launches():
+        """Filter kernel launches by kind since reset_counts()."""
+        return {k: launched("wavefront_filter." + k) for k in filters.KINDS}
+
+    def flush_log(keys=None):
+        """Each lockstep flush of a key since reset_counts(), in order
+        (from the `lockstep.flush` records, whose children carry the key
+        in their names): key, lanes, the lanes of each of its
+        dispatches, and the vk, filter and gang launches made inside
+        them; only the keys in `keys`, where given."""
+        recs = trace.records()
+        kids = collections.defaultdict(list)
+        for r in recs:
+            kids[r.parent].append(r)
+
+        def inside(r):
+            c = collections.Counter(r.counts or {})
+            for k in kids[r.id]:
+                c.update(inside(k))
+            return c
+        out = []
+        for r in sorted((r for r in recs if r.name == "lockstep.flush"),
+                        key=lambda r: r.t0):
+            for key in r.ids["key"].split("+"):
+                if keys is not None and key not in keys:
+                    continue
+                mine = [k for k in kids[r.id]
+                        if k.name.rsplit(".", 1)[-1] == key]
+                runs = [k.ids["lanes"] for k in mine
+                        if k.name.startswith("lockstep.dispatch.")]
+                c = collections.Counter()
+                for k in mine:
+                    c.update(inside(k))
+                out.append(dict(
+                    key=key, lanes=sum(runs), runs=runs,
+                    vk=c.get("launch.vk_chain", 0),
+                    filters={k: c["launch.wavefront_filter." + k]
+                             for k in filters.KINDS
+                             if c.get("launch.wavefront_filter." + k)},
+                    gang={k: c["launch." + k] for k in (
+                        "hme_gang_level", "hme_gang_level0")
+                        if c.get("launch." + k)}))
+        return out
 
     # 1. device
     smi = subprocess.run(
@@ -451,12 +501,10 @@ def main():
 
     # 6. main path, encode: 32 FHD frames through encode_intra_batch
     want = gold[golden.key(golden.FHD, QP)]
-    trace.enable(True)
     warm_ms, data = host_ms(lambda: golden.encode(
         cli, frames, meta, QP, batch=batch.encode_intra_batch, chunk=CHUNK,
         device=dev))
     assert golden.digest(data)["sha256"] == want["sha256"], "warm digest"
-    trace.reset()
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -467,7 +515,7 @@ def main():
     data = b"".join(out)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    vk_launches = scan_pl.vk_chain.launches
+    vk_launches = launched("vk_chain")
     stages = trace.totals()
     sha = hashlib.sha256(data).hexdigest()
     assert sha == want["sha256"] and len(data) == want["length"], sha
@@ -487,7 +535,6 @@ def main():
             y = golden.decoded_y4m(decoder, y4m, stream,
                                    decoder=decoder.Decoder(device=dev))
         assert golden.digest(y) == want, (key, "warm decode digest")
-        trace.reset()
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -495,9 +542,9 @@ def main():
                                decoder=decoder.Decoder(device=dev))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = dict(wf.launches)
+        launches = wf_launches()
         assert golden.digest(y) == want, (key, "decode digest")
-        assert scan_pl.vk_chain.launches == 0
+        assert launched("vk_chain") == 0
         return dict(stream=key, frames=nfr, fps=nfr / dt, seconds=dt,
                     sha256=want["sha256"], golden=True,
                     filter_launches=launches, stage_seconds=trace.totals())
@@ -665,7 +712,6 @@ def main():
     assert golden.digest(pdata) == {k: gold[pkey][k]
                                     for k in ("sha256", "length")}, \
         "warm P digest"
-    trace.reset()
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -678,10 +724,10 @@ def main():
     pdata = b"".join(out)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    hme_launches = {k: hme_gpu.launches[k]
+    hme_launches = {k: launched(k)
                     for k in ("hme_level", "hme_level0")}
-    p_filter_launches = dict(wf.launches)
-    p_vk_launches = scan_pl.vk_chain.launches
+    p_filter_launches = wf_launches()
+    p_vk_launches = launched("vk_chain")
     sha = hashlib.sha256(pdata).hexdigest()
     assert sha == gold[pkey]["sha256"] and len(pdata) == gold[pkey][
         "length"], sha
@@ -695,7 +741,6 @@ def main():
                                 "hme_level0": 7},
          filter_launches=p_filter_launches, vk_chain_launches=p_vk_launches,
          stage_seconds=trace.totals())
-    trace.enable(False)
     del frames_p
     # the vk kernel at B = 1 as the P paths launch it: P frame 1's luma
     # plane (after frame 0's three planes, the first of luma size)
@@ -816,7 +861,6 @@ def main():
     # of the committed CIF CRF stream (a corrupt P plane reconstructs
     # against a zero residual, a corrupt intra plane is zeroed, the filter
     # kernel runs on every picture); every frame against dsv2_tpu's digest.
-    trace.enable(True)
     trials = golden.corrupt_streams()
 
     def decode_trials():
@@ -835,13 +879,12 @@ def main():
         return frames_, bad
 
     warm_ms, _ = host_ms(decode_trials)
-    trace.reset()
     reset_counts()
     dt_ms, (cframes, cbad) = host_ms(decode_trials)
-    corrupt_launches = dict(wf.launches)
+    corrupt_launches = wf_launches()
     assert cbad["p"] > 0 and cbad["intra"] > 0, cbad
     assert corrupt_launches["luma"] > 0 and corrupt_launches["intra"] > 0
-    assert scan_pl.vk_chain.launches == 0
+    assert launched("vk_chain") == 0
     emit("decode_corrupt", trials=len(trials), frames=cframes,
          corrupt_p_planes=cbad["p"], corrupt_intra_planes=cbad["intra"],
          fps=cframes / (dt_ms / 1e3), seconds=dt_ms / 1e3,
@@ -865,11 +908,11 @@ def main():
             assert golden.digest(adata) == {
                 k: want[k] for k in ("sha256", "length")}, name_
             dec = decoder.Decoder(device=dev)
-            wf0 = sum(wf.launches.values())
+            wf0 = sum(wf_launches().values())
             dec_ms, ay = host_ms(lambda: golden.decoded_y4m(
                 decoder, y4m, adata, decoder=dec))
             assert golden.digest(ay) == want["decode"], name_
-            dec_wf = sum(wf.launches.values()) - wf0
+            dec_wf = sum(wf_launches().values()) - wf0
             assert dec_wf > 0 and dec._arena.is_cuda, name_
             recs.append(dict(stream=golden.key(name_, qp_, gop_),
                              frames=len(afr), encode_ms=enc_ms,
@@ -877,12 +920,11 @@ def main():
         return recs
 
     arena_run()
-    trace.reset()
     reset_counts()
     arena_recs = arena_run()
-    arena_vk = scan_pl.vk_chain.launches
-    arena_wf = dict(wf.launches)
-    arena_hme = {k: hme_gpu.launches[k] for k in ("hme_level", "hme_level0")}
+    arena_vk = launched("vk_chain")
+    arena_wf = wf_launches()
+    arena_hme = {k: launched(k) for k in ("hme_level", "hme_level0")}
     assert arena_vk > 0 and arena_hme["hme_level0"] > 0
     emit("decode_arena", cases=arena_recs, golden=True,
          vk_chain_launches=arena_vk, filter_launches=arena_wf,
@@ -903,30 +945,28 @@ def main():
         enc.hme_backend = backend
         out, vk = [], {"p": 0, "intra": 0}
         for fr in hframes:
-            n0, p0 = scan_pl.vk_chain.launches, enc.stats.pnum
+            n0, p0 = launched("vk_chain"), enc.stats.pnum
             out.extend(enc.encode_frame(fr))
             vk["p" if enc.stats.pnum > p0 else "intra"] += (
-                scan_pl.vk_chain.launches - n0)
+                launched("vk_chain") - n0)
         out.extend(enc.end_of_stream())
         return b"".join(out), vk
 
     host_recs = {}
     for backend in (hbackend, "wave"):
         host_ms(lambda: host_encode(backend))
-        trace.reset()
         reset_counts()
         dt_ms, (hdata, hvk) = host_ms(lambda: host_encode(backend))
         assert golden.digest(hdata) == {k: gold[hkey][k]
                                         for k in ("sha256", "length")}, \
             backend
-        hl = {k: hme_gpu.launches[k] for k in ("hme_level", "hme_level0")}
+        hl = {k: launched(k) for k in ("hme_level", "hme_level0")}
         assert hl["hme_level0"] > 0, (backend, hl)
         assert hvk["p"] > 0, hvk
         host_recs[backend] = dict(
             fps=hnfr / (dt_ms / 1e3), seconds=dt_ms / 1e3,
             vk_chain_launches=hvk, hme_launches=hl,
-            filter_launches=dict(wf.launches), stage_seconds=trace.totals())
-    trace.enable(False)
+            filter_launches=wf_launches(), stage_seconds=trace.totals())
     emit("encode_host_hme", stream=hkey, frames=hnfr, gop=hgop, qp=hqp,
          golden=True, backends=host_recs)
     # 11. the gang motion-search kernels (6/7) level by level: 8 seeded
@@ -1074,65 +1114,22 @@ def main():
     streams = [golden.lane_frames(ls_frames, i) for i in range(nlanes)]
     del ls_frames
     want_ls = [gold[golden.lane_key(i)] for i in range(nlanes)]
-    flush_lanes, ls_levels = [], set()
-    make_gang = hme_gang.make_motion_est
-
-    def counting_gang(cfg):
-        fn = make_gang(cfg)
-
-        def f(lanes):
-            flush_lanes.append(len(lanes))
-            ls_levels.add(cfg.pyramid_levels)
-            return fn(lanes)
-        return f
-
-    # the lane-batched chain steps (devsteps.lanewise), counted: each
-    # flush's key, lanes, and the vk and filter launches it made
-    lane_keys = {devsteps.make_input_prep: "input_prep",
-                 devsteps.make_i_chain_step: "i_chain",
-                 devsteps.make_p_chain_step: "p_chain",
-                 devsteps.make_id_chain_step: "id_chain",
-                 devsteps.make_pd_chain_step: "pd_chain"}
-    lanewise = devsteps.lanewise
-    in_flush = [None]
-
-    @contextlib.contextmanager
-    def counting_flushes():
-        flushes = []
-
-        def counted(make_step):
-            builder = lanewise(make_step)
-            key = lane_keys.get(make_step, make_step.__name__)
-
-            def build(cfg):
-                fn = builder(cfg)
-
-                def run(lanes):
-                    vk0, wf0 = vk_fn.launches, dict(wf.launches)
-                    in_flush[0] = key
-                    try:
-                        out = fn(lanes)
-                    finally:
-                        in_flush[0] = None
-                    flushes.append(dict(
-                        key=key, lanes=len(lanes), vk=vk_fn.launches - vk0,
-                        filters={k: wf.launches[k] - wf0[k] for k in wf0
-                                 if wf.launches[k] != wf0[k]}))
-                    return out
-                return run
-            return build
-        devsteps.lanewise = counted
-        try:
-            yield flushes
-        finally:
-            devsteps.lanewise = lanewise
+    # the flushes of the lane-batched chain steps (devsteps.lanewise);
+    # the motion search's flushes are "hme_gang"
+    chain_keys = ("input_prep", "i_chain", "p_chain", "id_chain",
+                  "pd_chain")
 
     def by_key(flushes):
-        """{key: flushes} and {key: lanes} of a counted run."""
+        """{key: flushes} and {key: lanes} of a counted run, from the
+        flush records, checked against the batcher's per-key counters."""
         keys = sorted({f["key"] for f in flushes})
-        return ({k: sum(f["key"] == k for f in flushes) for k in keys},
-                {k: sum(f["lanes"] for f in flushes if f["key"] == k)
-                 for k in keys})
+        count = {k: sum(f["key"] == k for f in flushes) for k in keys}
+        lanes = {k: sum(f["lanes"] for f in flushes if f["key"] == k)
+                 for k in keys}
+        cnt = trace.counters()
+        assert count == {k: cnt.get("lockstep.flushes." + k) for k in keys}
+        assert lanes == {k: cnt.get("lockstep.lanes." + k) for k in keys}
+        return count, lanes
 
     def lockstep(strs, backend, **kw):
         def factory():
@@ -1157,6 +1154,7 @@ def main():
             lenc.encode_frame(fr)
     vk_b1.append(compare("cif_lane_p_frame1_luma_b1",
                          *luma_of_frame1(lane_calls), time_it=True))
+    ls_pyr = lenc.pyramid_levels     # the lanes' levels, as configured
     del lane_calls, lenc
     emit("vk_b1", kernel="vk_chain", cases=vk_b1)
     # the warm run (an I and a P frame per lane) records the kernel calls
@@ -1164,34 +1162,31 @@ def main():
     # planes and the U+V planes of 8 lanes
     flush_calls = {"vk": [], "wf": []}
 
+    def in_p_flush():
+        sp = trace.current()
+        return sp is not None and sp.name == "lockstep.dispatch.p_chain"
+
     def rec_vk(thr, s0, nnz, stats=None):
-        if in_flush[0] == "p_chain":
+        if in_p_flush():
             flush_calls["vk"].append((thr.clone(), s0.clone(), nnz.clone()))
         return vk_fn(thr, s0, nnz, stats)
 
     def rec_wf(kind, lay, plane_, props, scal):
-        if in_flush[0] == "p_chain":
+        if in_p_flush():
             flush_calls["wf"].append((kind, lay, plane_.clone(),
                                       props.clone(), scal.clone()))
         return wf(kind, lay, plane_, props, scal)
     scan_pl.vk_chain, filters.wavefront_filter = rec_vk, rec_wf
     try:
-        with counting_flushes():
-            warm_s, _ = lockstep([st[:LS_WARM_FRAMES] for st in streams],
-                                 "gang", width=nlanes)
+        warm_s, _ = lockstep([st[:LS_WARM_FRAMES] for st in streams],
+                             "gang", width=nlanes)
     finally:
         scan_pl.vk_chain, filters.wavefront_filter = vk_fn, wf
-    trace.enable(True)
-    trace.reset()
     reset_counts()
-    hme_gang.make_motion_est = counting_gang
-    try:
-        with counting_flushes() as ls_flushes:
-            dt, out = lockstep(streams, "gang", width=nlanes)
-    finally:
-        hme_gang.make_motion_est = make_gang
+    dt, out = lockstep(streams, "gang", width=nlanes)
     stages = trace.totals()
-    trace.enable(False)
+    ls_flushes = flush_log(chain_keys)
+    gang_flushes = flush_log(("hme_gang",))
     # kernel 1: 3 launches (a plane each) per chain flush; kernel 2: one
     # per intra flush, two (luma; U+V) per P flush; none elsewhere
     want_per_flush = {"input_prep": (0, {}), "i_chain": (3, {"intra": 1}),
@@ -1199,21 +1194,24 @@ def main():
     for f in ls_flushes:
         assert (f["vk"], f["filters"]) == want_per_flush[f["key"]], f
     ls_flush_count, ls_flush_lanes = by_key(ls_flushes)
-    ls_launches = {k: hme_gpu.launches[k]
+    ls_launches = {k: launched(k)
                    for k in ("hme_gang_level", "hme_gang_level0")}
-    ls_filter_launches = dict(wf.launches)
-    ls_vk_launches = scan_pl.vk_chain.launches
+    ls_filter_launches = wf_launches()
+    ls_vk_launches = launched("vk_chain")
     assert ls_vk_launches > 0, "vk_chain never launched on the lockstep path"
     digests = [golden.digest(o) for o in out]
     for i, (got, w) in enumerate(zip(digests, want_ls)):
         assert got == {k: w[k] for k in ("sha256", "length")}, (i, got)
+    flush_lanes = [f["lanes"] for f in gang_flushes]
     nflush = len(flush_lanes)
-    assert len(ls_levels) == 1, ls_levels
-    expect = {"hme_gang_level": nflush * ls_levels.pop(),
-              "hme_gang_level0": nflush}
+    # one launch of kernel 6 per upper level and one of kernel 7 per flush
+    want_gang = {"hme_gang_level": ls_pyr, "hme_gang_level0": 1}
+    assert all(f["gang"] == want_gang for f in gang_flushes), \
+        (want_gang, gang_flushes[:3])
+    expect = {"hme_gang_level": nflush * ls_pyr, "hme_gang_level0": nflush}
     assert flush_lanes == [nlanes] * (per - 1), flush_lanes
     assert ls_launches == expect, (ls_launches, expect)
-    assert hme_gpu.launches["hme_level0"] == 0
+    assert launched("hme_level0") == 0
     emit("lockstep_p_encode", lanes=nlanes, frames_per_lane=per, gop=gop,
          qp=qp, fps=nlanes * per / dt, seconds=dt, warm_seconds=warm_s,
          warm_frames_per_lane=LS_WARM_FRAMES, golden=True,
@@ -1282,12 +1280,12 @@ def main():
          width=nlanes // 2, frames_per_lane=LS_GROUPS_FRAMES,
          fps=nlanes * LS_GROUPS_FRAMES / dt2, seconds=dt2,
          equal_to_gang_prefix=True)
-    n0 = hme_gpu.launches["hme_level0"]
+    n0 = launched("hme_level0")
     dt3, out3 = lockstep([st[:LS_PALLAS_FRAMES] for st in streams], "pallas",
                          width=nlanes)
     for o3, o in zip(out3, out):
         assert o.startswith(o3), "pallas lockstep bytes differ"
-    assert hme_gpu.launches["hme_level0"] - n0 == nlanes * (
+    assert launched("hme_level0") - n0 == nlanes * (
         LS_PALLAS_FRAMES - 1)
     emit("lockstep_p_encode_pallas", lanes=nlanes,
          frames_per_lane=LS_PALLAS_FRAMES, fps=nlanes * LS_PALLAS_FRAMES / dt3,
@@ -1295,13 +1293,9 @@ def main():
     # 12b. one group narrower than the streams: the 8 lanes at width 3,
     # each flush run as launches of at most 3 lanes
     width, nfr = LS_NARROW
-    flush_lanes.clear()
-    hme_gang.make_motion_est = counting_gang
-    try:
-        dt4, out4 = lockstep([st[:nfr] for st in streams], "gang",
-                             width=width)
-    finally:
-        hme_gang.make_motion_est = make_gang
+    reset_counts()
+    dt4, out4 = lockstep([st[:nfr] for st in streams], "gang", width=width)
+    flush_lanes = [n for f in flush_log(("hme_gang",)) for n in f["runs"]]
     for o4, o in zip(out4, out):
         assert o.startswith(o4), "narrow lockstep bytes differ"
     assert max(flush_lanes) == width and sum(flush_lanes) == nlanes * (
@@ -1336,14 +1330,11 @@ def main():
             io.BytesIO(stream), decoder=decoder.Decoder(device=dev))]
         host_ms(lambda: pgop.decode_gops_parallel(io.BytesIO(stream),
                                                   width=width, device=dev))
-        trace.enable(True)
-        trace.reset()
         reset_counts()
-        with counting_flushes() as fl:
-            dt_ms, got = host_ms(lambda: pgop.decode_gops_parallel(
-                io.BytesIO(stream), width=width, device=dev))
+        dt_ms, got = host_ms(lambda: pgop.decode_gops_parallel(
+            io.BytesIO(stream), width=width, device=dev))
         st = trace.totals()
-        trace.enable(False)
+        fl = flush_log(chain_keys)
         assert len(got) == len(seq) == nfr, (label, len(got), len(seq))
         assert all(g.tobytes() == q.tobytes() for g, q in zip(got, seq)), \
             (label, "lockstep decode differs from the sequential decode")
@@ -1351,8 +1342,8 @@ def main():
             want_f = (0, {"intra": 1} if f["key"] == "id_chain"
                       else {"luma": 1, "chroma": 1})
             assert (f["vk"], f["filters"]) == want_f, f
-        launches = dict(wf.launches)
-        assert vk_fn.launches == 0 and sum(launches.values()) == sum(
+        launches = wf_launches()
+        assert launched("vk_chain") == 0 and sum(launches.values()) == sum(
             sum(f["filters"].values()) for f in fl)
         count, lanes = by_key(fl)
         return dict(stream=label, gops=len(pgop.split_gop_packets(
@@ -1407,15 +1398,19 @@ def main():
     counter = "\n".join([
         "import json, runpy, sys",
         "sys.argv = sys.argv[1:]",
-        "from dsv2_tpu_torch.ops import filters, scan_pl",
+        "from dsv2_tpu_torch.ops import filters",
+        "from dsv2_tpu_torch.utils import trace",
+        "trace.enable(True)",
         "try:",
         "    runpy.run_module(sys.argv[0], run_name='__main__',",
         "                     alter_sys=True)",
         "except SystemExit as e:",
         "    assert not e.code, e.code",
-        "print(json.dumps({'vk_chain': scan_pl.vk_chain.launches,",
+        "c = trace.counters()",
+        "print(json.dumps({'vk_chain': c.get('launch.vk_chain', 0),",
         "                  'wavefront_filter':",
-        "                  dict(filters.wavefront_filter.launches)}))"])
+        "                  {k: c.get('launch.wavefront_filter.' + k, 0)",
+        "                   for k in filters.KINDS}}))"])
 
     def tool(module, *args):
         t0 = time.perf_counter()
@@ -1447,11 +1442,11 @@ def main():
     gp_ms, gp = host_ms(lambda: pgop.encode_gops_parallel(
         streams[0] + streams[1], ls_meta, gop, gops_factory, workers=4))
     assert gp == out[0] + out[1] + encode_eos(), "encode_gops_parallel"
-    tools_vk = enc_counts["vk_chain"] + vk_fn.launches
+    tools_vk = enc_counts["vk_chain"] + launched("vk_chain")
     tools_wf = (sum(enc_counts["wavefront_filter"].values())
                 + sum(dec_counts["wavefront_filter"].values())
-                + sum(wf.launches.values()))
-    assert enc_counts["vk_chain"] > 0 and vk_fn.launches > 0
+                + sum(wf_launches().values()))
+    assert enc_counts["vk_chain"] > 0 and launched("vk_chain") > 0
     assert all(dec_counts["wavefront_filter"].values()), dec_counts
     emit("tools_parallel", equal=True,
          parallel_encode=dict(lanes=nlanes, frames=nlanes * per,
@@ -1460,8 +1455,8 @@ def main():
                               seconds=dec_s, launches=dec_counts),
          encode_gops_parallel=dict(workers=4, frames=2 * per,
                                    seconds=gp_ms / 1e3,
-                                   vk_chain_launches=vk_fn.launches,
-                                   filter_launches=dict(wf.launches)))
+                                   vk_chain_launches=launched("vk_chain"),
+                                   filter_launches=wf_launches()))
     del streams, out, ls_stream, gp
 
     # 13. the gang cost probe (kernel 8): its tool's run at both launch
@@ -1515,8 +1510,8 @@ def main():
     def counts():
         """Launches of kernels 1, 2 (by kind), 4/5 and 6/7 since the last
         reset_counts()."""
-        return dict(vk_chain=vk_fn.launches, filter=dict(wf.launches),
-                    **{k: hme_gpu.launches[k] for k in (
+        return dict(vk_chain=launched("vk_chain"), filter=wf_launches(),
+                    **{k: launched(k) for k in (
                         "hme_level", "hme_level0", "hme_gang_level",
                         "hme_gang_level0")})
 
@@ -1543,7 +1538,6 @@ def main():
         finally:
             scan_pl.vk_chain, hme_gpu.make_motion_est = vk_fn, make_me
 
-    trace.enable(True)
     cfg_counts = {}
     for phase, (cname, cqp, cgop, cnfr, ceff, cchunk) in \
             golden.CONFIGS.items():
@@ -1572,13 +1566,11 @@ def main():
         with recording_calls(vk_calls, wf_calls, me_calls):
             warm_ms, (_, wdata) = host_ms(lambda: cencode(cframes[:nwarm]))
         warm_dec_ms, _ = host_ms(lambda: cdecode(wdata))
-        trace.reset()
         reset_counts()
         enc_ms, (cenc, cdata) = host_ms(lambda: cencode(cframes))
         enc_counts, enc_stages = counts(), trace.totals()
         assert golden.digest(cdata) == {k: want[k] for k in (
             "sha256", "length")}, (phase, golden.digest(cdata))
-        trace.reset()
         reset_counts()
         dec_ms, cy = host_ms(lambda: cdecode(cdata))
         dec_counts, dec_stages = counts(), trace.totals()
@@ -1706,7 +1698,6 @@ def main():
         sweep_add(c)
         sweep_recs.append(dict(case="gang:%s %s" % (gname, " ".join(gargs)),
                                lanes=gn, seconds=s_ms / 1e3, launches=c))
-    trace.enable(False)
     assert all(sweep_total[k] > 0 for k in (
         "vk_chain", "filter", "hme_level", "hme_level0", "hme_gang_level",
         "hme_gang_level0")), sweep_total

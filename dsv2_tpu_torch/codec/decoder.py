@@ -35,6 +35,7 @@ from ..core import constants as K
 from ..core import intmath as im
 from ..core.frame import Frame, coef_dims, plane_dims
 from ..ops import hzcc, mc, sbt
+from ..parallel import xfer
 from ..utils import log, packet
 from ..utils.trace import stage
 from . import motion
@@ -139,7 +140,7 @@ class Decoder:
         """Host array (or a tuple of them) -> tensor(s) on the device."""
         if isinstance(a, tuple):
             return tuple(self._up(x) for x in a)
-        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+        return xfer.put(np.ascontiguousarray(a), self.device)
 
     def decode_packet(self, buf):
         """Decode one packet buffer. Returns (code, Frame|None, fno)."""
@@ -312,7 +313,7 @@ class Decoder:
             self.ref_dev = chain
 
         def realize():
-            return self._frame_of(packed.cpu().numpy(), job)
+            return self._frame_of(xfer.host(packed), job)
 
         return DEC_OK, realize, job["fno"]
 
@@ -420,7 +421,7 @@ class ResidentSum:
     def total(self):
         t = self._host
         if self._dev is not None:
-            t += int(self._dev)
+            t += xfer.scalar(self._dev)
         return t & 0xFFFFFFFF
 
 
@@ -495,7 +496,7 @@ def decode_stream_chunked(stream, chunk=None, decoder=None, resident=None):
                 yield j["fno"], j["meta"], None
             return
         with stage("decode.fetch"):
-            flat = payload.cpu().numpy()
+            flat = xfer.host(payload)
             frames = [dec._frame_of(flat[k], j) for k, j in enumerate(jobs)]
         for j, frame in zip(jobs, frames):
             yield j["fno"], j["meta"], frame

@@ -413,7 +413,7 @@ def fetch_sparse_outs(step_out):
     ("dense", the int32 scan array)."""
     buf, smalls, vs = step_out[:3]
     lane = step_out[4] if len(step_out) > 4 else 0
-    sm = smalls.cpu().numpy().reshape(3, 4, -1)
+    sm = xfer.host(smalls).reshape(3, 4, -1)
     useds = sm[:, 2, :].astype(np.int64)             # (plane, frame)
     if useds.shape[1] == 1:   # one frame: the occupied prefix
         offs = np.cumsum(useds[:, 0]) - useds[:, 0]
@@ -423,12 +423,12 @@ def fetch_sparse_outs(step_out):
         packed = torch.cat([buf[int(o):int(o + u)] for o, u in
                             zip(offs[:, lane], useds[:, lane])])
         offs = np.cumsum(useds[:, lane]) - useds[:, lane]
-    packed = packed.cpu().numpy()   # one copy
+    packed = xfer.host(packed)   # one copy
     vscans, lls = [], []
     for c in range(3):
         _, ll, used, fb = (int(x) for x in sm[c, :, lane])
         if fb:
-            vscans.append(("dense", vs[c][0].cpu().numpy()))
+            vscans.append(("dense", xfer.host(vs[c][0])))
         else:
             vscans.append(("blob", packed[offs[c]:offs[c] + used]))
         lls.append(ll)

@@ -192,22 +192,22 @@ class Encoder:
         """Encode one frame (y, u, v arrays). Returns a list of packet
         buffers (bytes) with link offsets applied (ref: dsv_enc,
         dsv_encoder.c:1430-1575)."""
-        meta = self.meta
-        padded = Frame(meta.subsamp, meta.width, meta.height, border=True)
-        padded.load(planes)
-        padded.extend()
-        d = EncData(self.next_fnum, padded)
-        self.next_fnum += 1
-
-        with stage("encode_frame"):
+        with stage("encode_frame", fnum=self.next_fnum):
+            meta = self.meta
+            padded = Frame(meta.subsamp, meta.width, meta.height,
+                           border=True)
+            padded.load(planes)
+            padded.extend()
+            d = EncData(self.next_fnum, padded)
+            self.next_fnum += 1
             gop_start, outbuf = self._encode_one(d)
-        bufs = []
-        if gop_start:
-            mbuf = bytearray(packet.encode_metadata(meta))
-            bufs.append(self._link(mbuf))
-        bufs.append(self._link(bytearray(outbuf)))
-        self._tally(d, len(outbuf))
-        return [bytes(b) for b in bufs]
+            bufs = []
+            if gop_start:
+                mbuf = bytearray(packet.encode_metadata(meta))
+                bufs.append(self._link(mbuf))
+            bufs.append(self._link(bytearray(outbuf)))
+            self._tally(d, len(outbuf))
+            return [bytes(b) for b in bufs]
 
     def end_of_stream(self):
         buf = bytearray(packet.encode_eos())

@@ -38,6 +38,8 @@ import numpy as np
 import torch
 
 from ..core import constants as K
+from ..parallel import xfer
+from ..utils import trace
 from . import tint
 
 F_STABLE = 1 << K.STABLE_BIT
@@ -574,7 +576,8 @@ def wavefront_filter(kind, lay, plane, props, scal):
     tensor, the plain version for a CPU tensor. A CUDA tensor gets the
     kernel or an error; the kernel holds the plane as uint8, so its values
     must lie in [0, 255], as every codec plane's do (the filters keep them
-    there). `wavefront_filter.launches[kind]` counts kernel launches."""
+    there). Each kernel launch counts as `launch.wavefront_filter.<kind>`
+    (utils/trace)."""
     if kind not in KINDS:
         raise ValueError("unknown filter kind %r" % (kind,))
     nb = plane.shape[0]
@@ -597,14 +600,8 @@ def wavefront_filter(kind, lay, plane, props, scal):
         raise ValueError("no wavefront filter for device %s" % plane.device)
     from . import _kernels
     _kernels.wavefront_filter(KINDS.index(kind), lay, plane, props, scal)
-    _launches[kind] += 1
+    trace.count("launch.wavefront_filter." + kind)
     return plane
-
-
-# the counts live in one dict the function exposes, so they survive a
-# caller that wraps the module attribute
-_launches = {k: 0 for k in KINDS}
-wavefront_filter.launches = _launches
 
 
 # ---------------------------------------------------------------------------
@@ -628,7 +625,7 @@ def _scalars(lead, device, *vals):
     nb = int(np.prod(lead, dtype=np.int64))
     sc = torch.zeros((nb, 8), dtype=_I32, device=device)
     for k, v in enumerate(vals):
-        t = torch.as_tensor(v, device=device).to(_I32)
+        t = xfer.put(v, device).to(_I32)
         sc[:, k] = _lead(t, lead).reshape(-1)
     return sc
 
@@ -658,8 +655,8 @@ def _tile_props(grids, fx, fy):
     """(..., NP, nbv, nbh) per-block grids -> (..., NP, nty, ntx) per tile
     through the static tile->block maps."""
     dev = grids.device
-    fy_t = torch.as_tensor(fy, device=dev)
-    fx_t = torch.as_tensor(fx, device=dev)
+    fy_t = xfer.put(fy, dev)
+    fx_t = xfer.put(fx, dev)
     return grids[..., fy_t[:, None], fx_t[None, :]]
 
 
@@ -696,7 +693,7 @@ def luma_filter_graph(pw, ph, nbh, nbv, blk_w, blk_h, inter_sharpen,
                                    (nty, ntx))
                    for a, ax in ((edgeh, 1), (edgev, 0), (edgehs, 1),
                                  (edgevs, 0))]).astype(np.int32)
-    st = torch.as_tensor(st, device=vis_u8.device)
+    st = xfer.put(st, vis_u8.device)
     props = torch.cat([props_bt,
                        st.expand(props_bt.shape[:-3] + st.shape)], dim=-3)
     return _run("luma", lay, vis_u8, props, fq, fthresh, do_filter, tmc,

@@ -13,6 +13,7 @@ version. `make_motion_est_lanes(cfg)` is its lockstep builder (key
 ("hme_pl", cfg)): the lanes of a flush one after another.
 `hme_gang_level`/`hme_gang_level0` launch kernels 6/7 for a list of
 lanes (ops/hme_gang builds the search from them).
+Each launch counts as `launch.<wrapper name>` (utils/trace).
 
 Layout: the TPU kernels walk the anti-diagonals as a sequential grid,
 keep the last three diagonals in an SMEM ring and get every parent and
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core import constants as K
+from ..utils import trace
 from . import hme_wave as hw
 
 _I32 = torch.int32
@@ -43,8 +45,6 @@ GEOM = ("nbh", "nbv", "blk_w", "blk_h", "vid_w", "vid_h", "hs", "vs",
         "fw", "fh", "W", "H", "CW", "CH", "quant", "skip_thresh", "psyf",
         "b2sr")
 
-launches = {"hme_level": 0, "hme_level0": 0, "hme_gang_level": 0,
-            "hme_gang_level0": 0}
 # blocks per warp of the gang kernels (a block gets 32 // GANG lanes):
 # 1, 2 or 4. 1 was fastest at the lockstep cell's CIF levels 0-1 on an
 # H100 (chip_smoke.py phase hme_gang_vs_plain; PERF.md, kernels 6/7)
@@ -110,7 +110,7 @@ def hme_level(cfg, level, src, ref, ogr, parent, tmv, gxy, quant):
     geom = geometry(cfg, level, [src], [], quant, 0)
     _kernels.hme_level(src, ref, ogr, parent, tmv, gxy, out,
                        _sched(cfg, 1, src.device, level), geom)
-    launches["hme_level"] += 1
+    trace.count("launch.hme_level")
     return out
 
 
@@ -137,7 +137,7 @@ def hme_level0(cfg, src, ref, ogr, chroma, parent, tmv, gxy, quant,
     geom = geometry(cfg, 0, [src], list(chroma), quant, skip_thresh)
     _kernels.hme_level0(src, ref, ogr, chroma, parent, tmv, gxy, out, sums,
                         _sched(cfg, 1, dev), geom)
-    launches["hme_level0"] += 1
+    trace.count("launch.hme_level0")
     return out, sums
 
 
@@ -207,7 +207,7 @@ def hme_gang_level(cfg, level, srcs, refs, ogrs, parent, tmv, gxy, quants,
         _kernels.hme_gang(False, 32 // (gang or GANG), geom, ptrs, scal,
                           srcs[0].device,
                           _sched(cfg, m, srcs[0].device, level))
-        launches["hme_gang_level"] += 1
+        trace.count("launch.hme_gang_level")
     return out
 
 
@@ -234,7 +234,7 @@ def hme_gang_level0(cfg, srcs, refs, ogrs, chromas, parent, tmv, gxy,
             quants[sl], skip_threshs[sl], gang or GANG)
         _kernels.hme_gang(True, 32 // (gang or GANG), geom, ptrs, scal, dev,
                           _sched(cfg, len(lanes), dev))
-        launches["hme_gang_level0"] += 1
+        trace.count("launch.hme_gang_level0")
     return out, sums
 
 

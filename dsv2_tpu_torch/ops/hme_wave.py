@@ -31,6 +31,7 @@ import torch
 from ..core import constants as K
 from ..core import intmath as im
 from ..core.frame import B
+from ..parallel import xfer
 from . import tint
 from .tint import on_device
 
@@ -1232,8 +1233,8 @@ def prepare_motion_est(enc, d):
     dev = srcp[0].device
     if has_tmv:
         mf = ref.final_mvs
-        tmv = torch.as_tensor(np.stack([mf.grid(mf.x), mf.grid(mf.y)])
-                              .astype(np.int32)).to(dev)
+        tmv = xfer.put(np.stack([mf.grid(mf.x), mf.grid(mf.y)])
+                       .astype(np.int32), dev)
         tmvx, tmvy = tmv[0], tmv[1]
     else:
         tmvx = torch.zeros((p.nbv, p.nbh), dtype=_I32, device=dev)
@@ -1251,9 +1252,9 @@ def apply_motion_est(enc, d, st):
     from ..codec.motion import MotionField
 
     p = d.params
-    grids = torch.stack([st[k] for k in FIELDS0]
-                        + [st["fskip"].to(_I32)]).cpu().numpy()
-    sums = torch.stack([st[k] for k in SUMS0]).cpu().numpy()
+    grids = xfer.host(torch.stack([st[k] for k in FIELDS0]
+                                  + [st["fskip"].to(_I32)]))
+    sums = xfer.host(torch.stack([st[k] for k in SUMS0]))
     fl = dict(zip(FIELDS0, grids))
     mf = MotionField(p.nbh, p.nbv)
     mf.x = fl["fx"].reshape(-1).astype(np.int16)

@@ -42,6 +42,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import tint
 
 RUN_BITS = 24
@@ -128,8 +129,8 @@ def vk_chain(thr, s0, nnz, stats=None):
     store and a three-op dependent chain.
 
     A CUDA tensor launches csrc/vk_chain.cu on the current stream (and
-    counts the launch in vk_chain.launches; `stats`, an int32 (5,) CUDA
-    tensor, gets its resolve pass's counters added, see
+    counts the launch as `launch.vk_chain`, utils/trace; `stats`, an
+    int32 (5,) CUDA tensor, gets its resolve pass's counters added, see
     _kernels.vk_chain); a CPU tensor takes the plain version. Replaces
     the twin's _vk_call / _vk_vec_batched."""
     _check_chain_args(thr, s0, nnz)
@@ -156,12 +157,8 @@ def vk_chain(thr, s0, nnz, stats=None):
     scratch = torch.empty(_kernels.vk_scratch_bytes(n4, nb, plan[0]),
                           dtype=torch.uint8, device=thr.device)
     _kernels.vk_chain(thr, s0, nnz, out, scratch, *plan, stats=stats)
-    _counted.launches += 1
+    trace.count("launch.vk_chain")
     return out[:npad]
-
-
-vk_chain.launches = 0
-_counted = vk_chain   # the count stays here when a caller wraps the name
 
 
 # ---------------------------------------------------------------------------

@@ -329,7 +329,7 @@ def _serialize_chunk(enc, ctx):
         for fi in range(nfr):
             if fbs[c][fi]:
                 enc.stats.blob_fallbacks += 1
-                col.append(("dense", dv["vs"][c][fi].cpu().numpy()))
+                col.append(("dense", xfer.host(dv["vs"][c][fi])))
             else:
                 o = int(offs_flat[c * nfr + fi])
                 u = int(used_flat[c * nfr + fi])

@@ -29,12 +29,30 @@ the device's default stream (torch's current stream, never changed
 here), so a lane's later fetch of its outputs waits for the batched
 launch. Results are byte-identical to encoding each stream sequentially:
 scheduling never changes a stream's arithmetic.
+
+Traced (utils/trace), the lockstep cycle is two spans on the wall clock:
+`lockstep.gather`, from the end of the batcher's previous flush (its
+creation, for the first) to the moment the last lane blocks, and
+`lockstep.flush`, the flush itself in the flusher thread (ids: `flush`,
+its sequence number in the process, `key`, `lanes`; its children
+`lockstep.dispatch.<key>`, one per run of at most `width` lanes, carry
+their `lanes`). Every lane blocks until the flush, so a run's wall time
+is the sum of the two. The calling thread's span `lockstep.group` runs
+from the batcher's creation to its last lane's end. A lane's span open
+at its submission is tagged with the flush that served it; counters
+`lockstep.flushes.<key>` and `lockstep.lanes.<key>` count the flushes
+and their lanes per key.
 """
+import itertools
 import threading
 
 import torch
 
+from ..utils import trace
 from ..utils.trace import stage
+from . import xfer
+
+_FLUSH_IDS = itertools.count(1)   # flush sequence numbers in the process
 
 
 def _lane(out, i):
@@ -52,7 +70,7 @@ def _wait(out):
         v = vals.pop()
         if isinstance(v, torch.Tensor):
             if v.is_cuda:
-                torch.cuda.current_stream(v.device).synchronize()
+                xfer.wait_stream(v)
                 return
         elif isinstance(v, dict):
             vals.extend(v.values())
@@ -70,6 +88,7 @@ class LockstepBatcher:
         self._blocked = 0
         self._queues = {}             # key -> list of (entry, builder, ...)
         self._seq = 0                 # global submission counter
+        self._gather_t0 = trace.mark()   # the first gather starts here
 
     def thread_begin(self):
         with self._cond:
@@ -90,10 +109,11 @@ class LockstepBatcher:
         fetch makes the flusher wait for the device, so the batched run
         shows in the lockstep.run stage. The first submission of a key
         fixes post and fetch."""
-        entry = [args, None, False]
+        # args, output, done, submission seq, the serving flush's id
+        entry = [args, None, False, None, None]
         with self._cond:
             self._seq += 1
-            entry.append(self._seq)
+            entry[3] = self._seq
             self._queues.setdefault(key, []).append(
                 (entry, builder, post, fetch))
             self._blocked += 1
@@ -101,6 +121,7 @@ class LockstepBatcher:
                 self._flush_locked()
             while not entry[2]:
                 self._cond.wait()
+        trace.tag(flush=entry[4])
         if isinstance(entry[1], BaseException):
             raise entry[1]
         return entry[1]
@@ -129,38 +150,48 @@ class LockstepBatcher:
         """Run the selected queues (caller holds the lock and is one of the
         blocked threads); an error reaches every waiter of its batch."""
         queues = self._pick_queues()
-        self._blocked -= sum(len(v) for v in queues.values())
-        for key, pending in queues.items():
-            try:
-                _, builder, post, fetch = pending[0]
-                if any(p[3] is not fetch for p in pending):
-                    raise ValueError("lockstep key %r: lanes submitted "
-                                     "different fetch specs" % (key[0],))
-                kname = key[0]
-                with stage("lockstep.stack.%s" % kname):
-                    fn = builder(key[1])
-                    lanes = [e[0] for e, *_ in pending]
-                # more lanes than width (one group holding more streams):
-                # runs of at most width lanes, one after another
-                for lo in range(0, len(lanes), self.width):
-                    with stage("lockstep.dispatch.%s" % kname):
-                        out = fn(lanes[lo:lo + self.width])
-                    with stage("lockstep.run.%s" % kname):
-                        if fetch:
-                            _wait(out)
-                    if post is not None:
-                        with stage("lockstep.post.%s" % kname):
-                            out = post(out)
-                    for i, (e, *_) in enumerate(
-                            pending[lo:lo + self.width]):
-                        e[1] = _lane(out, i)
-                for e, *_ in pending:
-                    e[2] = True
-            except BaseException as exc:  # propagate to every waiter
-                for e, *_ in pending:
-                    e[1] = exc
-                    e[2] = True
+        nlanes = sum(len(v) for v in queues.values())
+        self._blocked -= nlanes
+        fid = next(_FLUSH_IDS)
+        trace.record("lockstep.gather", self._gather_t0, flush=fid)
+        with stage("lockstep.flush", flush=fid,
+                   key="+".join(k[0] for k in queues), lanes=nlanes):
+            for key, pending in queues.items():
+                self._run_queue(key, pending, fid)
+        self._gather_t0 = trace.mark()
         self._cond.notify_all()
+
+    def _run_queue(self, key, pending, fid):
+        kname = key[0]
+        trace.count("lockstep.flushes." + kname)
+        trace.count("lockstep.lanes." + kname, len(pending))
+        try:
+            _, builder, post, fetch = pending[0]
+            if any(p[3] is not fetch for p in pending):
+                raise ValueError("lockstep key %r: lanes submitted "
+                                 "different fetch specs" % (kname,))
+            with stage("lockstep.stack.%s" % kname):
+                fn = builder(key[1])
+                lanes = [e[0] for e, *_ in pending]
+            # more lanes than width (one group holding more streams):
+            # runs of at most width lanes, one after another
+            for lo in range(0, len(lanes), self.width):
+                run = lanes[lo:lo + self.width]
+                with stage("lockstep.dispatch.%s" % kname, lanes=len(run)):
+                    out = fn(run)
+                with stage("lockstep.run.%s" % kname):
+                    if fetch:
+                        _wait(out)
+                if post is not None:
+                    with stage("lockstep.post.%s" % kname):
+                        out = post(out)
+                for i, (e, *_) in enumerate(pending[lo:lo + self.width]):
+                    e[1] = _lane(out, i)
+        except BaseException as exc:  # propagate to every waiter
+            for e, *_ in pending:
+                e[1] = exc
+        for e, *_ in pending:
+            e[2], e[4] = True, fid
 
 
 def encode_streams_lockstep(stream_frames, enc_factory, width=None,
@@ -218,25 +249,27 @@ def run_lanes(n, width, lane_fn):
     running before any thread starts, so the first flush waits for all
     of them (the twin counts each thread in from inside it, and an early
     thread can flush alone)."""
-    batcher = LockstepBatcher(width)
-    results = [None] * n
-    errors = []
+    with stage("lockstep.group", lanes=n):
+        batcher = LockstepBatcher(width)
+        results = [None] * n
+        errors = []
 
-    def run(i):
-        try:
-            results[i] = lane_fn(i, batcher.submit)
-        except BaseException as exc:
-            errors.append(exc)
-        finally:
-            batcher.thread_done()
+        def run(i):
+            try:
+                results[i] = lane_fn(i, batcher.submit)
+            except BaseException as exc:
+                errors.append(exc)
+            finally:
+                batcher.thread_done()
 
-    for _ in range(n):
-        batcher.thread_begin()
-    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+        for _ in range(n):
+            batcher.thread_begin()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
     if errors:
         raise errors[0]
     return results
@@ -244,6 +277,7 @@ def run_lanes(n, width, lane_fn):
 
 def _encode_group(stream_frames, enc_factory, width):
     def lane(i, submit):
+        trace.set_ids(lane=i)
         enc = enc_factory()
         enc.dev_submit = submit
         chunks = []

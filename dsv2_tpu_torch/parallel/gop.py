@@ -14,7 +14,7 @@ twin's single-frame compile check (`device_intra_step`) and its mesh
 import concurrent.futures as cf
 
 from ..core import constants as K
-from ..utils import packet
+from ..utils import packet, trace
 from ..utils.trace import stage
 
 
@@ -82,6 +82,7 @@ def decode_gops_parallel(stream, width=None, device=None):
         return []
 
     def lane(i, submit):
+        trace.set_ids(lane=i)
         dec = Decoder(device=device)
         dec.dev_submit = submit
         frames, prev = [], None

@@ -10,10 +10,61 @@ card's host link is not one, and every format gives the same bytes.
 Per-plane content outside the blob contract still falls back to the
 int32 scan and the native host coder (codec semantics, not a device
 fallback).
+
+Every wait of the host for the card goes through `_sync` here: a blocking
+read (`host`, `scalar`, `finish_d2h`), a stream wait (`wait_stream`) or
+an upload from pageable memory (`put`). Each opens a `sync` span and
+counts `sync` (utils/trace) when tracing; on CPU tensors nothing waits
+and nothing is recorded.
 """
 import torch
 
+from ..utils import trace
+
 _I32 = torch.int32
+
+
+def _sync():
+    """The span of one host-device wait, counted (credited to the span
+    the wait happens in)."""
+    trace.count("sync")
+    return trace.stage("sync")
+
+
+def host(t):
+    """Tensor t's values as a host numpy array: a CUDA tensor waits for
+    its stream and copies."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    with _sync():
+        return t.cpu().numpy()
+
+
+def scalar(t):
+    """A one-element tensor's value as a Python int (a CUDA tensor waits
+    for its stream)."""
+    if t.device.type == "cpu":
+        return int(t)
+    with _sync():
+        return int(t)
+
+
+def wait_stream(t):
+    """Block until the current stream of CUDA tensor t's device has run
+    everything enqueued on it."""
+    with _sync():
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def put(v, device):
+    """torch.as_tensor(v, device=device): a host value copied to a CUDA
+    device from pageable memory, which waits for the device's stream
+    (`upload` does not wait)."""
+    if torch.device(device).type != "cuda" or (
+            isinstance(v, torch.Tensor) and v.is_cuda):
+        return torch.as_tensor(v, device=device)
+    with _sync():
+        return torch.as_tensor(v, device=device)
 
 
 def merge_rows(rows_list, useds_list):
@@ -53,19 +104,20 @@ def start_d2h(t):
     copy_to_host_async). Returns a handle for finish_d2h."""
     if t.device.type != "cuda":
         return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t, non_blocking=True)
     ev = torch.cuda.Event()
     ev.record()
-    return host, ev
+    return buf, ev
 
 
 def finish_d2h(handle):
     """Wait for a start_d2h copy; returns the host numpy array."""
-    host, ev = handle
+    buf, ev = handle
     if ev is not None:
-        ev.synchronize()
-    return host.numpy()
+        with _sync():
+            ev.synchronize()
+    return buf.numpy()
 
 
 def upload(a, device):

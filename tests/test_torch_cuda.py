@@ -27,8 +27,36 @@ def cuda():
     return torch.device("cuda")
 
 
+class _Launches:
+    """Kernel launches since the test began: the port's counters
+    `launch.<name>` (utils/trace)."""
+
+    def __call__(self, name):
+        from dsv2_tpu_torch.utils import trace
+        return trace.counters().get("launch." + name, 0)
+
+    def filters(self):
+        from dsv2_tpu_torch.ops import filters
+        return {k: self("wavefront_filter." + k) for k in filters.KINDS}
+
+    def hme(self):
+        return {k: self(k) for k in ("hme_level", "hme_level0",
+                                     "hme_gang_level", "hme_gang_level0")}
+
+
+@pytest.fixture
+def launches():
+    """Tracing on for the test, so the launch counters count."""
+    from dsv2_tpu_torch.utils import trace
+    trace.reset()
+    trace.enable(True)
+    yield _Launches()
+    trace.enable(False)
+    trace.reset()
+
+
 @pytest.mark.parametrize("nb", [1, 3, 16, 32, 33, 40, 300])
-def test_vk_kernel_vs_plain(cuda, nb):
+def test_vk_kernel_vs_plain(cuda, nb, launches):
     """Random chains, every adversarial kind of golden.vk_case, an npad
     that is not a multiple of 4, and 20 launches that must agree."""
     from dsv2_tpu_torch.ops import scan_pl
@@ -44,10 +72,10 @@ def test_vk_kernel_vs_plain(cuda, nb):
     for thr, s0, nnz in cases:
         args = [tt(a) for a in (thr, s0, nnz)]
         want = scan_pl.vk_chain_plain(*args)
-        n0 = scan_pl.vk_chain.launches
+        n0 = launches("vk_chain")
         got = scan_pl.vk_chain(*(a.to(cuda) for a in args))
         torch.cuda.synchronize()
-        assert scan_pl.vk_chain.launches == n0 + -(-nb // 256)
+        assert launches("vk_chain") == n0 + -(-nb // 256)
         assert got.dtype == torch.int32 and got.is_cuda
         assert torch.equal(got.cpu(), want)
     args = [tt(a).to(cuda) for a in cases[0]]
@@ -184,16 +212,16 @@ def _filter_inputs(kind, w, h, blk, nb, seed):
 @pytest.mark.parametrize("w,h,blk", [(352, 288, 16), (640, 360, 32),
                                      (100, 62, 16), (64, 500, 32),
                                      (352, 16, 16)])
-def test_filter_kernel_vs_plain(cuda, kind, nb, w, h, blk):
+def test_filter_kernel_vs_plain(cuda, kind, nb, w, h, blk, launches):
     from dsv2_tpu_torch.ops import filters
     fn = getattr(filters, kind + "_filter_graph")
     args = _filter_inputs(kind, w, h, blk, nb, w + nb)
     want = fn(*args)
-    n0 = filters.wavefront_filter.launches[kind]
+    n0 = launches("wavefront_filter." + kind)
     got = fn(*(a.to(cuda) if isinstance(a, torch.Tensor) else a
                for a in args))
     torch.cuda.synchronize()
-    assert filters.wavefront_filter.launches[kind] == n0 + 1
+    assert launches("wavefront_filter." + kind) == n0 + 1
     assert got.dtype == torch.uint8 and got.is_cuda
     assert torch.equal(got.cpu(), want)
     assert not torch.equal(want, args[4 if kind == "intra" else
@@ -212,7 +240,7 @@ LARGE = [("intra", 3840, 2160, 32, (1, 1), 1), ("luma", 3840, 2160, 32,
 @pytest.mark.parametrize("kind,w,h,blk,shifts,clusters", LARGE,
                          ids=["%s-%dx%d" % c[:3] for c in LARGE])
 def test_filter_kernel_large_vs_native(cuda, kind, w, h, blk, shifts,
-                                       clusters):
+                                       clusters, launches):
     from dsv2_tpu_torch.ops import _kernels, filters
     args = golden.filter_case(kind, w, h, blk, shifts, seed=w, nb=1)
     want = golden.filter_native(kind, args)
@@ -223,7 +251,7 @@ def test_filter_kernel_large_vs_native(cuda, kind, w, h, blk, shifts,
         plans.append(filters.wavefront_plan(
             lay, max_smem=_kernels.max_smem()))
         return wf(kind_, lay, plane, props, scal)
-    n0 = filters.wavefront_filter.launches[kind]
+    n0 = launches("wavefront_filter." + kind)
     filters.wavefront_filter = rec
     try:
         got = getattr(filters, kind + "_filter_graph")(
@@ -232,7 +260,7 @@ def test_filter_kernel_large_vs_native(cuda, kind, w, h, blk, shifts,
         torch.cuda.synchronize()
     finally:
         filters.wavefront_filter = wf
-    assert wf.launches[kind] == n0 + 1
+    assert launches("wavefront_filter." + kind) == n0 + 1
     assert [p.C for p in plans] == [clusters]
     assert torch.equal(got.cpu(), want)
     assert not torch.equal(want, args[{"intra": 4, "luma": 7}.get(kind, 6)])
@@ -304,14 +332,14 @@ def test_filter_kernel_global_ring(cuda, kind, w, h, blk, shifts, forced):
     assert not torch.equal(want, args[{"intra": 4, "luma": 7}.get(kind, 6)])
 
 
-def test_filter_kernel_rejects(cuda):
+def test_filter_kernel_rejects(cuda, launches):
     """Malformed inputs raise before any launch."""
     from dsv2_tpu_torch.ops import filters
     lay = filters._layout(64, 48, 4, 4, 15, 11)
     plane = torch.zeros((1, lay.HP, lay.WP), dtype=torch.int32, device=cuda)
     props = torch.zeros((1, 1, 11, 15), dtype=torch.int32, device=cuda)
     scal = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
-    n0 = dict(filters.wavefront_filter.launches)
+    n0 = launches.filters()
     with pytest.raises(ValueError):
         filters.wavefront_filter("intra", lay, plane, props.cpu(), scal)
     with pytest.raises(ValueError):
@@ -324,22 +352,21 @@ def test_filter_kernel_rejects(cuda):
     with pytest.raises(ValueError, match="malformed"):   # 6-pixel tiles
         bad = lay._replace(tw=6, ww=14)
         filters.wavefront_filter("intra", bad, plane, props, scal)
-    assert filters.wavefront_filter.launches == n0
+    assert launches.filters() == n0
 
 
 @pytest.mark.parametrize("key", ["tiny64x48_422_4f@qp60_gop4",
                                  "cif352x288_420_12f@qp60_gop12"])
-def test_decode_p_golden_cuda(cuda, key):
+def test_decode_p_golden_cuda(cuda, key, launches):
     from dsv2_tpu_torch.codec import decoder
-    from dsv2_tpu_torch.ops import filters
     from dsv2_tpu_torch.utils import y4m
     data = golden.read_stream(key)
-    n0 = dict(filters.wavefront_filter.launches)
+    n0 = launches.filters()
     y = golden.decoded_y4m(decoder, y4m, data,
                            decoder=decoder.Decoder(device=cuda))
     want = golden.load()[key]["decode"]
     assert golden.digest(y) == want
-    n = {k: filters.wavefront_filter.launches[k] - n0[k]
+    n = {k: launches("wavefront_filter." + k) - n0[k]
          for k in ("luma", "chroma")}
     assert n["luma"] > 0 and n["chroma"] == n["luma"]   # U+V: one launch
 
@@ -375,7 +402,7 @@ def test_decode_intra_golden_cuda(cuda):
     ("nano48x32_420_4f", True, 5), ("odd100x62_420_4f", True, 10),
     ("tiny64x48_422_4f", True, 10), ("cif352x288_420_12f", False, 10),
     ("cif352x288_420_12f", True, 10)])
-def test_hme_kernels_vs_plain(cuda, name, has_tmv, effort):
+def test_hme_kernels_vs_plain(cuda, name, has_tmv, effort, launches):
     """Both motion-search kernels against the plain version on every field
     and sum (exact), with and without temporal candidates."""
     from dsv2_tpu_torch.ops import hme_gpu, hme_wave
@@ -384,12 +411,12 @@ def test_hme_kernels_vs_plain(cuda, name, has_tmv, effort):
                                   effort=effort, device=cuda)
     wcfg = hme_wave.WaveCfg(**cfg)
     fn = hme_gpu.make_motion_est(wcfg)
-    n0 = dict(hme_gpu.launches)
+    n0 = launches.hme()
     got = fn(*inputs)
     torch.cuda.synchronize()
-    assert hme_gpu.launches["hme_level"] == (n0["hme_level"]
+    assert launches("hme_level") == (n0["hme_level"]
                                              + wcfg.pyramid_levels)
-    assert hme_gpu.launches["hme_level0"] == n0["hme_level0"] + 1
+    assert launches("hme_level0") == n0["hme_level0"] + 1
 
     def cpu(x):
         if isinstance(x, tuple):
@@ -574,70 +601,66 @@ def test_hme_kernel_rejects(cuda):
 
 @pytest.mark.parametrize("key", ["tiny64x48_422_4f@qp60_gop4",
                                  "cif352x288_420_12f@qp60_gop12"])
-def test_p_encode_golden_cuda(cuda, key):
+def test_p_encode_golden_cuda(cuda, key, launches):
     from dsv2_tpu_torch import cli
-    from dsv2_tpu_torch.ops import hme_gpu
     name, qp, gop, nfr = next(c for c in golden.P_CASES
                               if golden.p_key(c) == key)
     frames, meta = read_y4m(golden.input_path(name))
-    n0 = hme_gpu.launches["hme_level0"]
+    n0 = launches("hme_level0")
     data = golden.encode(cli, frames[:nfr], meta, qp, gop=gop, device=cuda)
     want = golden.load()[key]
     assert golden.digest(data) == {k: want[k] for k in ("sha256", "length")}
-    assert hme_gpu.launches["hme_level0"] > n0
+    assert launches("hme_level0") > n0
 
 
 @pytest.mark.parametrize("trial", range(8))
-def test_decode_corrupt_cuda(cuda, trial):
+def test_decode_corrupt_cuda(cuda, trial, launches):
     """The corrupt CIF trials on the card: the device chain, its filter
     kernel included, gives dsv2_tpu's frames (the twin's host chain)."""
     from dsv2_tpu_torch.codec import decoder
-    from dsv2_tpu_torch.ops import filters
     from dsv2_tpu_torch.utils import y4m
     want = golden.load()[golden.corrupt_key(trial)]
     dec = decoder.Decoder(device=cuda)
-    n0 = sum(filters.wavefront_filter.launches.values())
+    n0 = sum(launches.filters().values())
     got = golden.decode_frames(decoder, y4m,
                                golden.corrupt_streams()[trial], decoder=dec)
     assert got["frames"] == want["frames"] and got["error"] is None
     assert got["decode"] == want["decode"]
-    assert sum(filters.wavefront_filter.launches.values()) > n0
+    assert sum(launches.filters().values()) > n0
 
 
 @pytest.mark.parametrize("name,qp,gop", golden.ARENA_CASES)
-def test_arena_golden_cuda(cuda, name, qp, gop):
+def test_arena_golden_cuda(cuda, name, qp, gop, launches):
     """The degenerate geometries: encoded on the card to dsv2_tpu's
     stream, decoded on the card with the arena and the filter kernel to
     its y4m."""
     from dsv2_tpu_torch import cli
     from dsv2_tpu_torch.codec import decoder
-    from dsv2_tpu_torch.ops import filters
     from dsv2_tpu_torch.utils import y4m
     want = golden.load()[golden.key(name, qp, gop)]
     frames, meta = read_y4m(golden.input_path(name))
     data = golden.encode(cli, frames, meta, qp, gop=gop, device=cuda)
     assert golden.digest(data) == {k: want[k] for k in ("sha256", "length")}
     dec = decoder.Decoder(device=cuda)
-    n0 = sum(filters.wavefront_filter.launches.values())
+    n0 = sum(launches.filters().values())
     y = golden.decoded_y4m(decoder, y4m, data, decoder=dec)
     assert golden.digest(y) == want["decode"] and dec._arena.is_cuda
-    assert sum(filters.wavefront_filter.launches.values()) > n0
+    assert sum(launches.filters().values()) > n0
 
 
 @pytest.mark.parametrize("backend", ["host", "wave"])
-def test_host_hme_golden_cuda(cuda, backend):
+def test_host_hme_golden_cuda(cuda, backend, launches):
     """CIF -gop=6 with the backends "host" and "wave", aliases of
     "pallas" (kernels 4/5): both dsv2_tpu's "host" stream."""
     from dsv2_tpu_torch import cli
-    from dsv2_tpu_torch.ops import hme_gpu
     name, qp, gop, nfr, _ = golden.HOST_HME
     frames, meta = read_y4m(golden.input_path(name))
-    n0 = hme_gpu.launches["hme_level0"]
+    n0 = launches("hme_level0")
     data = golden.encode(cli, frames[:nfr], meta, qp, gop=gop, device=cuda,
                          backend=backend)
     want = golden.load()[golden.key(name, qp, gop)]
     assert golden.digest(data) == {k: want[k] for k in ("sha256", "length")}
-    assert hme_gpu.launches["hme_level0"] > n0
+    assert launches("hme_level0") > n0
 
 
 def _cpu(x):
@@ -652,20 +675,20 @@ GANG_GEOMS = ["nano48x32_420_4f", "odd100x62_420_4f", "tiny64x48_422_4f",
 
 @pytest.mark.parametrize("name", GANG_GEOMS)
 @pytest.mark.parametrize("has_tmv", [False, True])
-def test_hme_gang_vs_plain(cuda, name, has_tmv):
+def test_hme_gang_vs_plain(cuda, name, has_tmv, launches):
     """The gang kernels (6/7) for 2 lanes against the plain version lane by
     lane on every field and sum (exact): one launch per level."""
-    from dsv2_tpu_torch.ops import hme_gang, hme_gpu, hme_wave
+    from dsv2_tpu_torch.ops import hme_gang, hme_wave
     frames, meta = read_y4m(golden.input_path(name))
     cfg, lanes = golden.hme_lanes(frames, meta, 2, has_tmv=has_tmv,
                                   device=cuda)
     wcfg = hme_wave.WaveCfg(**cfg)
-    n0 = dict(hme_gpu.launches)
+    n0 = launches.hme()
     got = hme_gang.make_motion_est(wcfg)(lanes)
     torch.cuda.synchronize()
-    assert hme_gpu.launches["hme_gang_level"] == (n0["hme_gang_level"]
+    assert launches("hme_gang_level") == (n0["hme_gang_level"]
                                                   + wcfg.pyramid_levels)
-    assert hme_gpu.launches["hme_gang_level0"] == n0["hme_gang_level0"] + 1
+    assert launches("hme_gang_level0") == n0["hme_gang_level0"] + 1
     for i, inputs in enumerate(lanes):
         want = hme_wave.make_motion_est(wcfg)(*_cpu(inputs))
         for k in golden.HME_OUTPUTS:
@@ -719,7 +742,7 @@ def test_hme_gang_vs_pallas(cuda, name, nlanes, gang):
 
 
 @pytest.mark.parametrize("nlanes", [1, 7, 8, 32, 33])
-def test_hme_gang_lanes(cuda, nlanes):
+def test_hme_gang_lanes(cuda, nlanes, launches):
     """Kernel 7 (every lane's base level on one scheduler; 33 lanes are two
     launches) with 1 to 33 lanes: every lane equals kernels 4/5 on its own
     inputs, and the first lane the plain version."""
@@ -728,9 +751,9 @@ def test_hme_gang_lanes(cuda, nlanes):
     cfg, lanes = golden.hme_lanes(frames, meta, nlanes, has_tmv=True,
                                   device=cuda)
     wcfg = hme_wave.WaveCfg(**cfg)
-    n0 = hme_gpu.launches["hme_gang_level0"]
+    n0 = launches("hme_gang_level0")
     got = hme_gang.make_motion_est(wcfg)(lanes)
-    assert hme_gpu.launches["hme_gang_level0"] - n0 == -(-nlanes // 32)
+    assert launches("hme_gang_level0") - n0 == -(-nlanes // 32)
     plain = hme_wave.make_motion_est(wcfg)(*_cpu(lanes[0]))
     for i, inputs in enumerate(lanes):
         want = hme_gpu.make_motion_est(wcfg)(*inputs)
@@ -762,12 +785,11 @@ def test_hme_gang_rejects(cuda):
 
 
 @pytest.mark.parametrize("backend", ["gang", "pallas"])
-def test_lockstep_golden_cuda(cuda, backend):
+def test_lockstep_golden_cuda(cuda, backend, launches):
     """3 lockstep streams of tiny64x48_420_6f at -gop=2 on the card equal
     the port's sequential encode of each (tests/test_torch_lockstep.py
     holds that one to dsv2_tpu's)."""
     from dsv2_tpu_torch import cli
-    from dsv2_tpu_torch.ops import hme_gpu
     from dsv2_tpu_torch.parallel import dynbatch
     frames, meta = read_y4m(golden.input_path("tiny64x48_420_6f"))
     streams = [frames[0:2], frames[2:4], frames[4:6]]
@@ -779,11 +801,11 @@ def test_lockstep_golden_cuda(cuda, backend):
                                device=cuda)
         enc.hme_backend = backend
         return enc
-    n0 = dict(hme_gpu.launches)
+    n0 = launches.hme()
     got = dynbatch.encode_streams_lockstep(streams, factory, width=4)
     assert got == want
     key = "hme_gang_level0" if backend == "gang" else "hme_level0"
-    assert hme_gpu.launches[key] > n0[key]
+    assert launches(key) > n0[key]
 
 
 @pytest.mark.parametrize("walkers", [0, 1])
@@ -815,7 +837,7 @@ def _to(x, dev):
 
 @pytest.mark.parametrize("step", ["i_chain", "p_chain", "id_chain",
                                   "pd_chain"])
-def test_chain_lanes_cuda(cuda, step):
+def test_chain_lanes_cuda(cuda, step, launches):
     """The lane-batched chain steps of a lockstep flush at the lockstep
     cell's shapes: 8 CIF lanes, each with its own q, filter scalars,
     motion field and reference, so kernel 1 runs B = 8 chains per plane
@@ -826,7 +848,6 @@ def test_chain_lanes_cuda(cuda, step):
     import test_torch_lockstep_batch as lb
     from dsv2_tpu_torch.codec import devsteps
     from dsv2_tpu_torch.core import constants as K
-    from dsv2_tpu_torch.ops import filters, scan_pl
     w, h, subsamp = lb.CIF
     n = 8
     decode = step in ("id_chain", "pd_chain")
@@ -852,13 +873,13 @@ def test_chain_lanes_cuda(cuda, step):
         dev_lanes = _to(lanes, cuda)
         kinds = {"luma": 1, "chroma": 1} if isP else {"intra": 1}
     want = devsteps.lanewise(make)(cpu_cfg)(lanes)
-    vk0 = scan_pl.vk_chain.launches
-    wf0 = dict(filters.wavefront_filter.launches)
+    vk0 = launches("vk_chain")
+    wf0 = launches.filters()
     got = devsteps.lanewise(make)(dev_cfg)(dev_lanes)
     torch.cuda.synchronize()
-    assert scan_pl.vk_chain.launches - vk0 == (0 if decode else 3)
-    assert {k: v - wf0[k] for k, v in filters.wavefront_filter.launches
-            .items() if v != wf0[k]} == kinds
+    assert launches("vk_chain") - vk0 == (0 if decode else 3)
+    assert {k: v - wf0[k] for k, v in launches.filters().items()
+            if v != wf0[k]} == kinds
     for i in range(n):
         if decode:
             assert got[i][0].is_cuda
@@ -870,22 +891,21 @@ def test_chain_lanes_cuda(cuda, step):
 
 
 @pytest.mark.parametrize("key", sorted(golden.load()["gops"]))
-def test_decode_gops_parallel_cuda(cuda, key):
+def test_decode_gops_parallel_cuda(cuda, key, launches):
     """Lockstep GOP-parallel decode on the card against dsv2_tpu's
     per-frame digests, at widths 1 and every GOP."""
     import hashlib
     import io
-    from dsv2_tpu_torch.ops import filters
     from dsv2_tpu_torch.parallel import gop
     want = golden.load()["gops"][key]["frames"]
     data = golden.read_stream(key)
     for width in (1, None):
-        n0 = sum(filters.wavefront_filter.launches.values())
+        n0 = sum(launches.filters().values())
         frames = gop.decode_gops_parallel(io.BytesIO(data), width=width,
                                           device=cuda)
         assert [hashlib.sha256(f.tobytes()).hexdigest()
                 for f in frames] == want
-        assert sum(filters.wavefront_filter.launches.values()) > n0
+        assert sum(launches.filters().values()) > n0
 
 
 def test_decode_gops_parallel_corrupt_cuda(cuda):

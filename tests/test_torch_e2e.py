@@ -90,7 +90,8 @@ def test_golden_live_fhd():
 
 
 def test_stage_totals():
-    """The port's trace module reads and clears the batch stage times."""
+    """The port's trace module reads and clears the batch stage times;
+    totals are the records' seconds, self time at most the seconds."""
     from dsv2_tpu_torch import cli
     from dsv2_tpu_torch.parallel.batch import encode_intra_batch
     from dsv2_tpu_torch.utils import trace
@@ -101,13 +102,17 @@ def test_stage_totals():
         golden.encode(cli, frames, meta, 60, batch=encode_intra_batch,
                       device="cpu")
         got = trace.totals()
+        tab = trace.table()
     finally:
         trace.enable(False)
     assert {"batch.prep", "batch.dispatch", "batch.fetch",
             "batch.serialize"} <= set(got)
     assert all(t > 0 for t in got.values())
+    assert got == {k: v[0] for k, v in tab.items()}
+    assert all(0 < v[1] <= v[0] and v[2] > 0 for v in tab.values())
+    assert tab["batch.dispatch"][2] == 1 and "sync" not in tab   # CPU
     trace.reset()
-    assert trace.totals() == {}
+    assert trace.totals() == {} and trace.records() == []
 
 
 def test_p_frames_raise():

@@ -215,9 +215,14 @@ def test_wavefront_rejects():
     with pytest.raises(ValueError):
         filters.wavefront_filter("intra", lay, plane, props[:, :, :, :-1],
                                  scal)
-    n0 = dict(filters.wavefront_filter.launches)
-    filters.wavefront_filter("intra", lay, plane, props, scal)
-    assert filters.wavefront_filter.launches == n0   # CPU: no launch
+    from dsv2_tpu_torch.utils import trace
+    trace.reset()
+    trace.enable(True)
+    try:
+        filters.wavefront_filter("intra", lay, plane, props, scal)
+    finally:
+        trace.enable(False)
+    assert trace.counters() == {}   # CPU: no launch
 
 
 def test_kernel_flag_bits():

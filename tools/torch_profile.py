@@ -7,6 +7,7 @@
                                     --vk [--src CSRC ...] |
                                     --lockstep [--pkg ROOT ...]
                                     [--profile] |
+                                    --idle-spans [--idle-trace PATH] |
                                     --probe [--src CSRC ...]]
 
 Input: the seeded synthetic clip of chip_smoke.py's main path (1920x1080
@@ -123,6 +124,21 @@ checkout):
            device busy share of the lockstep encode and decode under
            torch.profiler (union of the kernel and copy intervals over
            host wall time, the profiler on).
+
+With --idle-spans it prints only, for one job of each of the benchmark's
+cells cif_lockstep_encode_x8 and fhd_intra_encode (codecbench/; seed 7),
+each run after a warm job in a process of its own under DSV2_TRACE=1
+DSV2_XPROF (a Chrome trace of every thread; under build/torch_profile/):
+
+  idle_spans  the card's idle time in the job: the gaps between its
+           kernels, copies and sets (the idle head before the first and
+           tail after the last apart), each named by the innermost port
+           span open across it (utils/trace spans, which DSV2_XPROF puts
+           on each thread's row as record_function ranges; the shortest
+           that covers the gap, over every thread) and, per thread, by
+           that thread's innermost span; the gaps longer than 1 ms, those
+           inside no port span, and the longest gaps. With --idle-trace
+           PATH it reads that trace instead (`idle_by_span`).
 
 With --probe it prints only:
 
@@ -1195,6 +1211,147 @@ def probe_study(srcs, out):
 LOCKSTEP_PASSES = 3    # timed runs of each decode in --lockstep
 
 
+IDLE_JOB = "torch_profile.job"     # the measured job's range in a trace
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def idle_by_span(path, window=IDLE_JOB, top=15):
+    """Device idle time of a Chrome trace (torch.profiler's export with
+    the port's spans as `user_annotation` ranges; their GPU-side copies,
+    `gpu_user_annotation`, are not device work) inside the range named
+    `window` (the whole trace where it has none): the gaps between the
+    device intervals (as harness.read_profile's; the idle head and tail
+    of the window apart: they are the job's start before its first
+    device op and its end after its last, not waits between device
+    work), each named by the shortest port span that covers it (over
+    every thread) and, per thread, by that thread's shortest covering
+    span; the head and tail named the same way; the gaps over 1 ms inside
+    no span, by their start from the window's (ms) and length (ms)."""
+    import bisect
+    import collections
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev, spans, win, main_tid = [], [], None, None
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        s = float(e["ts"])
+        t = s + float(e.get("dur", 0))
+        cat = e.get("cat", "")
+        if cat in DEVICE_CATS:
+            dev.append((s, t))
+        elif cat == "user_annotation":
+            if e["name"] == window:
+                win, main_tid = (s, t), e["tid"]
+            else:
+                spans.append((s, t, e["name"], e["tid"]))
+    if win is None:
+        win = (min(s for s, _ in dev), max(t for _, t in dev))
+    busy, gaps, first, end = 0.0, [], None, None
+    for s, t in sorted(dev):
+        s, t = max(s, win[0]), min(t, win[1])
+        if t <= s or (end is not None and t <= end):
+            continue
+        if end is None:
+            first = s
+        elif s > end:
+            gaps.append((end, s))
+        busy += t - max(s, end if end is not None else s)
+        end = t
+    spans = [x for x in spans if x[1] > win[0] and x[0] < win[1]]
+    spans.sort()
+    starts = [x[0] for x in spans]
+    first_span = {}
+    for s, _, _, tid in spans:
+        first_span.setdefault(tid, s)
+    names = {tid: ("main" if tid == main_tid else "thread%d" % i)
+             for i, tid in enumerate(sorted(first_span,
+                                            key=first_span.get))}
+    by_span = collections.Counter()
+    by_thread = collections.defaultdict(collections.Counter)
+    labelled, over_1ms, bare_1ms = [], 0, []
+
+    def covering(g0, g1):
+        """{tid: (length, name)} of each thread's shortest span over
+        [g0, g1], and the shortest of them all (or "(no port span)")."""
+        inner = {}
+        for s, t, name, tid in spans[:bisect.bisect_right(starts, g0)]:
+            if t >= g1 and (tid not in inner or t - s < inner[tid][0]):
+                inner[tid] = (t - s, name)
+        return inner, (min(inner.values())[1] if inner
+                       else "(no port span)")
+    for g0, g1 in gaps:
+        inner, label = covering(g0, g1)
+        dur = (g1 - g0) / 1e6
+        by_span[label] += dur
+        for tid, (_, name) in inner.items():
+            by_thread[names[tid]][name] += dur
+        labelled.append((dur, label))
+        if dur > 1e-3:
+            over_1ms += 1
+            if not inner:
+                bare_1ms.append(((g0 - win[0]) / 1e3, dur * 1e3))
+    labelled.sort(reverse=True)
+    head = (win[0], first if first is not None else win[1])
+    tail = (end if end is not None else win[1], win[1])
+    return dict(window_s=(win[1] - win[0]) / 1e6, busy_s=busy / 1e6,
+                head_s=(head[1] - head[0]) / 1e6,
+                head_span=covering(*head)[1],
+                tail_s=(tail[1] - tail[0]) / 1e6,
+                tail_span=covering(*tail)[1],
+                gap_s=sum(d for d, _ in labelled), gaps=len(gaps),
+                gaps_over_1ms=over_1ms,
+                gaps_over_1ms_in_no_span=len(bare_1ms),
+                bare_over_1ms=bare_1ms[:10],
+                by_span=by_span.most_common(top),
+                by_thread={k: v.most_common(5)
+                           for k, v in sorted(by_thread.items())},
+                longest=labelled[:10])
+
+
+def idle_job(cell):
+    """--idle-job: a warm job of the benchmark cell `cell`, then one job
+    inside the range IDLE_JOB (run under DSV2_TRACE=1 DSV2_XPROF)."""
+    import torch
+    from codecbench import harness
+    bench = harness.Bench(REPO)
+    w = bench.cell(cell)
+    cfg, traffic = bench.config(w["config"]), bench.traffic(w["traffic"])
+    entry = bench.entry(traffic["entry"])
+    drv = entry.Driver(cfg, traffic, 7, torch.device("cuda"))
+    drv.warm()
+    torch.cuda.synchronize()
+    with torch.profiler.record_function(IDLE_JOB):
+        drv.job()
+        torch.cuda.synchronize()
+
+
+def idle_spans_study(trace_path=None):
+    """--idle-spans: idle_by_span of one job of each cell, each traced in
+    a process of its own (or of the trace at trace_path)."""
+    import glob
+    import shutil
+    if trace_path:
+        emit("idle_spans", trace=trace_path, **idle_by_span(trace_path))
+        return
+    for cell in ("cif_lockstep_encode_x8", "fhd_intra_encode"):
+        d = os.path.join(REPO, "build", "torch_profile", "xprof_" + cell)
+        shutil.rmtree(d, ignore_errors=True)
+        env = dict(os.environ, DSV2_TRACE="1", DSV2_XPROF=d,
+                   DSV2_TORCH_DEVICE="cuda")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--idle-job", cell], env=env,
+                             capture_output=True, text=True)
+        if res.returncode:
+            sys.exit("idle job %s failed:\n%s" % (cell, res.stderr[-4000:]))
+        path, = glob.glob(os.path.join(d, "*.trace.json"))
+        t1 = time.perf_counter()
+        emit("idle_spans", cell=cell, run_s=t1 - t0,
+             trace_mb=os.path.getsize(path) / 2 ** 20,
+             **idle_by_span(path), read_s=time.perf_counter() - t1)
+
+
 def lockstep_study(pkgs, profile=False):
     """--lockstep: lockstep_run of each package root, one process each."""
     for root in pkgs:
@@ -1332,6 +1489,9 @@ def main(argv=None):
         sys.path.insert(0, os.path.join(REPO, "tools"))
         assert torch.cuda.is_available(), "needs an NVIDIA GPU"
         return lockstep_run(argv[1], bool(int(argv[2])))
+    if argv[:1] == ["--idle-job"]:
+        sys.path.insert(0, REPO)
+        return idle_job(argv[1])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
     ap.add_argument("--wavefront", action="store_true",
@@ -1362,10 +1522,17 @@ def main(argv=None):
                     help="with --lockstep: a checkout root holding "
                     "dsv2_tpu_torch/, in the order given (default: this "
                     "checkout)")
+    ap.add_argument("--idle-spans", action="store_true",
+                    help="only the card's idle time by port span of a "
+                    "lockstep and an intra job")
+    ap.add_argument("--idle-trace",
+                    help="with --idle-spans: read this Chrome trace")
     ap.add_argument("--profile", action="store_true",
                     help="with --lockstep: also the device busy share of "
                     "a profiled lockstep encode and decode")
     args = ap.parse_args(argv)
+    if args.idle_spans and args.idle_trace:
+        return idle_spans_study(args.idle_trace)
     import torch
     if not torch.cuda.is_available():
         sys.exit("torch_profile: needs an NVIDIA GPU")
@@ -1380,6 +1547,8 @@ def main(argv=None):
                                                    "csrc")])
     if args.lockstep:
         return lockstep_study(args.pkg or [REPO], args.profile)
+    if args.idle_spans:
+        return idle_spans_study()
     if args.probe:
         return probe_study(args.src or [os.path.join(REPO, "dsv2_tpu_torch",
                                                       "csrc")], args.out)
