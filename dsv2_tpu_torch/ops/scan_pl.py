@@ -28,7 +28,9 @@ most two parts of <= 63 bits, each carried in one int64 (torch has few
 uint32 ops). A part at bit offset s touches at most three consecutive
 big-endian 32-bit words of the stream; all parts' word contributions go
 to the word buffer in one scatter-add (bits never overlap across codes,
-and rice's q zero-gap bits are never written, so add == or). The twin's
+and rice's q zero-gap bits are never written, so add == or); those that
+carry no bits add 0 to words spread over the row, so that no word takes
+the atomic adds of every dead slot. The twin's
 dynamically bounded chunk loops become one pass over all padded slots
 with a live mask, so nothing on the device path reads a value back to
 the host.
@@ -197,13 +199,16 @@ def _neg_pattern(v):
 # emission
 # ---------------------------------------------------------------------------
 
-def _part_words(s, ln, pat, live):
+def _part_words(s, ln, pat, live, spill):
     """Big-endian u32 word contributions of one code part: s (bit offset),
     ln (length <= 63) int32, pat int64 (bit ln-1 goes first). Returns
     (word index, value) pairs, each (..., 3*n): the three words starting
-    at s >> 5, with dead contributions zeroed."""
+    at s >> 5. A contribution that carries no bits (a dead part's, or a
+    live part's word past its end) adds 0 to word spill[m] instead
+    (spill (3, n) int32, words spread over the row)."""
     o = (s & 31).to(_I64)
     end = o + ln.to(_I64)                 # part spans window bits [o, end)
+    w0 = s >> 5
     idx, val = [], []
     for m in range(3):
         sh = end - 32 * (m + 1)           # >> sh if >= 0, else << -sh
@@ -211,29 +216,41 @@ def _part_words(s, ln, pat, live):
         left = pat << torch.clamp(-sh, 0, 63)
         word = torch.where(sh >= 0, right, left) & 0xFFFFFFFF
         hit = live & (end > 32 * m)
-        idx.append((s >> 5) + m)
+        idx.append(torch.where(hit, w0 + m, spill[m]))
         val.append(torch.where(hit, word, 0))
     return torch.cat(idx, dim=-1), torch.cat(val, dim=-1)
 
 
+def _slot_targets(nz, at):
+    """Stable 0/1 partition of nz (B, total) bool as a cumsum scatter (at
+    = arange(total) int32): -> (nruns (B,) int32, tgt (B, total) int64).
+    Nonzero i goes to slot rank(i), zero i behind the nonzeros, to nruns
+    + (its rank among the zeros), so every position has a slot of its
+    own below total."""
+    nruns = nz.sum(dim=-1, dtype=_I32)
+    rank = torch.cumsum(nz, dim=-1, dtype=_I32) - 1
+    return nruns, torch.where(nz, rank, (nruns - 1)[:, None] + at - rank
+                              ).to(_I64)
+
+
 def _slots(segments, v, TP):
     """Compaction and per-slot code quantities of scan arrays v (B, total)
-    int32: the nonzeros stable-partitioned to the front of TP slots."""
+    int32: the nonzeros stable-partitioned to the front of TP slots, the
+    zeros behind them. The slots from nruns on are dead: every later use
+    masks them (act, isneg, isr), whatever pos they hold."""
     nb, total = v.shape
     ll_n = segments[0][0] if segments and segments[0][1] < 0 else 0
     nz = v != 0
-    nruns = nz.sum(dim=-1, dtype=_I32)
     nll = nz[:, :ll_n].sum(dim=-1, dtype=_I32)
-    # stable 0/1 partition as a cumsum scatter: nonzero i goes to slot
-    # rank(i); zeros go to the sink column TP, dropped below
-    rank = torch.cumsum(nz, dim=-1, dtype=_I32) - 1
-    tgt = torch.where(nz, rank, TP).to(_I64)
-    vals = torch.zeros((nb, TP + 1), dtype=_I32, device=v.device)
+    at = torch.arange(total, dtype=_I32, device=v.device)
+    nruns, tgt = _slot_targets(nz, at)
+    # slots below total are all written; only the padding is zeroed
+    vals = torch.empty((nb, TP), dtype=_I32, device=v.device)
+    pos = torch.empty((nb, TP), dtype=_I32, device=v.device)
+    vals[:, total:] = 0
+    pos[:, total:] = 0
     vals.scatter_(1, tgt, v)
-    pos = torch.zeros((nb, TP + 1), dtype=_I32, device=v.device)
-    pos.scatter_(1, tgt, torch.arange(total, dtype=_I32,
-                                      device=v.device).expand(nb, total))
-    vals, pos = vals[:, :TP], pos[:, :TP]
+    pos.scatter_(1, tgt, at.expand(nb, total))
     act = torch.arange(TP, dtype=_I32, device=v.device) < nruns[:, None]
     dmp = _damp_of_pos(segments, pos)
     isneg = act & (dmp < 0)
@@ -248,14 +265,80 @@ def _slots(segments, v, TP):
                 isneg=isneg, isr=isr, um1=um1, dsafe=dsafe, thr=thr)
 
 
+def _tp(segments):
+    """The padded slot count TP of a plane's scan."""
+    total = sum(c for c, _ in segments)
+    ll_n = segments[0][0] if segments and segments[0][1] < 0 else 0
+    return _chunk_sizes(total, ll_n)[2]
+
+
 def vk_chain_inputs(segments, v):
     """The vk chain's (thr (npad, B), s0 (B,), nnz (B,)) for scan arrays
     v (B, total) int32, exactly as make_scan_blob hands them over."""
-    total = sum(c for c, _ in segments)
-    ll_n = segments[0][0] if segments and segments[0][1] < 0 else 0
-    TP = _chunk_sizes(total, ll_n)[2]
-    st = _slots(tuple(segments), v, TP)
+    segments = tuple(segments)
+    st = _slots(segments, v, _tp(segments))
     return st["thr"].T.contiguous(), st["nll"], st["nruns"]
+
+
+def emission(segments, cap_bytes, v):
+    """The codes of scan arrays v (B, total) int32 as word contributions
+    to a blob of cap_bytes: (idx int64 (B, 6*TP) into Mw + 1 words, Mw =
+    the blob's 32-bit words, val int64 (B, 6*TP), nruns int32 (B,),
+    nbytes int32 (B,), fallback bool (B,)). Word Mw is a sink, dropped;
+    a contribution that carries bits goes to its word, or to the sink
+    past the blob (only fallback planes get there: there q can be
+    ~2^31 and the int32 offsets wrap, as they do in the twin). One that
+    carries none adds 0, to its own column modulo Mw, so no word takes
+    more than ceil(6*TP / Mw) of those."""
+    TP = _tp(segments)
+    Mw = _pad_to(cap_bytes, 4) // 4
+    st = _slots(segments, v, TP)
+    nruns, act, isneg, isr = st["nruns"], st["act"], st["isneg"], st["isr"]
+    vals, pos, um1, dsafe = st["vals"], st["pos"], st["um1"], st["dsafe"]
+
+    # contract guards -> host fallback
+    bad_hf = isr & (vals.abs() > 127)
+    bad_ll = isneg & (vals.abs() >= (1 << 30))
+    fallback = bad_hf.any(dim=-1) | bad_ll.any(dim=-1)
+
+    # vk chain (sequential) -> per-element rice k (pre-update vk)
+    vkpre = vk_chain(st["thr"].T.contiguous(), st["nll"], nruns).T
+    k = torch.clamp(torch.clamp(vkpre, min=0) >> dsafe, 0, 30)
+
+    # part A: UEG(run); run = pos diff - 1 (pos[-1] == -1)
+    prev = torch.cat([torch.full_like(pos[:, :1], -1), pos[:, :-1]], -1)
+    run = torch.where(act, pos - prev - 1, 0)
+    apat, alen = _ueg_pattern(run)
+
+    # part B: NEG, or the rice tail [1][k bits of u-1] after q zeros
+    npat, nlen = _neg_pattern(torch.where(isneg, vals, 1))
+    q = um1 >> k
+    k64 = k.to(_I64)
+    one = torch.ones_like(k64)
+    rpat = (one << k64) | (um1.to(_I64) & ((one << k64) - 1))
+    bpat = torch.where(isneg, npat, rpat)
+    blen = torch.where(isneg, nlen, 1 + k)
+    bgap = torch.where(isneg, 0, q)                # zeros before B
+
+    # bit offsets: part A at sa, part B at sa + alen + bgap
+    tot_i = torch.where(act, alen + bgap + blen, 0)
+    sa = RUN_BITS + torch.cumsum(tot_i, dim=-1, dtype=_I32) - tot_i
+    sb = sa + alen + bgap
+    last = torch.clamp(nruns - 1, min=0).to(_I64)[:, None]
+    end_bits = torch.where(
+        nruns > 0,
+        (sb.gather(1, last) + blen.gather(1, last))[:, 0], RUN_BITS)
+    nbytes = torch.div(end_bits + 7, 8, rounding_mode="floor")
+    fallback = fallback | (nbytes > cap_bytes) | (nruns >= (1 << RUN_BITS))
+
+    # every part's word contributions
+    spill = torch.remainder(torch.arange(6 * TP, dtype=_I32,
+                                         device=v.device), Mw).view(6, TP)
+    ia, va = _part_words(sa, alen, apat, act, spill[:3])
+    ib, vb = _part_words(sb, blen, bpat, act, spill[3:])
+    idx = torch.cat([ia, ib], dim=-1)
+    idx = torch.where((idx >= 0) & (idx < Mw), idx, Mw).to(_I64)
+    return idx, torch.cat([va, vb], dim=-1), nruns, nbytes, fallback
 
 
 @functools.lru_cache(maxsize=None)
@@ -265,8 +348,6 @@ def make_scan_blob(segments, cap_bytes):
     hzcc.scan_segments. Blob bytes [0, nbytes) byte-match the native scan
     encoder's; on fallback the caller must host-encode instead."""
     total = sum(c for c, _ in segments)
-    ll_n = segments[0][0] if segments and segments[0][1] < 0 else 0
-    TP = _chunk_sizes(total, ll_n)[2]
     Mb = cap_bytes
     Mw = _pad_to(Mb, 4) // 4
 
@@ -274,56 +355,12 @@ def make_scan_blob(segments, cap_bytes):
         if v.dtype != _I32 or v.dim() != 2 or v.shape[1] != total:
             raise ValueError("scan arrays must be int32 (B, %d), got %s %s"
                              % (total, v.dtype, tuple(v.shape)))
-        st = _slots(segments, v, TP)
-        nruns, act, isneg, isr = st["nruns"], st["act"], st["isneg"], st["isr"]
-        vals, pos, um1, dsafe = st["vals"], st["pos"], st["um1"], st["dsafe"]
-
-        # contract guards -> host fallback
-        bad_hf = isr & (vals.abs() > 127)
-        bad_ll = isneg & (vals.abs() >= (1 << 30))
-        fallback = bad_hf.any(dim=-1) | bad_ll.any(dim=-1)
-
-        # vk chain (sequential) -> per-element rice k (pre-update vk)
-        vkpre = vk_chain(st["thr"].T.contiguous(), st["nll"], nruns).T
-        k = torch.clamp(torch.clamp(vkpre, min=0) >> dsafe, 0, 30)
-
-        # part A: UEG(run); run = pos diff - 1 (pos[-1] == -1)
-        prev = torch.cat([torch.full_like(pos[:, :1], -1), pos[:, :-1]], -1)
-        run = torch.where(act, pos - prev - 1, 0)
-        apat, alen = _ueg_pattern(run)
-
-        # part B: NEG, or the rice tail [1][k bits of u-1] after q zeros
-        npat, nlen = _neg_pattern(torch.where(isneg, vals, 1))
-        q = um1 >> k
-        k64 = k.to(_I64)
-        one = torch.ones_like(k64)
-        rpat = (one << k64) | (um1.to(_I64) & ((one << k64) - 1))
-        bpat = torch.where(isneg, npat, rpat)
-        blen = torch.where(isneg, nlen, 1 + k)
-        bgap = torch.where(isneg, 0, q)                # zeros before B
-
-        # bit offsets: part A at sa, part B at sa + alen + bgap
-        tot_i = torch.where(act, alen + bgap + blen, 0)
-        sa = RUN_BITS + torch.cumsum(tot_i, dim=-1, dtype=_I32) - tot_i
-        sb = sa + alen + bgap
-        last = torch.clamp(nruns - 1, min=0).to(_I64)[:, None]
-        end_bits = torch.where(
-            nruns > 0,
-            (sb.gather(1, last) + blen.gather(1, last))[:, 0], RUN_BITS)
-        nbytes = torch.div(end_bits + 7, 8, rounding_mode="floor")
-        fallback = fallback | (nbytes > Mb) | (nruns >= (1 << RUN_BITS))
-
-        # emission: every live part's word contributions, one scatter-add;
-        # words outside the buffer go to the sink word Mw (dropped). Only
-        # out-of-contract planes (fallback) reach it: there q can be
-        # ~2^31 and the int32 offsets wrap, as they do in the twin
-        ia, va = _part_words(sa, alen, apat, act)
-        ib, vb = _part_words(sb, blen, bpat, act)
-        idx = torch.cat([ia, ib], dim=-1)
-        idx = torch.where((idx >= 0) & (idx < Mw), idx, Mw).to(_I64)
+        idx, val, nruns, nbytes, fallback = emission(segments, Mb, v)
+        # every contribution in one scatter-add (add == or: no two
+        # contributions share a bit)
         words = torch.zeros((v.shape[0], Mw + 1), dtype=_I64,
                             device=v.device)
-        words.scatter_add_(1, idx, torch.cat([va, vb], dim=-1))
+        words.scatter_add_(1, idx, val)
         words = words[:, :Mw]
         blob = torch.stack([(words >> s) & 0xFF for s in (24, 16, 8, 0)],
                            dim=-1).to(torch.uint8).reshape(v.shape[0], -1)

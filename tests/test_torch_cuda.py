@@ -163,6 +163,35 @@ def test_scan_blob_cuda_vs_cpu(cuda):
         assert torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("plane", [0, 1])
+def test_scan_blob_fhd_chunk_cuda_vs_cpu(cuda, plane):
+    """make_scan_blob at the FHD intra batch's shape: a 16-frame chunk of
+    a 1920x1080 4:2:0 luma or chroma plane at the path's cap, seeded
+    planes as sparse as -qp=60's (3-15% nonzero), one with no run and one
+    dense (over the cap: a fallback). Blob, nbytes and fallback on the
+    card equal the CPU's."""
+    from dsv2_tpu_torch.codec.devsteps import blob_cap
+    from dsv2_tpu_torch.core import constants as K
+    from dsv2_tpu_torch.core.frame import coef_dims
+    from dsv2_tpu_torch.ops import hzcc, scan_pl
+    cw, ch = coef_dims(K.SUBSAMP_420, 1920, 1080)[plane]
+    segs = tuple(hzcc.scan_segments(cw, ch))
+    total, ll_n = sum(c for c, _ in segs), segs[0][0]
+    rng = np.random.default_rng(60 + plane)
+    v = np.round(rng.laplace(0, 6, (16, total))).clip(-127, 127)
+    v[:, :ll_n] = np.round(rng.laplace(0, 900, (16, ll_n)))
+    density = np.array([0.0, 1.0] + [0.03, 0.05, 0.1, 0.15] * 3 + [0.05,
+                                                                    0.05])
+    v[rng.random((16, total)) >= density[:, None]] = 0
+    v = v.astype(np.int32)
+    fn = scan_pl.make_scan_blob(segs, blob_cap(total))
+    want = fn(tt(v))
+    got = fn(tt(v).to(cuda))
+    assert want[2].tolist() == [False, True] + [False] * 14
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.parametrize("name", ["tiny64x48_420_6f", "odd100x62_420_4f",
                                   "cif352x288_420_12f"])
 def test_batch_golden_cuda(cuda, name):

@@ -194,3 +194,59 @@ def test_chain_inputs_match_blob_path():
     assert thr.dtype == torch.int32 and thr.is_contiguous()
     assert nnz.tolist() == (v != 0).sum(axis=1).tolist()
     assert s0.tolist() == (v[:, :segs[0][0]] != 0).sum(axis=1).tolist()
+
+
+def _plane_case(segs, density, seed):
+    """A plane's scan with HF values in contract at `density`; LL values
+    at the same density."""
+    rng = np.random.default_rng(seed)
+    total = sum(c for c, _ in segs)
+    v = np.round(rng.laplace(0, 6, total)).clip(-127, 127).astype(np.int32)
+    v[:segs[0][0]] = np.round(rng.laplace(0, 900, segs[0][0]))
+    v[rng.random(total) >= density] = 0
+    return v
+
+
+@pytest.mark.parametrize("density", [0.0, 0.05, 1.0])
+def test_emission_spreads_contributions(density):
+    """No word of a row takes more than its share of the emission's
+    contributions: at most 33 that carry bits (parts are >= 1 bit and
+    never share one: 32 start in a word, one crosses into it) plus the
+    no-op adds spread over the row, ceil(6*TP/Mw). Dead slots once sent
+    all of theirs to the stream's last words, ~31% of a CIF row on one
+    word. The path's cap (a dense row takes a byte a coefficient: the
+    path's total/3 sends it to the host); the batch's rows hold 0, some
+    and every run, and their bytes equal the native coder's."""
+    from dsv2_tpu_torch.codec.devsteps import blob_cap
+    segs = _segs(352, 288)
+    total = sum(c for c, _ in segs)
+    cap = total if density == 1.0 else blob_cap(total)
+    vs = np.stack([_plane_case(segs, density, 20 + i) for i in range(2)]
+                  + [np.zeros(total, np.int32)])
+    idx, val, nruns, nbytes, fb = scan_pl.emission(segs, cap, tt(vs))
+    assert not fb.any()
+    assert nruns.tolist() == (vs != 0).sum(axis=1).tolist()
+    TP, Mw = scan_pl._tp(segs), -(-cap // 4)
+    assert idx.shape == (3, 6 * TP) and int(idx.max()) < Mw   # no sink
+    hits = torch.stack([torch.bincount(r, minlength=Mw + 1) for r in idx])
+    assert int(hits.max()) <= 33 + -(-6 * TP // Mw)
+    _check(segs, vs, cap=cap, with_jax=False)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.05, 1.0])
+def test_slot_targets_unique(density):
+    """The compaction scatters write every position to a slot of its
+    own, below total (zeros once all went to one sink column); the
+    nonzeros keep their order at the front."""
+    segs = _segs(352, 288)
+    total = sum(c for c, _ in segs)
+    v = tt(np.stack([_plane_case(segs, density, 30),
+                     _plane_case(segs, density / 2, 31)]))
+    nz = v != 0
+    nruns, tgt = scan_pl._slot_targets(
+        nz, torch.arange(total, dtype=torch.int32))
+    assert tgt.dtype == torch.int64
+    for b in range(2):
+        assert torch.equal(torch.sort(tgt[b]).values,
+                           torch.arange(total))
+        assert torch.equal(tgt[b][nz[b]], torch.arange(int(nruns[b])))

@@ -8,6 +8,7 @@
                                     --lockstep [--pkg ROOT ...]
                                     [--profile] |
                                     --idle-spans [--idle-trace PATH] |
+                                    --scan [--pkg ROOT ...] |
                                     --probe [--src CSRC ...]]
 
 Input: the seeded synthetic clip of chip_smoke.py's main path (1920x1080
@@ -19,13 +20,6 @@ Input: the seeded synthetic clip of chip_smoke.py's main path (1920x1080
            slot compaction and the vk kernel. Also the whole chunk's
            device pass, the host time to enqueue it, and peak device
            memory of one chunk.
-  scatter  the scan blob's emission scatter-add, per plane, timed as the
-           path issues it and with every zero-valued contribution moved
-           to a word of its own (adding 0 changes no word: the bytes are
-           equal, and the script checks it). With the share of
-           contributions that are zero, the share that land on the most
-           hit word of their row, and (largest over rows) how many words
-           that word lies from the last word that receives bits.
   profile  torch.profiler over one 32-frame encode_intra_batch (after a
            warm run): host wall time, device time as the union of the
            kernel and copy intervals, the busy share with the profiler
@@ -158,6 +152,27 @@ With --probe it prints only:
            shuffles, branches; cuobjdump -sass, whose whole listing goes
            to DIR/probe_sass_<source>.txt).
 
+With --scan it prints only, for each --pkg ROOT (a checkout root holding
+dsv2_tpu_torch/, each run in a process of its own in the order given: the
+parent's and this one's in turns, to compare; default this checkout), on
+the first 16-frame chunk of the fhd_intra_encode cell's clip
+(codecbench/; 1920x1080 4:2:0, -qp=60, seed 7; `--scan-seed`):
+
+  scan_chunk  per plane: the share of nonzero scan values, the scan
+           blob's device ms (make_scan_blob, CUDA events, mean of 10
+           after a warm-up) and host enqueue ms, and each scatter it
+           issues timed alone (aten scatter_ and scatter_add_, captured
+           as issued and replayed into a copy of their output; mean of
+           10), with the share of the scatter's writes that land on its
+           most written element; and SHA-256 of every row's blob bytes
+           [0, nbytes), nbytes and fallback (equal across roots: the
+           bytes did not change).
+  scan_job  torch.profiler over one 32-frame encode_intra_batch of the
+           cell's clip (after a warm job): device ms under
+           aten::scatter_add_ per frame, split by output shape into the
+           scan blob's emission ((16, words + 1) int64) and the HVS
+           analysis' histograms, and under aten::scatter_.
+
 Needs CUDA and nvcc; writes under build/ and DIR (default chiprun_out/).
 """
 import argparse
@@ -188,55 +203,6 @@ def dev_ms(fn, reps=5):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
-
-
-def capture_scatter(fn):
-    """Run fn() and return its result with the (out shape, dim, index,
-    src) of every aten scatter_add_ it issued."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    calls = []
-
-    class Capture(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func is torch.ops.aten.scatter_add_.default:
-                out, dim, idx, src = args
-                calls.append((tuple(out.shape), dim, idx, src))
-            return func(*args, **(kwargs or {}))
-
-    with Capture():
-        res = fn()
-    return res, calls
-
-
-def scatter_study(shape, dim, idx, src):
-    """Time one emission scatter-add as issued and with its zero-valued
-    contributions spread to distinct words; check that both give the
-    same words."""
-    import torch
-    assert dim == 1 and len(shape) == 2
-    ncol = shape[1]
-    col = torch.arange(idx.shape[1], device=idx.device) % ncol
-    spread = torch.where(src != 0, idx, col.expand_as(idx))
-
-    def run(ix):
-        return torch.zeros(shape, dtype=src.dtype,
-                           device=src.device).scatter_add_(1, ix, src)
-
-    assert torch.equal(run(idx), run(spread)), "spread changed the words"
-    rows = torch.arange(shape[0], device=idx.device)[:, None] * ncol
-    hits = torch.bincount((idx + rows).reshape(-1),
-                          minlength=shape[0] * ncol).reshape(shape)
-    top, where = hits.max(dim=1)
-    last = torch.where(src != 0, idx, -1).max(dim=1).values
-    ms_as_is = dev_ms(lambda: run(idx))
-    ms_spread = dev_ms(lambda: run(spread))
-    return dict(contributions=idx.numel(),
-                zero_share=float((src == 0).float().mean()),
-                top_word_share=float(top.sum()) / idx.numel(),
-                top_word_past_last_bits_max=int((where - last).abs().max()),
-                ms_as_issued=ms_as_is, ms_zeros_spread=ms_spread)
 
 
 def kernel_busy_ms(prof):
@@ -1482,6 +1448,139 @@ def lockstep_run(root, profile):
     emit("lockstep", **rec)
 
 
+def scan_study(pkgs, seed):
+    """--scan: scan_run of each package root, one process each."""
+    for root in pkgs:
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--scan-run",
+             os.path.abspath(root), str(seed)],
+            capture_output=True, text=True)
+        sys.stdout.write(res.stdout)
+        sys.stdout.flush()
+        if res.returncode:
+            sys.exit("scan run of %s failed:\n%s"
+                     % (root, res.stderr[-4000:]))
+
+
+def scan_run(root, seed):
+    """The --scan measurements with the dsv2_tpu_torch of `root`."""
+    import hashlib
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    sys.path.insert(0, root)
+    import dsv2_tpu_torch
+    assert os.path.dirname(os.path.dirname(os.path.abspath(
+        dsv2_tpu_torch.__file__))) == root, dsv2_tpu_torch.__file__
+    from codecbench import clip, program
+    from dsv2_tpu_torch.codec.devsteps import blob_cap
+    from dsv2_tpu_torch.ops import hzcc, scan_pl
+    from dsv2_tpu_torch.parallel import batch
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    with open(os.path.join(REPO, "codecbench", "configs",
+                           "fhd420_qp60.json")) as f:
+        cfg = json.load(f)
+    program.prepare(dev)
+    frames = clip.make_clip(cfg["width"], cfg["height"], NFRAMES,
+                            cfg["subsamp"], seed)
+    enc = program.encoder(cfg, 0, dev)
+    ctx = batch._prep_chunk(enc, frames[:CHUNK])
+    p = ctx["p"]
+    xs, bds, qs = batch._chunk_inputs(enc, ctx)
+    meta = program.meta(cfg)
+    fn = batch._device_batch_fn(meta.width, meta.height, meta.subsamp,
+                                p.blk_w, p.blk_h, p.lossless, p.do_psy,
+                                ctx["analyze"])
+    vs = fn(xs[0], xs[1], xs[2], bds, qs)[2]
+    scatters = (torch.ops.aten.scatter_.src,
+                torch.ops.aten.scatter_add_.default)
+
+    class Capture(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in scatters:
+                self.calls.append((func.__name__, args))
+            return out
+
+    planes = []
+    for c in range(3):
+        segs = tuple(hzcc.scan_segments(*ctx["pcfg"].cdims[c]))
+        total = sum(n for n, _ in segs)
+        blob = scan_pl.make_scan_blob(segs, blob_cap(total))
+        with Capture() as cap:
+            b, nb, fb = blob(vs[c])
+        rows = [hashlib.sha256(b[i, :int(nb[i])].cpu().numpy().tobytes()
+                               ).hexdigest() for i in range(b.shape[0])]
+        t0 = time.perf_counter()
+        blob(vs[c])
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        alone = []
+        for name, (out, dim, idx, src) in cap.calls:
+            dst = out.clone()
+            op = getattr(dst, name.split(".")[0])
+            ms = dev_ms(lambda: op(dim, idx, src), reps=10)
+            n = idx.shape[1]
+            rowbase = torch.arange(idx.shape[0], device=dev)[:, None] \
+                * dst.shape[1]
+            hits = torch.bincount((idx + rowbase).reshape(-1),
+                                  minlength=dst.numel()).reshape(dst.shape)
+            alone.append(dict(op=name, out=list(dst.shape), writes=n,
+                              ms=ms, top_element_share=float(
+                                  hits.max(dim=1).values.float().mean()) / n))
+            del dst, hits
+        planes.append(dict(
+            plane=c, total=total, nonzero_share=float(
+                (vs[c] != 0).float().mean()),
+            blob_ms=dev_ms(lambda: blob(vs[c]), reps=10),
+            enqueue_ms=enqueue_ms, scatters=alone,
+            blob_sha256=hashlib.sha256("".join(rows).encode()).hexdigest(),
+            nbytes=nb.tolist(), fallback=fb.tolist()))
+        del cap
+    emit("scan_chunk", root=root, seed=seed, frames=CHUNK,
+         chunk_ms=dev_ms(lambda: fn(xs[0], xs[1], xs[2], bds, qs)),
+         planes=planes, nvidia_smi=smi)
+
+    def job():
+        e = program.encoder(cfg, 0, dev)
+        out = batch.encode_intra_batch(e, frames, chunk=CHUNK)
+        out += e.end_of_stream()
+        return b"".join(out)
+
+    warm = job()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        data = job()
+        torch.cuda.synchronize()
+    assert data == warm
+    words = {blob_cap(sum(n for n, _ in hzcc.scan_segments(*d))) // 4 + 1
+             for d in ctx["pcfg"].cdims}
+    split = {}
+    for a in prof.key_averages(group_by_input_shape=True):
+        if a.key not in ("aten::scatter_add_", "aten::scatter_"):
+            continue
+        v = getattr(a, "device_time_total", None)
+        if v is None:
+            v = getattr(a, "cuda_time_total", 0.0)
+        shape = a.input_shapes[0] if a.input_shapes else []
+        part = a.key
+        if a.key == "aten::scatter_add_":
+            part += (".emission" if len(shape) == 2 and shape[1] in words
+                     else ".hvs_hist")
+        split[part] = split.get(part, 0.0) + v / 1e3 / NFRAMES
+    emit("scan_job", root=root, frames=NFRAMES,
+         sha256=hashlib.sha256(data).hexdigest(), ms_per_frame=split,
+         nvidia_smi=smi)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--lockstep-run"]:
@@ -1489,6 +1588,9 @@ def main(argv=None):
         sys.path.insert(0, os.path.join(REPO, "tools"))
         assert torch.cuda.is_available(), "needs an NVIDIA GPU"
         return lockstep_run(argv[1], bool(int(argv[2])))
+    if argv[:1] == ["--scan-run"]:
+        sys.path.insert(0, REPO)
+        return scan_run(argv[1], int(argv[2]))
     if argv[:1] == ["--idle-job"]:
         sys.path.insert(0, REPO)
         return idle_job(argv[1])
@@ -1518,8 +1620,13 @@ def main(argv=None):
     ap.add_argument("--lockstep", action="store_true",
                     help="only the lockstep encode and decode and the "
                     "decodes of chain steps, per package root")
+    ap.add_argument("--scan", action="store_true",
+                    help="only the scan blob of the FHD intra cell's "
+                    "chunk and its scatters, per package root")
+    ap.add_argument("--scan-seed", type=int, default=7,
+                    help="with --scan: the cell clip's seed")
     ap.add_argument("--pkg", action="append",
-                    help="with --lockstep: a checkout root holding "
+                    help="with --lockstep or --scan: a checkout root holding "
                     "dsv2_tpu_torch/, in the order given (default: this "
                     "checkout)")
     ap.add_argument("--idle-spans", action="store_true",
@@ -1547,6 +1654,8 @@ def main(argv=None):
                                                    "csrc")])
     if args.lockstep:
         return lockstep_study(args.pkg or [REPO], args.profile)
+    if args.scan:
+        return scan_study(args.pkg or [REPO], args.scan_seed)
     if args.idle_spans:
         return idle_spans_study()
     if args.probe:
@@ -1598,7 +1707,6 @@ def main(argv=None):
     lay["chunk_peak_bytes"] = torch.cuda.max_memory_allocated()
     flags = blockanalysis.device_intra_flags(pcfg)
     lay["analysis_ms"] = dev_ms(lambda: flags(xs[0], xs[1], xs[2]))
-    scatter = []
     for c in range(3):
         x = xs[c].to(torch.int32) - 128
         fwd = sbt.make_fwd_sbt_carry(pcfg.sbt_cfg(c))
@@ -1613,12 +1721,7 @@ def main(argv=None):
         lay["slots_ms_%d" % c] = dev_ms(
             lambda: scan_pl.vk_chain_inputs(segs, vs[c]))
         lay["vk_ms_%d" % c] = dev_ms(lambda: scan_pl.vk_chain(*vk_in))
-        _, calls = capture_scatter(lambda: blob(vs[c]))
-        assert len(calls) == 1, len(calls)
-        scatter.append(dict(plane=c, **scatter_study(*calls[0])))
-        del calls
     emit("layers", frames=CHUNK, **lay)
-    emit("scatter", planes=scatter)
 
     # torch.profiler over the 32-frame main path
     def run():
