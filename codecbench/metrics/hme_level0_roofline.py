@@ -1,0 +1,10 @@
+"""hme_level0_roofline (%, layer kernels): the share of its bytes
+roofline that `hme_level0` (kernel 5, the motion search's base level
+and mode decisions) reaches in the profiled job: the least time its
+calls' bytes (rooflines/hme_level0.py) need at the card's memory rate
+(peaks.json) over the device time of its launches."""
+from codecbench.harness import roofline_share
+
+
+def read(obs):
+    return roofline_share(obs, "hme_level0")

@@ -14,6 +14,12 @@ step with reconstruction, the in-loop filters, border extension and the
 pyramids stay on the device; the host reads back only the motion field
 and the entropy-coded scans. The twin's host reference path (host motion
 search, host in-loop filters) is not ported.
+
+Outside lockstep (`dev_submit` None) each one-frame device step's call is
+a span `encode.dispatch.<key>` (`input_prep`, `i_chain`, `p_chain`;
+the motion search's `hme` in ops/hme_gpu) with the frame's
+`fnum`: its host enqueue and the waits inside it (utils/trace). Under
+lockstep the batcher's flush spans cover the steps instead.
 (ref: src/dsv_encoder.c)
 """
 import numpy as np
@@ -287,7 +293,8 @@ class Encoder:
             return self.dev_submit(("input_prep", cfg),
                                    devsteps.lanewise(devsteps.make_input_prep),
                                    vis, fetch=False)
-        return devsteps.make_input_prep(*cfg)(*vis)
+        with stage("encode.dispatch.input_prep", fnum=d.fnum):
+            return devsteps.make_input_prep(*cfg)(*vis)
 
     def _encode_one(self, d):
         """(ref: encode_one_frame, dsv_encoder.c:1184-1317)."""
@@ -541,7 +548,8 @@ class Encoder:
             return self.dev_submit(
                 ("i_chain", cfg), devsteps.lanewise(devsteps.make_i_chain_step),
                 args, fetch=True)
-        return devsteps.make_i_chain_step(*cfg)(*args)
+        with stage("encode.dispatch.i_chain", fnum=d.fnum):
+            return devsteps.make_i_chain_step(*cfg)(*args)
 
     def _p_step(self, d, pcfg, inter_filter):
         """The P device step with the reference chain. The motion field
@@ -568,7 +576,8 @@ class Encoder:
             return self.dev_submit(
                 ("p_chain", cfg), devsteps.lanewise(devsteps.make_p_chain_step),
                 args, fetch=True)
-        return devsteps.make_p_chain_step(*cfg)(*args)
+        with stage("encode.dispatch.p_chain", fnum=d.fnum):
+            return devsteps.make_p_chain_step(*cfg)(*args)
 
     # -- P-frame machinery ----------------------------------------------------
 

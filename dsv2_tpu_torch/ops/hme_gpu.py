@@ -287,12 +287,14 @@ def make_motion_est_lanes(cfg):
 
 def motion_est(enc, d):
     """Search frame d against its reference with kernels 4/5 (backend
-    "pallas"); through the encoder's lockstep batcher when it has one."""
+    "pallas"); through the encoder's lockstep batcher when it has one,
+    else in the span `encode.dispatch.hme` (the kernels' enqueue)."""
     cfg, inputs = hw.prepare_motion_est(enc, d)
     submit = getattr(enc, "dev_submit", None)
     if submit is not None:
         st = submit(("hme_pl", cfg), make_motion_est_lanes, inputs,
                     fetch=True)
     else:
-        st = make_motion_est(cfg)(*inputs)
+        with trace.stage("encode.dispatch.hme", fnum=d.fnum):
+            st = make_motion_est(cfg)(*inputs)
     hw.apply_motion_est(enc, d, st)

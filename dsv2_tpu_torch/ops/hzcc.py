@@ -352,7 +352,9 @@ def make_quantize(cfg: HzccCfg):
         lead = x.shape[:-2]
         x = x.clone()
         ll_save = x[..., 0, 0].clone()
-        x[..., 0, 0] = 0
+        # zero_(), not `= 0`: one frame's view is 0-dim, and a Python
+        # scalar stored into a 0-dim CUDA tensor is a host copy that waits
+        x[..., 0, 0].zero_()
         q = fix_quant(q)[..., None, None]
         vs = []
         # LL subband (ref: hzcc.c:307-328 / lossless 268-281)

@@ -1,9 +1,10 @@
 """torch port: the span tree and counters of dsv2_tpu_torch/utils/trace.py
 (parents, self time, ids, counters credited to the innermost span, the
 buffer's cap, the off path), the `report()` format the benchmark parses,
-the lockstep cycle's gather and flush spans on a tiny CPU run, the spans
-on a torch profiler's trace only while tracing, and the counted wait
-helper of parallel/xfer.py doing nothing on CPU tensors."""
+the lockstep cycle's gather and flush spans on a tiny CPU run, the single
+stream's `encode.dispatch.<key>` spans (none under lockstep or the intra
+batch), the spans on a torch profiler's trace only while tracing, and the
+counted wait helper of parallel/xfer.py doing nothing on CPU tensors."""
 import io
 import threading
 import time
@@ -180,14 +181,14 @@ def test_report_format_parsed_by_span_table(traced):
     assert got["lockstep.dispatch.p_chain"][1] == 3
 
 
-def _lockstep_run(nlanes=2, nframes=3, gop=3):
+def _lockstep_run(nlanes=2, nframes=3, gop=3, hme_backend="gang"):
     frames, meta = read_y4m(golden.input_path("tiny64x48_420_6f"))
     streams = [frames[i * nframes:(i + 1) * nframes] for i in range(nlanes)]
 
     def factory():
         enc = cli.make_encoder(meta, cli.default_enc_opts(qp=60, gop=gop),
                                device="cpu")
-        enc.hme_backend = "gang"
+        enc.hme_backend = hme_backend
         return enc
     return dynbatch.encode_streams_lockstep(streams, factory, width=nlanes)
 
@@ -236,6 +237,57 @@ def test_lockstep_gather_and_flush_cover_the_run(traced):
                for r in flushes + gathers)
     assert "sync" not in recs and "sync" not in cnt
     assert not any(k.startswith("launch.") for k in cnt)
+
+
+def _dispatch_spans():
+    return [r for r in trace.records()
+            if r.name.startswith("encode.dispatch.")]
+
+
+def test_single_stream_dispatch_spans(traced):
+    """A tiny CPU encode at -gop=4 frame by frame (I P P P I P): each
+    one-frame step's call is a span `encode.dispatch.<key>` inside its
+    frame's `encode_frame`, named by the frame's fnum: input_prep every
+    frame, i_chain every intra frame, p_chain and hme every P frame."""
+    frames, meta = read_y4m(golden.input_path("tiny64x48_420_6f"))
+    enc = cli.make_encoder(meta, cli.default_enc_opts(qp=60, gop=4),
+                           device="cpu")
+    kinds = {}
+    for fnum, planes in enumerate(frames):
+        pic, = [p for p in enc.encode_frame(planes) if p[5] & 0x04]
+        kinds[fnum] = "p" if pic[5] & 0x01 else "i"
+    assert kinds == dict(enumerate("ipppip"))
+    frame_of = {r.id: r.ids["fnum"] for r in trace.records()
+                if r.name == "encode_frame"}
+    byid = {r.id: r for r in trace.records()}
+    got = {}
+    for r in _dispatch_spans():
+        got.setdefault(r.name[len("encode.dispatch."):], []).append(
+            r.ids["fnum"])
+        p = r.parent
+        while p not in frame_of:
+            p = byid[p].parent
+        assert frame_of[p] == r.ids["fnum"]
+    want_p = [k for k, v in kinds.items() if v == "p"]
+    assert got == {"input_prep": list(range(6)), "i_chain": [0, 4],
+                   "p_chain": want_p, "hme": want_p}
+
+
+def test_no_dispatch_span_in_lockstep_or_intra_batch(traced):
+    """The batched paths have their own spans: a lockstep run (either
+    search backend) and an intra batch run record no `encode.dispatch.*`
+    span."""
+    from dsv2_tpu_torch.parallel import batch
+    for backend in ("gang", "pallas"):
+        _lockstep_run(hme_backend=backend)
+        assert trace.records() and not _dispatch_spans()
+        trace.reset()
+    frames, meta = read_y4m(golden.input_path("tiny64x48_420_6f"))
+    enc = cli.make_encoder(meta, cli.default_enc_opts(qp=60, gop=0),
+                           device="cpu")
+    batch.encode_intra_batch(enc, frames[:2], chunk=2)
+    assert "batch.dispatch" in {r.name for r in trace.records()}
+    assert not _dispatch_spans()
 
 
 def _span_events(fn, tracing):

@@ -1,10 +1,11 @@
-"""torch port on the card: every host-device wait of the benchmark's two
+"""torch port on the card: every host-device wait of the benchmark's
 jobs goes through the counted wait helper of parallel/xfer.py, and the
 trace module's spans and counters never wait for, allocate on or launch
 on the card, with tracing on or off.
 
 The jobs are the benchmark's (codecbench/): one CIF lockstep job of 8
-lanes x 48 frames and one FHD intra chunk of 16 frames, each run traced
+lanes x 48 frames, one FHD intra chunk of 16 frames and the first frames
+of the single FHD stream (one I and two P frames), each run traced
 under torch.cuda.set_sync_debug_mode("warn"); each synchronizing call's
 warning is traced back to the innermost frame of the port that made it.
 
@@ -135,6 +136,32 @@ def test_intra_chunk_waits_only_in_the_helper(cuda):
     assert got == want
     _check_sites(sites, counters)
     assert counters["sync"] > 0 and counters["launch.vk_chain"] == 3
+
+
+def test_live_p_frames_wait_only_in_the_helper(cuda):
+    """The single stream of fhd_p_encode (`Encoder.encode_frame`: kernels
+    4/5 and the one-frame P chain): no wait hides inside its
+    `encode.dispatch.*` spans, so their self time less their `sync`
+    children is the host's enqueue."""
+    from codecbench import clip, program
+    cfg, traffic = _bench("fhd_p_encode")
+    program.prepare(cuda)
+    frames = clip.make_clip(cfg["width"], cfg["height"], 3, cfg["subsamp"],
+                            SEED)
+
+    def job():
+        enc = program.encoder(cfg, traffic["gop"], cuda)
+        out = []
+        for planes in frames:
+            out += enc.encode_frame(planes)
+        out += enc.end_of_stream()
+        return b"".join(out)
+    want = job()
+    got, sites, counters, recs = _traced(job)
+    assert got == want
+    _check_sites(sites, counters)
+    p_chain = [r for r in recs if r.name == "encode.dispatch.p_chain"]
+    assert len(p_chain) == counters["launch.hme_level0"] > 0
 
 
 @pytest.mark.parametrize("tracing", [False, True])
