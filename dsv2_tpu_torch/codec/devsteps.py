@@ -22,7 +22,12 @@ flush stacked on a leading dimension, one vk launch per plane and one
 filter launch per filter kind for all of them, as the twin's vmap);
 each lane then fetches its own part (`fetch_sparse_outs` of its
 LaneOut: the twin's merged per-flush fetch exists for a TPU link's
-per-transfer cost and is not ported).
+per-transfer cost and is not ported). Outside lockstep the encoder's
+one-frame P chain takes its per-frame values as one device tensor
+(`make_p_chain_packed`), and on the card it is a CUDA graph of that
+step, captured once per key and replayed for every frame of every
+encoder in the process (`p_chain_step`, `GraphedStep`): some 9,000 ops
+a frame become one launch.
 
 Decode (device chain): dequantize -> inverse SBT -> (P) motion
 compensation and reconstruction -> in-loop filters -> border extension
@@ -40,6 +45,7 @@ decoder's arena: the reference's shared transform scratch, threaded from
 plane to plane and frame to frame (`_arena_apply`).
 """
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -48,6 +54,7 @@ import torch
 from ..core.frame import plane_dims
 from ..ops import filters, framedev, hzcc, mc, scan_pl, sbt
 from ..parallel import xfer
+from ..utils import trace
 from ..utils.packet import VideoMeta
 from .decoder import _PCfg
 
@@ -289,6 +296,141 @@ def make_p_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
                          mvy, flags, submask, q, tmc, fq, fthresh, do_filter)
         return buf, smalls, vs, _chain_outputs(pcfg, levels, vis)
 
+    return step
+
+
+def p_chain_ints(grids, q, tmc, fq, fthresh, do_filter):
+    """The per-frame ints of a one-frame P chain step as make_p_chain_packed
+    takes them, one int32 array for one upload: grids (8, nbv, nbh) (mvx,
+    mvy, flags, submask, dc, blockdata, eprm, mlt), then q, tmc, fq,
+    fthresh and do_filter."""
+    return np.concatenate([np.asarray(grids, np.int32).reshape(-1),
+                           np.array([q, tmc, fq, fthresh, do_filter],
+                                    np.int32)])
+
+
+@functools.lru_cache(maxsize=None)
+def make_p_chain_packed(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
+                        levels, inter_sharpen):
+    """make_p_chain_step with every per-frame value on the device:
+    step(srcs_full, refs, ints) -> (buf, smalls, vs, chain), ints the
+    uploaded p_chain_ints. Only the step's key steers its Python, so one
+    CUDA graph of it serves every frame of the key (p_chain_step)."""
+    pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
+                 blk_w, blk_h, True, lossless, do_psy)
+    base = make_p_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
+                             levels, inter_sharpen)
+    n = 8 * pcfg.nbv * pcfg.nbh
+
+    def step(srcs_full, refs, ints):
+        g = ints[:n].view(8, pcfg.nbv, pcfg.nbh)
+        return base(srcs_full, refs, g[0], g[1], g[2], g[3], g[4],
+                    g[5].to(torch.uint8), g[6] != 0, g[7] != 0,
+                    *ints[n:].unbind())
+
+    return step
+
+
+def _leaves(x):
+    """The tensors of a nest of tuples, lists and dicts, in order."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _leaves(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _leaves(v)
+
+
+def _copied(x):
+    """A nest of tuples, lists and dicts with each tensor cloned."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _copied(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copied(v) for v in x)
+    return x
+
+
+class GraphedStep:
+    """A one-frame device step replayed as a CUDA graph: the first call
+    runs `body` eagerly (its tables are built and uploaded, its kernels
+    loaded), the second captures it into static copies of its inputs,
+    and that call and each later one copy their inputs into those,
+    replay the graph on the current stream and return clones of its
+    outputs, which no later replay writes. A lock serializes copy-in,
+    replay and copy-out, and a stream waits for the last copy-out before
+    its copy-in, so callers on several threads and streams stay apart.
+    The capture notes the counts the body makes (trace.collect: its
+    kernels' `launch.*`) and each replay credits them, with
+    `graph.replay.<name>`; the capture counts `graph.capture.<name>`."""
+
+    def __init__(self, name, body, device):
+        self.name, self.body, self.device = name, body, device
+        self._lock = threading.Lock()
+        self._eager = False
+        self._graph = self._ins = self._outs = self._done = None
+        self._counts = {}
+
+    def __call__(self, *inputs):
+        with self._lock, torch.cuda.device(self.device):
+            if self._graph is None:
+                if not self._eager:
+                    self._eager = True
+                    return self.body(*inputs)
+                self._capture(inputs)
+            else:
+                torch.cuda.current_stream().wait_event(self._done)
+                for s, t in zip(_leaves(self._ins), _leaves(inputs)):
+                    if s.shape != t.shape or s.dtype != t.dtype:
+                        raise ValueError("%s graph takes %s %s, got %s %s"
+                                         % (self.name, s.dtype,
+                                            tuple(s.shape), t.dtype,
+                                            tuple(t.shape)))
+                    s.copy_(t)
+            self._graph.replay()
+            trace.count("graph.replay." + self.name)
+            for k, n in self._counts.items():
+                trace.count(k, n)
+            out = _copied(self._outs)
+            self._done.record()
+            return out
+
+    def _capture(self, inputs):
+        self._ins = _copied(inputs)
+        # torch.cuda.graph synchronizes the device first: wait here,
+        # counted, so that its wait finds the device idle
+        xfer.wait_stream(next(_leaves(self._ins)))
+        graph = torch.cuda.CUDAGraph()
+        with trace.collect() as made, torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
+            self._outs = self.body(*self._ins)
+        self._graph, self._counts = graph, made
+        self._done = torch.cuda.Event()
+        trace.count("graph.capture." + self.name)
+
+
+_GRAPHS = {}
+_GRAPHS_LOCK = threading.Lock()
+
+
+def p_chain_step(cfg, device):
+    """The one-frame P chain step of make_p_chain_step(*cfg) in the
+    packed form (make_p_chain_packed): on a CUDA device the process's
+    GraphedStep of (cfg, device), shared by every encoder; elsewhere the
+    eager step."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return make_p_chain_packed(*cfg)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _GRAPHS_LOCK:
+        step = _GRAPHS.get((cfg, dev))
+        if step is None:
+            step = _GRAPHS[(cfg, dev)] = GraphedStep(
+                "p_chain", make_p_chain_packed(*cfg), dev)
     return step
 
 

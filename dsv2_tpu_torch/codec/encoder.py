@@ -18,8 +18,9 @@ search, host in-loop filters) is not ported.
 Outside lockstep (`dev_submit` None) each one-frame device step's call is
 a span `encode.dispatch.<key>` (`input_prep`, `i_chain`, `p_chain`;
 the motion search's `hme` in ops/hme_gpu) with the frame's
-`fnum`: its host enqueue and the waits inside it (utils/trace). Under
-lockstep the batcher's flush spans cover the steps instead.
+`fnum`: its host enqueue and the waits inside it (utils/trace); on the
+card the P chain is a replay of its CUDA graph (devsteps.p_chain_step).
+Under lockstep the batcher's flush spans cover the steps instead.
 (ref: src/dsv_encoder.c)
 """
 import numpy as np
@@ -553,7 +554,10 @@ class Encoder:
 
     def _p_step(self, d, pcfg, inter_filter):
         """The P device step with the reference chain. The motion field
-        and the per-block maps go up as one int32 array."""
+        and the per-block maps go up as one int32 array; outside lockstep
+        the frame's scalars ride in it too (devsteps.p_chain_ints), and
+        the step is the process's CUDA graph of its key on the card
+        (devsteps.p_chain_step)."""
         p = d.params
         meta = self.meta
         mf = d.final_mvs
@@ -564,20 +568,24 @@ class Encoder:
         grids = np.stack([a.astype(np.int32) for a in (
             mf.x, mf.y, mf.flags, mf.submask, mf.dc, self.blockdata, eprm,
             mlt)]).reshape(8, p.nbv, p.nbh)
-        g = xfer.upload(grids, self.device)
-        q = xfer.upload(np.array(d.quant, dtype=np.int32), self.device)
         fq, fthresh = self._filter_q(pcfg, d.quant)
+        scal = (K.temporal_mc(d.fnum), fq, fthresh, 1 if inter_filter else 0)
         cfg = (meta.width, meta.height, meta.subsamp, p.blk_w, p.blk_h,
                p.lossless, p.do_psy, self.pyramid_levels, meta.inter_sharpen)
-        args = (d.dev["padded"], d.refdata.dev["recon"], g[0], g[1], g[2],
-                g[3], g[4], g[5].to(torch.uint8), g[6] != 0, g[7] != 0, q,
-                K.temporal_mc(d.fnum), fq, fthresh, 1 if inter_filter else 0)
         if self.dev_submit is not None:
+            g = xfer.upload(grids, self.device)
+            q = xfer.upload(np.array(d.quant, dtype=np.int32), self.device)
+            args = (d.dev["padded"], d.refdata.dev["recon"], g[0], g[1],
+                    g[2], g[3], g[4], g[5].to(torch.uint8), g[6] != 0,
+                    g[7] != 0, q) + scal
             return self.dev_submit(
                 ("p_chain", cfg), devsteps.lanewise(devsteps.make_p_chain_step),
                 args, fetch=True)
+        ints = xfer.upload(devsteps.p_chain_ints(grids, d.quant, *scal),
+                           self.device)
         with stage("encode.dispatch.p_chain", fnum=d.fnum):
-            return devsteps.make_p_chain_step(*cfg)(*args)
+            return devsteps.p_chain_step(cfg, self.device)(
+                d.dev["padded"], d.refdata.dev["recon"], ints)
 
     # -- P-frame machinery ----------------------------------------------------
 

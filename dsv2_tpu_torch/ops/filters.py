@@ -38,7 +38,6 @@ import numpy as np
 import torch
 
 from ..core import constants as K
-from ..parallel import xfer
 from ..utils import trace
 from . import tint
 
@@ -621,12 +620,17 @@ def _scalars(lead, device, *vals):
     """(nb, 8) int32 for planes with leading dimensions `lead` (nb their
     product): each value (int, numpy int, or a tensor over the first of
     those dimensions, e.g. one per lane of (L, 2) stacked U and V planes)
-    broadcast per plane, zero-padded to 8 columns."""
+    broadcast per plane, zero-padded to 8 columns. An int is a fill, a
+    tensor on the planes' device a copy: neither waits for the device, and
+    a value that changes from frame to frame is a tensor, so a captured
+    CUDA graph (codec/devsteps) reads it rather than baking it in."""
     nb = int(np.prod(lead, dtype=np.int64))
     sc = torch.zeros((nb, 8), dtype=_I32, device=device)
     for k, v in enumerate(vals):
-        t = xfer.put(v, device).to(_I32)
-        sc[:, k] = _lead(t, lead).reshape(-1)
+        if isinstance(v, torch.Tensor):
+            sc[:, k] = _lead(v.to(_I32), lead).reshape(-1)
+        else:
+            sc[:, k].fill_(int(v))
     return sc
 
 
@@ -651,24 +655,43 @@ def _run(kind, lay, vis_u8, props, *scal):
     return out.to(torch.uint8).reshape(vis_u8.shape)
 
 
-def _tile_props(grids, fx, fy):
+def _tile_index(pw, ph, nbh, nbv):
+    """The static tile->block maps (fy, fx) of _tile_maps."""
+    _, _, fx, fy = _tile_maps(pw, ph, nbh, nbv)
+    return fy, fx
+
+
+def _edge_table(ntx, nty, blk_w, blk_h):
+    """The luma filter's static per-tile block-edge flags (4, nty, ntx)
+    int32: tile on a block's left / top edge, on a half block's left /
+    top edge."""
+    edgeh = ((np.arange(ntx) * 4) % blk_w) == 0
+    edgev = ((np.arange(nty) * 4) % blk_h) == 0
+    edgehs = ((np.arange(ntx) * 4) % (blk_w // 2)) == 0
+    edgevs = ((np.arange(nty) * 4) % (blk_h // 2)) == 0
+    return np.stack([np.broadcast_to(a[None, :] if ax else a[:, None],
+                                     (nty, ntx))
+                     for a, ax in ((edgeh, 1), (edgev, 0), (edgehs, 1),
+                                   (edgevs, 0))]).astype(np.int32)
+
+
+def _tile_props(grids, pw, ph, nbh, nbv):
     """(..., NP, nbv, nbh) per-block grids -> (..., NP, nty, ntx) per tile
-    through the static tile->block maps."""
-    dev = grids.device
-    fy_t = xfer.put(fy, dev)
-    fx_t = xfer.put(fx, dev)
-    return grids[..., fy_t[:, None], fx_t[None, :]]
+    through the static tile->block maps (device tables, built once per
+    device and geometry)."""
+    fy, fx = tint.on_device(grids.device, _tile_index, pw, ph, nbh, nbv)
+    return grids[..., fy[:, None], fx[None, :]]
 
 
 def intra_filter_graph(pw, ph, nbh, nbv, vis_u8, bd_grid, fq, fthresh):
     """Intra dering filter on visible planes (..., ph, pw) uint8 with
     blockdata (..., nbv, nbh); fq/fthresh per plane (ref: bmc.c:390-457).
     fthresh is the caller's fthresh * do_filter."""
-    ntx, nty, fx, fy = _tile_maps(pw, ph, nbh, nbv)
+    ntx, nty, _, _ = _tile_maps(pw, ph, nbh, nbv)
     if ntx <= 0 or nty <= 0:
         return vis_u8
     lay = _layout(pw, ph, 4, 4, ntx, nty)
-    props = _tile_props(bd_grid.to(_I32)[..., None, :, :], fx, fy)
+    props = _tile_props(bd_grid.to(_I32)[..., None, :, :], pw, ph, nbh, nbv)
     return _run("intra", lay, vis_u8, props, fq, fthresh)
 
 
@@ -678,22 +701,14 @@ def luma_filter_graph(pw, ph, nbh, nbv, blk_w, blk_h, inter_sharpen,
     """Inter luma filter (ref: bmc.c:459-602). mvx/mvy/flags/submask:
     (..., nbv, nbh) int32 grids; fq/fthresh/do_filter/tmc per plane
     (ints, or tensors over the leading dimensions)."""
-    ntx, nty, fx, fy = _tile_maps(pw, ph, nbh, nbv)
+    ntx, nty, _, _ = _tile_maps(pw, ph, nbh, nbv)
     if ntx <= 0 or nty <= 0:
         return vis_u8
     lay = _layout(pw, ph, 4, 4, ntx, nty)
     ndx_g, ndy_g = _neighbordif2_grids(mvx, mvy, flags)
     bprops = torch.stack([mvx, mvy, flags, submask, ndx_g, ndy_g], dim=-3)
-    props_bt = _tile_props(bprops.to(_I32), fx, fy)
-    edgeh = ((np.arange(ntx) * 4) % blk_w) == 0
-    edgev = ((np.arange(nty) * 4) % blk_h) == 0
-    edgehs = ((np.arange(ntx) * 4) % (blk_w // 2)) == 0
-    edgevs = ((np.arange(nty) * 4) % (blk_h // 2)) == 0
-    st = np.stack([np.broadcast_to(a[None, :] if ax else a[:, None],
-                                   (nty, ntx))
-                   for a, ax in ((edgeh, 1), (edgev, 0), (edgehs, 1),
-                                 (edgevs, 0))]).astype(np.int32)
-    st = xfer.put(st, vis_u8.device)
+    props_bt = _tile_props(bprops.to(_I32), pw, ph, nbh, nbv)
+    st = tint.on_device(vis_u8.device, _edge_table, ntx, nty, blk_w, blk_h)
     props = torch.cat([props_bt,
                        st.expand(props_bt.shape[:-3] + st.shape)], dim=-3)
     return _run("luma", lay, vis_u8, props, fq, fthresh, do_filter, tmc,

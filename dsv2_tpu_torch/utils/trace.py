@@ -14,7 +14,10 @@ With DSV2_TRACE=1 (or after `enable()`):
   span whose ends are not one `with` block (`t0` from `mark()`), with no
   parent.
 - `count(name, n)` adds to a process counter and to the innermost open
-  span's own counts, so a flush's record carries its lanes.
+  span's own counts, so a flush's record carries its lanes. Inside
+  `collect()` the calling thread's counts go to the dict it yields
+  instead, tracing on or off: a CUDA graph's capture notes the launches
+  of its body there, and each replay credits them (codec/devsteps).
 - `table()` (per name: seconds, self seconds, i.e. less the time of its
   child spans, and count), `totals()`, `counters()`, `records()` read
   them; `report()` prints the per-name table and the counters, at exit
@@ -24,10 +27,10 @@ With DSV2_TRACE=1 (or after `enable()`):
   sit on their threads' rows of the profiler's trace, on its clock (by
   name only: the ids stay in the records).
 
-With tracing off, `stage` and `count` are one flag check (`stage` returns
-a shared no-op context); no span or counter reads a clock, touches the
-profiler or the device. Nothing here ever waits for, allocates on or
-launches on the device.
+With tracing off, `stage` is one flag check and `count` two (`stage`
+returns a shared no-op context); no span or counter reads a clock,
+touches the profiler or the device. Nothing here ever waits for,
+allocates on or launches on the device.
 
 DSV2_XPROF=<dir> wraps the process in torch.profiler (CPU activity of
 every thread, `all_threads()`, and CUDA activity when the port runs on the
@@ -45,11 +48,11 @@ import sys
 import threading
 import time
 from collections import defaultdict
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 
-__all__ = ["CAP", "Span", "all_threads", "count", "counters", "current",
-           "dropped", "enable", "mark", "record", "records", "report",
-           "reset", "set_ids", "stage", "table", "tag", "totals"]
+__all__ = ["CAP", "Span", "all_threads", "collect", "count", "counters",
+           "current", "dropped", "enable", "mark", "record", "records",
+           "report", "reset", "set_ids", "stage", "table", "tag", "totals"]
 
 CAP = 1 << 18          # records kept between resets
 _enabled = bool(int(os.environ.get("DSV2_TRACE", "0") or 0))
@@ -59,6 +62,7 @@ _dropped = 0
 _sums = {}             # name -> [ns, self ns, count]
 _counters = defaultdict(int)
 _ids = itertools.count(1)
+_collecting = 0        # threads inside collect()
 _local = threading.local()     # .stack: open spans; .ids: set_ids
 _NULL = nullcontext()
 _profiling = None              # torch.autograd.profiler, once imported
@@ -159,7 +163,13 @@ def stage(name, **ids):
 
 
 def count(name, n=1):
-    """Add n to counter `name` and to the innermost open span's counts."""
+    """Add n to counter `name` and to the innermost open span's counts
+    (inside `collect()`, to its dict alone)."""
+    if _collecting:
+        made = getattr(_local, "collect", None)
+        if made is not None:
+            made[name] = made.get(name, 0) + n
+            return
     if not _enabled:
         return
     with _lock:
@@ -170,6 +180,23 @@ def count(name, n=1):
         if sp.counts is None:
             sp.counts = {}
         sp.counts[name] = sp.counts.get(name, 0) + n
+
+
+@contextmanager
+def collect():
+    """Yield a dict that takes the calling thread's counts while the block
+    runs, in place of the counters and spans, tracing on or off."""
+    global _collecting
+    prev = getattr(_local, "collect", None)
+    made = _local.collect = {}
+    with _lock:
+        _collecting += 1
+    try:
+        yield made
+    finally:
+        _local.collect = prev
+        with _lock:
+            _collecting -= 1
 
 
 def set_ids(**ids):

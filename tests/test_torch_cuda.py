@@ -950,3 +950,140 @@ def test_decode_gops_parallel_corrupt_cuda(cuda):
         frames = gop.decode_gops_parallel(io.BytesIO(data), device=cuda)
         assert [hashlib.sha256(f.tobytes()).hexdigest() for f in frames] \
             == [d for _, d in gold[golden.corrupt_key(i)]["frames"]], i
+
+
+# the single stream's one-frame P chain as a CUDA graph (codec/devsteps
+# GraphedStep): its streams against the unwrapped step's
+
+
+def _live(bench_cfg, nframes, seed):
+    """A seeded clip of a benchmark configuration (codecbench/clip.py)."""
+    import os
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from codecbench import clip, harness
+    cfg = harness.Bench(repo).config(bench_cfg)
+    return cfg, clip.make_clip(cfg["width"], cfg["height"], nframes,
+                               cfg["subsamp"], seed)
+
+
+def _encode_live(cfg, frames, device, filters=None):
+    """One stream of `frames` through Encoder.encode_frame at -gop=30;
+    `filters` sets do_inter_filter per frame (1 on, 0 off, -1 auto)."""
+    from codecbench import program
+    enc = program.encoder(cfg, 30, device)
+    out = []
+    for i, planes in enumerate(frames):
+        if filters is not None:
+            enc.do_inter_filter = filters[i % len(filters)]
+        out += enc.encode_frame(planes)
+    out += enc.end_of_stream()
+    return b"".join(out)
+
+
+@pytest.fixture
+def eager_p_chain(monkeypatch):
+    """eager_p_chain(fn) runs fn with the unwrapped P chain step in place
+    of its CUDA graph."""
+    from dsv2_tpu_torch.codec import devsteps
+
+    def run(fn):
+        with monkeypatch.context() as m:
+            m.setattr(devsteps, "p_chain_step",
+                      lambda cfg, device: devsteps.make_p_chain_packed(*cfg))
+            return fn()
+    return run
+
+
+@pytest.fixture
+def fresh_graphs():
+    """No P chain graph captured before the test."""
+    from dsv2_tpu_torch.codec import devsteps
+    with devsteps._GRAPHS_LOCK:
+        devsteps._GRAPHS.clear()
+    yield
+
+
+def test_p_chain_graph_stream_equals_eager(cuda, eager_p_chain,
+                                           fresh_graphs, monkeypatch):
+    """FHD, 1 I + 6 P frames at -gop=30, the inter filter on, off and
+    auto in turn and both temporal MC parities: the graphed encoder's
+    stream is the unwrapped step's, byte for byte."""
+    from dsv2_tpu_torch.codec import devsteps
+    cfg, frames = _live("fhd420_qp60_gop30", 7, 2 ** 31 + 18)
+    seen = []
+    ints = devsteps.p_chain_ints
+
+    def spied(grids, *scal):
+        seen.append(scal)
+        return ints(grids, *scal)
+    monkeypatch.setattr(devsteps, "p_chain_ints", spied)
+    filt = (1, 0, -1)
+    want = eager_p_chain(lambda: _encode_live(cfg, frames, cuda, filt))
+    assert {s[1] for s in seen} == {0, 1}        # tmc parity
+    assert {s[4] for s in seen} == {0, 1}        # do_filter
+    got = _encode_live(cfg, frames, cuda, filt)
+    assert got == want
+    assert len(seen) == 12
+
+
+def test_p_chain_graph_shared_by_encoders(cuda, eager_p_chain,
+                                          fresh_graphs):
+    """CIF streams through one graph: two interleaved frame by frame in
+    one thread, then nine on nine threads at once (with a short switch
+    interval), each stream its eager bytes (a replay's outputs are copied
+    out before the next)."""
+    import sys
+    import threading
+    from codecbench import program
+    runs = [_live("cif420_qp60", 6, 2 ** 31 + 5 + i) for i in range(3)]
+    want = [eager_p_chain(lambda c=c, f=f: _encode_live(c, f, cuda))
+            for c, f in runs]
+    assert len(set(want)) == 3
+    encs = [program.encoder(c, 30, cuda) for c, _ in runs[:2]]
+    outs = [[], []]
+    for i in range(6):
+        for k in range(2):
+            outs[k] += encs[k].encode_frame(runs[k][1][i])
+    got = [b"".join(o + e.end_of_stream()) for o, e in zip(outs, encs)]
+    assert got == want[:2]
+    n = 9
+    got = [None] * n
+
+    def job(k):
+        got[k] = _encode_live(*runs[k % 3], cuda)
+    threads = [threading.Thread(target=job, args=(k,)) for k in range(n)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert got == [want[k % 3] for k in range(n)]
+
+
+def test_p_chain_graph_counts(cuda, eager_p_chain, fresh_graphs, launches):
+    """Two FHD jobs of 1 I + 3 P frames: one capture, a replay for every
+    P frame but the first, and the launches the replays credit equal the
+    unwrapped step's."""
+    from dsv2_tpu_torch.utils import trace
+    cfg, frames = _live("fhd420_qp60_gop30", 4, 2 ** 31 + 3)
+    want = eager_p_chain(lambda: _encode_live(cfg, frames, cuda))
+    eager = {k: v for k, v in trace.counters().items()
+             if k.startswith("launch.")}
+    assert eager["launch.vk_chain"] > 0 and eager[
+        "launch.wavefront_filter.luma"] == 3
+    trace.reset()
+    for _ in range(2):
+        assert _encode_live(cfg, frames, cuda) == want
+    got = trace.counters()
+    assert got["graph.capture.p_chain"] == 1
+    assert got["graph.replay.p_chain"] == 2 * 3 - 1
+    assert {k: v for k, v in got.items() if k.startswith("launch.")} == {
+        k: 2 * v for k, v in eager.items()}

@@ -3,7 +3,8 @@
 buffer's cap, the off path), the `report()` format the benchmark parses,
 the lockstep cycle's gather and flush spans on a tiny CPU run, the single
 stream's `encode.dispatch.<key>` spans (none under lockstep or the intra
-batch), the spans on a torch profiler's trace only while tracing, and the
+batch), `collect()` taking a thread's counts (a CUDA graph's capture),
+the spans on a torch profiler's trace only while tracing, and the
 counted wait helper of parallel/xfer.py doing nothing on CPU tensors."""
 import io
 import threading
@@ -112,6 +113,35 @@ def test_counters_gated_and_credited_to_innermost(traced):
     assert recs["flush"][0].counts == {"lanes": 3}
     assert recs["dispatch"][0].counts == {"launch.x": 3}
     assert recs["run"][0].counts is None
+
+
+@pytest.mark.parametrize("tracing", [False, True])
+def test_collect_takes_the_threads_counts(tracing):
+    """Inside collect() the calling thread's counts go to its dict alone,
+    tracing on or off (a graph's capture); another thread's still count
+    as before, and the thread's counts count again once it exits."""
+    trace.reset()
+    trace.enable(tracing)
+    try:
+        with trace.stage("outer"):
+            with trace.collect() as made:
+                trace.count("launch.x")
+                trace.count("launch.x", 2)
+                t = threading.Thread(target=trace.count, args=("sync",))
+                t.start()
+                t.join(timeout=60)
+                assert not t.is_alive()
+            trace.count("launch.y")
+        assert made == {"launch.x": 3}
+        if tracing:
+            assert trace.counters() == {"sync": 1, "launch.y": 1}
+            assert _by_name(trace.records())["outer"][0].counts == {
+                "launch.y": 1}
+        else:
+            assert trace.counters() == {} and trace.records() == []
+    finally:
+        trace.enable(False)
+        trace.reset()
 
 
 def test_reset_clears_records_and_counters(traced):

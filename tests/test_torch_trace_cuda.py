@@ -142,7 +142,9 @@ def test_live_p_frames_wait_only_in_the_helper(cuda):
     """The single stream of fhd_p_encode (`Encoder.encode_frame`: kernels
     4/5 and the one-frame P chain): no wait hides inside its
     `encode.dispatch.*` spans, so their self time less their `sync`
-    children is the host's enqueue."""
+    children is the host's enqueue. The P chain, a replay of its CUDA
+    graph, waits not at all: a P frame's waits are the motion search's
+    and its blob's fetch."""
     from codecbench import clip, program
     cfg, traffic = _bench("fhd_p_encode")
     program.prepare(cuda)
@@ -156,12 +158,35 @@ def test_live_p_frames_wait_only_in_the_helper(cuda):
             out += enc.encode_frame(planes)
         out += enc.end_of_stream()
         return b"".join(out)
-    want = job()
+    want = job()   # the P chain's first call, then its graph's capture
     got, sites, counters, recs = _traced(job)
     assert got == want
     _check_sites(sites, counters)
     p_chain = [r for r in recs if r.name == "encode.dispatch.p_chain"]
     assert len(p_chain) == counters["launch.hme_level0"] > 0
+    assert counters["graph.replay.p_chain"] == len(p_chain)
+    # the P chain is a replay, with no wait inside it; a P frame waits
+    # only to read the motion search's fields and to fetch its blob
+    by_id = {r.id: r for r in recs}
+
+    def ancestors(r):
+        while r.parent in by_id:
+            r = by_id[r.parent]
+            yield r
+    frames = {r.id for r in recs if r.name == "encode_frame"
+              and r.ids["fnum"] in {p.ids["fnum"] for p in p_chain}}
+    p_waits = 0
+    for r in recs:
+        if r.name != "sync":
+            continue
+        up = list(ancestors(r))
+        assert "encode.dispatch.p_chain" not in [a.name for a in up]
+        if any(a.id in frames for a in up):
+            p_waits += 1
+            assert {a.name for a in up} & {"encode.fetch",
+                                           "encode.motion_est"}, \
+                [a.name for a in up]
+    assert p_waits > 0
 
 
 @pytest.mark.parametrize("tracing", [False, True])
