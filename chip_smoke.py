@@ -1114,7 +1114,7 @@ def main():
     streams = [golden.lane_frames(ls_frames, i) for i in range(nlanes)]
     del ls_frames
     want_ls = [gold[golden.lane_key(i)] for i in range(nlanes)]
-    # the flushes of the lane-batched chain steps (devsteps.lanewise);
+    # the flushes of the chain steps (devsteps.make_*_lanes);
     # the motion search's flushes are "hme_gang"
     chain_keys = ("input_prep", "i_chain", "p_chain", "id_chain",
                   "pd_chain")

@@ -20,11 +20,12 @@ scratch (3 * width int32, allocated at the first metadata packet that
 needs it, kept for the rest of the stream); scans the compact upload
 cannot carry go up dense. Such pictures decode one at a time.
 
-A picture decoded alone runs its lane-batched chain step
-(devsteps.make_{id,pd}_chain_lanes) as a flush of one lane. Under
-lockstep (parallel/gop.decode_gops_parallel) `dev_submit` is the
-batcher's submit: the pictures of every lane that share a key run as
-one flush of that step.
+Each picture goes to `dev_submit` as a lane of its chain step's builder
+(devsteps.make_{id,pd}_chain_lanes). A picture decoded alone is a flush
+of one lane (devsteps.run_one); under lockstep
+(parallel/gop.decode_gops_parallel) `dev_submit` is the batcher's
+submit, and the pictures of every lane that share a key run as one
+flush of that step.
 """
 import numpy as np
 import torch
@@ -119,12 +120,6 @@ def _mv_grids(mf):
             for a in ("x", "y", "flags", "submask", "dc")]
 
 
-def _submit_one(key, builder, args):
-    """Decoder.dev_submit without a batcher: the step as a flush of one
-    lane."""
-    return builder(key[1])([args])[0]
-
-
 class Decoder:
     def __init__(self, draw_info=0, device=None):
         self.meta = None
@@ -134,13 +129,19 @@ class Decoder:
             else default_device()
         self._use_arena = False
         self._arena = None        # the reference's flat scratch, (3*w,)
-        self.dev_submit = None    # lockstep batcher hook
+
+    def dev_submit(self, key, builder, args):
+        """A device step outside lockstep: the step as a flush of one lane
+        (devsteps.run_one). Under lockstep the batcher's submit, set on
+        the instance, takes its place (parallel/gop)."""
+        from . import devsteps
+        return devsteps.run_one(key, builder, args, self.device)
 
     def _up(self, a):
         """Host array (or a tuple of them) -> tensor(s) on the device."""
         if isinstance(a, tuple):
             return tuple(self._up(x) for x in a)
-        return xfer.put(np.ascontiguousarray(a), self.device)
+        return xfer.upload(np.ascontiguousarray(a), self.device)
 
     def decode_packet(self, buf):
         """Decode one packet buffer. Returns (code, Frame|None, fno)."""
@@ -282,10 +283,10 @@ class Decoder:
         realize). The picture's host arrays and its step go under
         ("pd_chain" | "id_chain", cfg), the scan form, the corrupt planes
         and the arena flag part of cfg, to `dev_submit` (the lockstep
-        batcher, whose flush stacks and uploads them once per field) or,
-        without one, to a flush of this one lane. A clean picture runs the
-        lane-batched step; an arena decoder's lanes run the one-frame
-        step one after another, each on its own arena."""
+        batcher, whose flush stacks and uploads them once per field, or
+        a flush of this one lane). A clean picture runs the lane-batched
+        step; an arena decoder's lanes run the one-frame step one after
+        another, each on its own arena."""
         from . import devsteps
         meta = self.meta
         fq, fthresh = _filter_scalars(job)
@@ -298,17 +299,15 @@ class Decoder:
                 np.asarray(job["lls"], np.int32))
         if job["has_ref"]:
             key = ("pd_chain", cfg + (meta.inter_sharpen,) + flags)
-            make = devsteps.make_pd_chain_step
+            builder = devsteps.make_pd_chain_lanes
             args += ((tuple(self.ref_dev["recon"]),)
                      + tuple(_mv_grids(job["mf"]))
                      + (K.temporal_mc(job["fno"]),))
         else:
             key = ("id_chain", cfg + flags)
-            make = devsteps.make_id_chain_step
-        submit = self.dev_submit or _submit_one
-        packed, chain = submit(key, devsteps.lanewise(make),
-                               args + (fq, fthresh, job["do_filter"], bad,
-                                       arena))
+            builder = devsteps.make_id_chain_lanes
+        packed, chain = self.dev_submit(
+            key, builder, args + (fq, fthresh, job["do_filter"], bad, arena))
         if job["is_ref"]:
             self.ref_dev = chain
 

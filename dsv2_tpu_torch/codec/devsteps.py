@@ -4,30 +4,33 @@ Port of `dsv2_tpu/codec/devsteps.py`.
 
 Intra encode (blob transfer): the per-plane forward SBT -> quantize ->
 scan blob chain, the blob merge (`_finish_blob`), the single-frame step
-of the sequential session (`make_i_encode_step`) and its host fetch
-(`fetch_sparse_outs`). Every intra function takes a leading frame
+of the sequential session at -gop=0 (`make_i_encode_step`) and its host
+fetch (`fetch_sparse_outs`). Every intra function takes a leading frame
 dimension; the sequential step is the batch of one. The batched pipeline
 (parallel/batch.py) runs the same `encode_planes`.
 
-P encode and the encoder's device reference chain (gop != 0): the P step
-(`make_p_encode_step`: MC prediction -> residual -> forward SBT ->
-quantize -> in-loop inverse -> reconstruction, one frame), the input
-prep (`make_input_prep`: bordered planes + motion search pyramid) and
-the chain steps (`make_i_chain_step`, `make_p_chain_step`): the
-reconstruction goes through the in-loop filters, border extension and
-the pyramid without leaving the device. Under lockstep
-(parallel/dynbatch) `lanewise` gives each of them, and the decode chain
-steps below, its lane-batched form (`make_*_lanes`: the lanes of a
-flush stacked on a leading dimension, one vk launch per plane and one
-filter launch per filter kind for all of them, as the twin's vmap);
-each lane then fetches its own part (`fetch_sparse_outs` of its
-LaneOut: the twin's merged per-flush fetch exists for a TPU link's
-per-transfer cost and is not ported). Outside lockstep the encoder's
-one-frame P chain takes its per-frame values as one device tensor
-(`make_p_chain_packed`), and on the card it is a CUDA graph of that
-step, captured once per key and replayed for every frame of every
-encoder in the process (`p_chain_step`, `GraphedStep`): some 9,000 ops
-a frame become one launch.
+A device step of the encoder's reference chain (gop != 0) and of the
+decoder is a builder of the lanes of a flush: builder(cfg) -> fn(lanes),
+`lanes` the argument tuples of the lanes, fn returning one output per
+lane (the contract of parallel/dynbatch). The lanes run stacked on a
+leading dimension: one vk launch per plane and one filter launch per
+filter kind for all of them, as the twin's vmap. The encode steps are
+the input prep (`make_input_prep_lanes`: bordered planes + motion
+search pyramid) and the chain steps (`make_i_chain_lanes`,
+`make_p_chain_lanes`: MC prediction -> residual -> forward SBT ->
+quantize -> in-loop inverse -> reconstruction for P, then the in-loop
+filters, border extension and the pyramid, without leaving the device).
+Each encode lane fetches its own part of the flush's blob
+(`fetch_sparse_outs` of its LaneOut: the twin's merged per-flush fetch
+exists for a TPU link's per-transfer cost and is not ported). A P lane's
+per-frame values reach the step as one uploaded int32 array
+(`p_chain_ints`).
+
+Under lockstep the batcher runs a flush of every lane that reached a
+step; outside it a step is a flush of one lane (`run_one`). On the card
+the one-lane flush of the P chain is a CUDA graph, captured once per key
+and replayed for every frame of every encoder in the process
+(`GraphedStep`): some 9,000 ops a frame become one launch.
 
 Decode (device chain): dequantize -> inverse SBT -> (P) motion
 compensation and reconstruction -> in-loop filters -> border extension
@@ -53,7 +56,7 @@ import torch
 
 from ..core.frame import plane_dims
 from ..ops import filters, framedev, hzcc, mc, scan_pl, sbt
-from ..parallel import xfer
+from ..parallel import dynbatch, xfer
 from ..utils import trace
 from ..utils.packet import VideoMeta
 from .decoder import _PCfg
@@ -123,19 +126,16 @@ def encode_planes(pcfg, xs, bd, q, need_recon=False):
 
 
 @functools.lru_cache(maxsize=None)
-def make_i_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
-                       need_recon=False):
-    """Single-frame intra step of the sequential session: step(xs, bd, q)
-    -> (buf, smalls, vs) with the _finish_blob layout for nfr = 1; with
-    need_recon, (buf, smalls, vs, recons) where recons are the three
-    reconstructed coefficient-dim planes (1, ch, cw) uint8."""
+def make_i_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy):
+    """Single-frame intra step of the sequential session at -gop=0:
+    step(xs, bd, q) -> (buf, smalls, vs) with the _finish_blob layout for
+    nfr = 1."""
     pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
                  blk_w, blk_h, False, lossless, do_psy)
 
     def step(xs, bd, q):
-        out = encode_planes(pcfg, xs, bd, q, need_recon)
-        buf, smalls = _finish_blob(out[0], out[1], pcfg)
-        return (buf, smalls) + tuple(out[1:])
+        lls, vs = encode_planes(pcfg, xs, bd, q)
+        return _finish_blob(lls, vs, pcfg) + (vs,)
 
     return step
 
@@ -168,29 +168,6 @@ def _p_encode(pcfg, srcs, refs, mvx, mvy, flags, submask, dc, bd, eprm_m,
     return recons, lls, vs
 
 
-@functools.lru_cache(maxsize=None)
-def make_p_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy):
-    """One P frame: step(srcs, refs, mvx, mvy, flags, submask, dc, bd,
-    eprm_m, mlt_m, q, tmc) -> (recons, buf, smalls, vs). srcs are the
-    (gh, gw) uint8 source canvases, refs the bordered reference planes,
-    the MV maps (nbv, nbh) int32, bd uint8, eprm_m/mlt_m bool, q a 0-d
-    int32 tensor; recons are the reconstructed canvases (gh, gw) uint8,
-    the rest the _finish_blob layout for nfr = 1. Mirrors the sequential
-    sub_pred -> fwd SBT -> quantize -> inv SBT -> reconstruct chain (ref:
-    dsv_encoder.c:1123-1172)."""
-    pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
-                 blk_w, blk_h, True, lossless, do_psy)
-
-    def step(srcs, refs, mvx, mvy, flags, submask, dc, bd, eprm_m, mlt_m,
-             q, tmc):
-        recons, lls, vs = _p_encode(pcfg, srcs, refs, mvx, mvy, flags,
-                                    submask, dc, bd, eprm_m, mlt_m, q, tmc)
-        buf, smalls = _finish_blob(lls, vs, pcfg)
-        return recons, buf, smalls, vs
-
-    return step
-
-
 def _chain_outputs(pcfg, levels, recons):
     """Filter-free tail of a chain step: border-extend every visible recon
     plane (ph, pw) uint8 and build the luma motion search pyramid, all on
@@ -200,48 +177,6 @@ def _chain_outputs(pcfg, levels, recons):
     rpyr = framedev.pyramid_graph(planes[0], pcfg.pdims[0][0],
                                   pcfg.pdims[0][1], levels)
     return {"recon": planes, "rpyr": rpyr}
-
-
-@functools.lru_cache(maxsize=None)
-def make_input_prep(w, h, subsamp, levels):
-    """prep(vis0, vis1, vis2) -> {"padded": bordered planes, "pyr": luma
-    motion search pyramid}: the per-frame upload is just the visible
-    pixels, everything derived stays on the device (ref:
-    dsv_encoder.c:493-516, frame.c:357-434)."""
-    dims = plane_dims(subsamp, w, h)
-
-    def prep(vis0, vis1, vis2):
-        padded = [framedev.extend_plane_graph(v, pw, ph)
-                  for v, (pw, ph) in zip((vis0, vis1, vis2), dims)]
-        return {"padded": padded,
-                "pyr": framedev.pyramid_graph(padded[0], w, h, levels)}
-
-    return prep
-
-
-@functools.lru_cache(maxsize=None)
-def make_i_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
-                      levels):
-    """Intra encode step + device reference chain: recon -> intra dering
-    filter -> border extension -> pyramid. step(xs, bd, q, fq, fthresh,
-    do_filter) -> (buf, smalls, vs, chain) with xs/bd/q as for
-    make_i_encode_step and chain {"recon", "rpyr"} (ref:
-    dsv_encoder.c:1296-1301 + bmc.c:390-457)."""
-    pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
-                 blk_w, blk_h, False, lossless, do_psy)
-    base = make_i_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
-                              True)
-
-    def step(xs, bd, q, fq, fthresh, do_filter):
-        buf, smalls, vs, recons = base(xs, bd, q)
-        vis = _visible(pcfg, [r[0] for r in recons])
-        if not lossless:
-            vis[0] = filters.intra_filter_graph(
-                pcfg.pdims[0][0], pcfg.pdims[0][1], pcfg.nbh, pcfg.nbv,
-                vis[0], bd[0], fq, fthresh * do_filter)
-        return buf, smalls, vs, _chain_outputs(pcfg, levels, vis)
-
-    return step
 
 
 def _chroma_filters(pcfg, vis, mvx, mvy, flags, q):
@@ -269,66 +204,14 @@ def _p_filters(pcfg, inter_sharpen, vis, mvx, mvy, flags, submask, q, tmc,
     return vis
 
 
-@functools.lru_cache(maxsize=None)
-def make_p_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
-                      levels, inter_sharpen):
-    """P encode step + device reference chain: recon -> in-loop luma and
-    chroma filters -> border extension -> pyramid. step(srcs_full, refs,
-    mvx, mvy, flags, submask, dc, bd, eprm_m, mlt_m, q, tmc, fq, fthresh,
-    do_filter) -> (buf, smalls, vs, chain); srcs_full are the bordered
-    input planes, whose MC canvas slice (the apron rows/cols past the
-    visible edge included) the step codes (ref: dsv_encoder.c:1123-1172
-    + bmc.c:459-659)."""
-    pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
-                 blk_w, blk_h, True, lossless, do_psy)
-    base = make_p_encode_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy)
-    B = framedev.B
-
-    def step(srcs_full, refs, mvx, mvy, flags, submask, dc, bd, eprm_m,
-             mlt_m, q, tmc, fq, fthresh, do_filter):
-        srcs = []
-        for c in range(3):
-            mcc = pcfg.mc_cfg(c)
-            srcs.append(srcs_full[c][B:B + mcc.gh, B:B + mcc.gw])
-        recons, buf, smalls, vs = base(srcs, refs, mvx, mvy, flags, submask,
-                                       dc, bd, eprm_m, mlt_m, q, tmc)
-        vis = _p_filters(pcfg, inter_sharpen, _visible(pcfg, recons), mvx,
-                         mvy, flags, submask, q, tmc, fq, fthresh, do_filter)
-        return buf, smalls, vs, _chain_outputs(pcfg, levels, vis)
-
-    return step
-
-
 def p_chain_ints(grids, q, tmc, fq, fthresh, do_filter):
-    """The per-frame ints of a one-frame P chain step as make_p_chain_packed
-    takes them, one int32 array for one upload: grids (8, nbv, nbh) (mvx,
-    mvy, flags, submask, dc, blockdata, eprm, mlt), then q, tmc, fq,
-    fthresh and do_filter."""
+    """A P lane's per-frame values as make_p_chain_lanes takes them, one
+    int32 array for one upload: grids (8, nbv, nbh) (mvx, mvy, flags,
+    submask, dc, blockdata, eprm, mlt), then q, tmc, fq, fthresh and
+    do_filter."""
     return np.concatenate([np.asarray(grids, np.int32).reshape(-1),
                            np.array([q, tmc, fq, fthresh, do_filter],
                                     np.int32)])
-
-
-@functools.lru_cache(maxsize=None)
-def make_p_chain_packed(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
-                        levels, inter_sharpen):
-    """make_p_chain_step with every per-frame value on the device:
-    step(srcs_full, refs, ints) -> (buf, smalls, vs, chain), ints the
-    uploaded p_chain_ints. Only the step's key steers its Python, so one
-    CUDA graph of it serves every frame of the key (p_chain_step)."""
-    pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
-                 blk_w, blk_h, True, lossless, do_psy)
-    base = make_p_chain_step(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
-                             levels, inter_sharpen)
-    n = 8 * pcfg.nbv * pcfg.nbh
-
-    def step(srcs_full, refs, ints):
-        g = ints[:n].view(8, pcfg.nbv, pcfg.nbh)
-        return base(srcs_full, refs, g[0], g[1], g[2], g[3], g[4],
-                    g[5].to(torch.uint8), g[6] != 0, g[7] != 0,
-                    *ints[n:].unbind())
-
-    return step
 
 
 def _leaves(x):
@@ -344,28 +227,30 @@ def _leaves(x):
 
 
 def _copied(x):
-    """A nest of tuples, lists and dicts with each tensor cloned."""
+    """A nest of tuples (named ones too), lists and dicts with each tensor
+    cloned."""
     if isinstance(x, torch.Tensor):
         return x.clone()
     if isinstance(x, dict):
         return {k: _copied(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
-        return type(x)(_copied(v) for v in x)
+        vals = [_copied(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
     return x
 
 
 class GraphedStep:
-    """A one-frame device step replayed as a CUDA graph: the first call
-    runs `body` eagerly (its tables are built and uploaded, its kernels
-    loaded), the second captures it into static copies of its inputs,
-    and that call and each later one copy their inputs into those,
-    replay the graph on the current stream and return clones of its
-    outputs, which no later replay writes. A lock serializes copy-in,
-    replay and copy-out, and a stream waits for the last copy-out before
-    its copy-in, so callers on several threads and streams stay apart.
-    The capture notes the counts the body makes (trace.collect: its
-    kernels' `launch.*`) and each replay credits them, with
-    `graph.replay.<name>`; the capture counts `graph.capture.<name>`."""
+    """A device step replayed as a CUDA graph: the first call runs `body`
+    eagerly (its tables are built and uploaded, its kernels loaded), the
+    second captures it into static copies of its inputs, and that call
+    and each later one copy their inputs into those, replay the graph on
+    the current stream and return clones of its outputs, which no later
+    replay writes. A lock serializes copy-in, replay and copy-out, and a
+    stream waits for the last copy-out before its copy-in, so callers on
+    several threads and streams stay apart. The capture notes the counts
+    the body makes (trace.collect: its kernels' `launch.*`) and each
+    replay credits them, with `graph.replay.<name>`; the capture counts
+    `graph.capture.<name>`."""
 
     def __init__(self, name, body, device):
         self.name, self.body, self.device = name, body, device
@@ -412,31 +297,35 @@ class GraphedStep:
         trace.count("graph.capture." + self.name)
 
 
+# the step kinds whose one-lane flush is a CUDA graph on the card
+GRAPHED = ("p_chain",)
 _GRAPHS = {}
 _GRAPHS_LOCK = threading.Lock()
 
 
-def p_chain_step(cfg, device):
-    """The one-frame P chain step of make_p_chain_step(*cfg) in the
-    packed form (make_p_chain_packed): on a CUDA device the process's
-    GraphedStep of (cfg, device), shared by every encoder; elsewhere the
-    eager step."""
+def run_one(key, builder, args, device):
+    """A device step outside lockstep: builder(key[1]) run as a flush of
+    one lane, `args` that lane's arguments; returns the lane's output. On
+    a CUDA device the flush of a GRAPHED kind (key[0]) is the process's
+    GraphedStep of (key, device), shared by every encoder; every other
+    step, every step on the CPU and every lockstep flush runs eagerly."""
     dev = torch.device(device)
-    if dev.type != "cuda":
-        return make_p_chain_packed(*cfg)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    with _GRAPHS_LOCK:
-        step = _GRAPHS.get((cfg, dev))
-        if step is None:
-            step = _GRAPHS[(cfg, dev)] = GraphedStep(
-                "p_chain", make_p_chain_packed(*cfg), dev)
-    return step
+    if key[0] not in GRAPHED or dev.type != "cuda":
+        step = builder(key[1])
+    else:
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        with _GRAPHS_LOCK:
+            step = _GRAPHS.get((key, dev))
+            if step is None:
+                step = _GRAPHS[(key, dev)] = GraphedStep(
+                    key[0], builder(key[1]), dev)
+    return dynbatch.lane_of(step([args]), 0)
 
 
 class LaneOut(NamedTuple):
-    """One lane's output of a lane-batched encode chain step, read like the
-    one-frame step's (buf, smalls, vs, chain): the flush's merged blob and
+    """One lane's output of an encode chain step, read like the -gop=0
+    step's (buf, smalls, vs) plus its chain: the flush's merged blob and
     metadata (the _finish_blob layout with one frame per lane), this
     lane's scans (1, total) per plane and device reference chain, and the
     lane's index, which fetch_sparse_outs reads its part of the blob by."""
@@ -452,6 +341,18 @@ def _lane_views(out, i):
     return {k: [t[i] for t in v] for k, v in out.items()}
 
 
+def _stack(ts):
+    """The lanes' tensors on a new leading lane dimension: a view of the
+    one tensor of a flush of one lane, else a copy."""
+    return ts[0].unsqueeze(0) if len(ts) == 1 else torch.stack(ts)
+
+
+def _cat(ts):
+    """The lanes' tensors joined along their leading dimension: the one
+    tensor of a flush of one lane, else a copy."""
+    return ts[0] if len(ts) == 1 else torch.cat(ts)
+
+
 def _upload_ints(rows, device):
     """Per-lane Python (or numpy) ints, rows[k][i] for field k and lane i,
     as one int32 (nfields, L) tensor: one upload per flush."""
@@ -464,32 +365,43 @@ def _encode_lanes(buf, smalls, vs, chain, nlanes):
 
 
 @functools.lru_cache(maxsize=None)
-def make_input_prep_lanes(w, h, subsamp, levels):
-    """make_input_prep over the lanes of a flush: fn(lanes) -> one output
-    per lane (views of the flush's (L, ...) planes)."""
-    prep = make_input_prep(w, h, subsamp, levels)
+def make_input_prep_lanes(cfg):
+    """The input prep of the lanes of a flush, cfg (w, h, subsamp,
+    levels): lanes are each frame's visible planes (vis0, vis1, vis2),
+    the per-frame upload; returns per lane {"padded": bordered planes,
+    "pyr": luma motion search pyramid}, views of the flush's (L, ...)
+    planes: everything derived stays on the device (ref:
+    dsv_encoder.c:493-516, frame.c:357-434)."""
+    w, h, subsamp, levels = cfg
+    dims = plane_dims(subsamp, w, h)
 
     def run(lanes):
-        out = prep(*(torch.stack(v) for v in zip(*lanes)))
+        padded = [framedev.extend_plane_graph(_stack(v), pw, ph)
+                  for v, (pw, ph) in zip(zip(*lanes), dims)]
+        out = {"padded": padded,
+               "pyr": framedev.pyramid_graph(padded[0], w, h, levels)}
         return [_lane_views(out, i) for i in range(len(lanes))]
 
     return run
 
 
 @functools.lru_cache(maxsize=None)
-def make_i_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
-                       levels):
-    """make_i_chain_step over the lanes of a flush: lanes are its argument
-    tuples (xs, bd, q, fq, fthresh, do_filter); one blob (one vk launch
-    per plane) and one intra filter launch for every lane. Returns a
-    LaneOut per lane."""
+def make_i_chain_lanes(cfg):
+    """Intra encode step + device reference chain of the lanes of a
+    flush, cfg (w, h, subsamp, blk_w, blk_h, lossless, do_psy, levels):
+    recon -> intra dering filter -> border extension -> pyramid. Lanes
+    are (xs, bd, q, fq, fthresh, do_filter), xs/bd/q as for
+    make_i_encode_step; one blob (one vk launch per plane) and one intra
+    filter launch for every lane. Returns a LaneOut per lane, its chain
+    {"recon", "rpyr"} (ref: dsv_encoder.c:1296-1301 + bmc.c:390-457)."""
+    w, h, subsamp, blk_w, blk_h, lossless, do_psy, levels = cfg
     pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
                  blk_w, blk_h, False, lossless, do_psy)
 
     def run(lanes):
         xs, bd, q, fq, fthresh, do_filter = zip(*lanes)
-        xs = [torch.cat([x[c] for x in xs]) for c in range(3)]
-        bd, q = torch.cat(bd), torch.cat(q)
+        xs = [_cat([x[c] for x in xs]) for c in range(3)]
+        bd, q = _cat(bd), _cat(q)
         lls, vs, recons = encode_planes(pcfg, xs, bd, q, True)
         buf, smalls = _finish_blob(lls, vs, pcfg)
         vis = _visible(pcfg, recons)
@@ -505,27 +417,37 @@ def make_i_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
 
 
 @functools.lru_cache(maxsize=None)
-def make_p_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
-                       levels, inter_sharpen):
-    """make_p_chain_step over the lanes of a flush: lanes are its argument
-    tuples; the P encode chain runs over (L, ...) stacks of the lanes'
-    planes and maps, the blob is one vk launch per plane, the filters one
-    luma and one chroma (U and V of every lane) launch. Each lane's
-    reference is stacked from whatever flush made it. Returns a LaneOut
-    per lane."""
+def make_p_chain_lanes(cfg):
+    """P encode step + device reference chain of the lanes of a flush,
+    cfg (w, h, subsamp, blk_w, blk_h, lossless, do_psy, levels,
+    inter_sharpen): recon -> in-loop luma and chroma filters -> border
+    extension -> pyramid. Lanes are (srcs_full, refs, ints): the bordered
+    input planes, whose MC canvas slice (the apron rows/cols past the
+    visible edge included) the step codes, the bordered reference planes
+    of whatever flush made them, and the uploaded p_chain_ints. The P
+    encode chain runs over (L, ...) stacks, the blob is one vk launch per
+    plane, the filters one luma and one chroma (U and V of every lane)
+    launch. Only the key and the number of lanes steer its Python, so one
+    CUDA graph of a one-lane flush serves every frame of the key
+    (run_one). Returns a LaneOut per lane (ref: dsv_encoder.c:1123-1172
+    + bmc.c:459-659)."""
+    w, h, subsamp, blk_w, blk_h, lossless, do_psy, levels, inter_sharpen = cfg
     pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
                  blk_w, blk_h, True, lossless, do_psy)
     B = framedev.B
+    n = 8 * pcfg.nbv * pcfg.nbh
 
     def run(lanes):
-        a = list(zip(*lanes))
-        srcs = [torch.stack([s[c][B:B + pcfg.mc_cfg(c).gh,
-                                  B:B + pcfg.mc_cfg(c).gw] for s in a[0]])
+        srcs_full, refs, ints = zip(*lanes)
+        srcs = [_stack([s[c][B:B + pcfg.mc_cfg(c).gh,
+                             B:B + pcfg.mc_cfg(c).gw] for s in srcs_full])
                 for c in range(3)]
-        refs = [torch.stack([r[c] for r in a[1]]) for c in range(3)]
-        mvx, mvy, flags, submask, dc, bd, eprm_m, mlt_m, q = (
-            torch.stack(a[k]) for k in range(2, 11))
-        tmc, fq, fthresh, do_filter = _upload_ints(a[11:15], q.device)
+        refs = [_stack([r[c] for r in refs]) for c in range(3)]
+        ints = _stack(ints)
+        g = ints[:, :n].view(len(lanes), 8, pcfg.nbv, pcfg.nbh)
+        mvx, mvy, flags, submask, dc = g[:, :5].unbind(1)
+        bd, eprm_m, mlt_m = g[:, 5].to(torch.uint8), g[:, 6] != 0, g[:, 7] != 0
+        q, tmc, fq, fthresh, do_filter = ints[:, n:].unbind(1)
         recons, lls, vs = _p_encode(pcfg, srcs, refs, mvx, mvy, flags,
                                     submask, dc, bd, eprm_m, mlt_m, q, tmc)
         buf, smalls = _finish_blob(lls, vs, pcfg)
@@ -535,16 +457,6 @@ def make_p_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless, do_psy,
                              _chain_outputs(pcfg, levels, vis), len(lanes))
 
     return run
-
-
-def lanewise(make_step):
-    """The lockstep builder of a one-frame chain step (or the input prep):
-    builder(cfg) -> fn(lanes), `lanes` the queued argument tuples of
-    make_step(*cfg), returning one output per lane. It is the step's
-    lane-batched form (_LANES), run once for all lanes of the flush, as
-    the twin's vmap does; a step without one raises KeyError."""
-    batched = _LANES[make_step]
-    return lambda cfg: batched(*cfg)
 
 
 def fetch_sparse_outs(step_out):
@@ -876,7 +788,7 @@ def _up_lane(args, device):
         args, np.int32 if isinstance(args, int) else None)), device)
 
 
-def _lanewise_decode(step, lanes, device):
+def _decode_one_by_one(step, lanes, device):
     """Lanes whose one-frame step cannot batch (each threads its own arena
     in place): the step once per lane, host arguments uploaded per lane;
     the last two arguments (bad, arena) pass as they are."""
@@ -884,22 +796,23 @@ def _lanewise_decode(step, lanes, device):
 
 
 @functools.lru_cache(maxsize=None)
-def make_id_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless, dense, bad,
-                        arena, device):
-    """make_id_chain_step over the lanes of a flush. Lanes are its argument
-    tuples (vs, bd, q, lls, fq, fthresh, do_filter, bad, arena), host
-    arrays and ints standing in for tensors; the lanes share the scan
-    form (`dense`) and the corrupt planes (`bad`). The decode runs over
+def make_id_chain_lanes(cfg):
+    """make_id_chain_step over the lanes of a flush, cfg (w, h, subsamp,
+    blk_w, blk_h, lossless, dense, bad, arena, device). Lanes are its
+    argument tuples (vs, bd, q, lls, fq, fthresh, do_filter, bad, arena),
+    host arrays and ints standing in for tensors; the lanes share the
+    scan form (`dense`) and the corrupt planes (`bad`). The decode runs over
     (L, ...) stacks uploaded once per field, one intra filter launch for
     every lane. Returns (packed payload, {"recon": bordered planes}) per
     lane, views of the flush's. With the arena (degenerate geometries)
     the lanes run one after another, each on its own arena."""
+    w, h, subsamp, blk_w, blk_h, lossless, dense, bad, arena, device = cfg
     pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, False, lossless)
     dev = torch.device(device)
     if arena:
         step = make_id_chain_step(w, h, subsamp, blk_w, blk_h, lossless,
                                   dense)
-        return lambda lanes: _lanewise_decode(step, lanes, dev)
+        return lambda lanes: _decode_one_by_one(step, lanes, dev)
 
     def run(lanes):
         vs, bd, q, lls, fq, fthresh, do_filter = list(zip(*lanes))[:7]
@@ -915,27 +828,30 @@ def make_id_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless, dense, bad,
 
 
 @functools.lru_cache(maxsize=None)
-def make_pd_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless,
-                        inter_sharpen, dense, bad, arena, device):
-    """make_pd_chain_step over the lanes of a flush. Lanes are its argument
-    tuples (vs, bd, q, lls, refs, mvx, mvy, flags, submask, dc, tmc, fq,
-    fthresh, do_filter, bad, arena), host arrays and ints standing in for
-    tensors, refs each lane's device reference planes (stacked per flush:
-    whatever flush made them). The decode and MC run over (L, ...) stacks,
-    one luma and one chroma (U and V of every lane) filter launch.
+def make_pd_chain_lanes(cfg):
+    """make_pd_chain_step over the lanes of a flush, cfg (w, h, subsamp,
+    blk_w, blk_h, lossless, inter_sharpen, dense, bad, arena, device).
+    Lanes are its argument tuples (vs, bd, q, lls, refs, mvx, mvy, flags,
+    submask, dc, tmc, fq, fthresh, do_filter, bad, arena), host arrays
+    and ints standing in for tensors, refs each lane's device reference
+    planes (stacked per flush: whatever flush made them). The decode and
+    MC run over (L, ...) stacks, one luma and one chroma (U and V of every
+    lane) filter launch.
     Returns (packed payload, {"recon": bordered planes}) per lane; with
     the arena the lanes run one after another, as make_id_chain_lanes."""
+    (w, h, subsamp, blk_w, blk_h, lossless, inter_sharpen, dense, bad, arena,
+     device) = cfg
     pcfg = _pcfg(w, h, subsamp, blk_w, blk_h, True, lossless)
     dev = torch.device(device)
     if arena:
         step = make_pd_chain_step(w, h, subsamp, blk_w, blk_h, lossless,
                                   inter_sharpen, dense)
-        return lambda lanes: _lanewise_decode(step, lanes, dev)
+        return lambda lanes: _decode_one_by_one(step, lanes, dev)
     base = make_p_decode_step(w, h, subsamp, blk_w, blk_h, lossless)
 
     def run(lanes):
         a = list(zip(*lanes))
-        refs = [torch.stack([r[c] for r in a[4]]) for c in range(3)]
+        refs = [_stack([r[c] for r in a[4]]) for c in range(3)]
         mvx, mvy, flags, submask, dc = xfer.upload(
             np.stack([np.stack(g) for g in a[5:10]]), dev)
         q, tmc, fq, fthresh, do_filter = _upload_ints(
@@ -952,10 +868,3 @@ def make_pd_chain_lanes(w, h, subsamp, blk_w, blk_h, lossless,
 
     return run
 
-
-# the lane-batched form of each one-frame step (lanewise)
-_LANES = {make_input_prep: make_input_prep_lanes,
-          make_i_chain_step: make_i_chain_lanes,
-          make_p_chain_step: make_p_chain_lanes,
-          make_id_chain_step: make_id_chain_lanes,
-          make_pd_chain_step: make_pd_chain_lanes}

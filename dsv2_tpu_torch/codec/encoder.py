@@ -15,13 +15,15 @@ pyramids stay on the device; the host reads back only the motion field
 and the entropy-coded scans. The twin's host reference path (host motion
 search, host in-loop filters) is not ported.
 
-Outside lockstep (`dev_submit` None) each one-frame device step's call is
-a span `encode.dispatch.<key>` (`input_prep`, `i_chain`, `p_chain`;
-the motion search's `hme` in ops/hme_gpu) with the frame's
-`fnum`: its host enqueue and the waits inside it (utils/trace); on the
-card the P chain is a replay of its CUDA graph (devsteps.p_chain_step).
-Under lockstep the batcher's flush spans cover the steps instead.
-(ref: src/dsv_encoder.c)
+Every device step of the chain (`input_prep`, `i_chain`, `p_chain`, the
+motion search's `hme_pl` or `hme_gang`) goes to `dev_submit` as a lane of
+its builder (devsteps.make_*_lanes, parallel/dynbatch's contract). Under
+lockstep that is the batcher's submit, whose flush spans cover the
+steps. Outside it, it is the encoder's own method: the step as a flush
+of one lane (devsteps.run_one; on the card the P chain's is a replay of
+its CUDA graph), in a span `encode.dispatch.<step>` (`hme` for the
+search) with the frame's `fnum`: its host enqueue and the waits inside
+it (utils/trace). (ref: src/dsv_encoder.c)
 """
 import numpy as np
 import torch
@@ -172,7 +174,6 @@ class Encoder:
         self.stats = Stats()
         self.ref = None               # EncData of the reference frame
         self.hme_backend = None       # None: DSV2_HME or "auto" (codec/hme)
-        self.dev_submit = None        # lockstep batcher hook
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -283,6 +284,15 @@ class Encoder:
         pyramids never leave the device."""
         return self.gop != K.GOP_INTRA
 
+    def dev_submit(self, key, builder, args, fetch=None):
+        """A device step outside lockstep: the step as a flush of one lane
+        (devsteps.run_one) in the span `encode.dispatch.<step>` of the
+        frame in flight. Under lockstep the batcher's submit, set on the
+        instance, takes its place (parallel/dynbatch)."""
+        name = "hme" if key[0].startswith("hme") else key[0]
+        with stage("encode.dispatch." + name, fnum=self.next_fnum - 1):
+            return devsteps.run_one(key, builder, args, self.device)
+
     def _input_prep(self, d):
         """Upload the visible planes once; the bordered planes and the
         pyramid are built on the device."""
@@ -290,12 +300,9 @@ class Encoder:
         vis = tuple(xfer.upload(np.ascontiguousarray(d.padded.view(c)),
                                 self.device) for c in range(3))
         cfg = (meta.width, meta.height, meta.subsamp, self.pyramid_levels)
-        if self.dev_submit is not None:
-            return self.dev_submit(("input_prep", cfg),
-                                   devsteps.lanewise(devsteps.make_input_prep),
-                                   vis, fetch=False)
-        with stage("encode.dispatch.input_prep", fnum=d.fnum):
-            return devsteps.make_input_prep(*cfg)(*vis)
+        return self.dev_submit(("input_prep", cfg),
+                               devsteps.make_input_prep_lanes, vis,
+                               fetch=False)
 
     def _encode_one(self, d):
         """(ref: encode_one_frame, dsv_encoder.c:1184-1317)."""
@@ -544,20 +551,14 @@ class Encoder:
             return devsteps.make_i_encode_step(*cfg)(xs, bd, q)
         fq, fthresh = self._filter_q(pcfg, d.quant)
         cfg += (self.pyramid_levels,)
-        args = (xs, bd, q, fq, fthresh, self.do_intra_filter)
-        if self.dev_submit is not None:
-            return self.dev_submit(
-                ("i_chain", cfg), devsteps.lanewise(devsteps.make_i_chain_step),
-                args, fetch=True)
-        with stage("encode.dispatch.i_chain", fnum=d.fnum):
-            return devsteps.make_i_chain_step(*cfg)(*args)
+        return self.dev_submit(("i_chain", cfg), devsteps.make_i_chain_lanes,
+                               (xs, bd, q, fq, fthresh, self.do_intra_filter),
+                               fetch=True)
 
     def _p_step(self, d, pcfg, inter_filter):
-        """The P device step with the reference chain. The motion field
-        and the per-block maps go up as one int32 array; outside lockstep
-        the frame's scalars ride in it too (devsteps.p_chain_ints), and
-        the step is the process's CUDA graph of its key on the card
-        (devsteps.p_chain_step)."""
+        """The P device step with the reference chain. The motion field,
+        the per-block maps and the frame's scalars go up as one int32
+        array (devsteps.p_chain_ints)."""
         p = d.params
         meta = self.meta
         mf = d.final_mvs
@@ -572,20 +573,11 @@ class Encoder:
         scal = (K.temporal_mc(d.fnum), fq, fthresh, 1 if inter_filter else 0)
         cfg = (meta.width, meta.height, meta.subsamp, p.blk_w, p.blk_h,
                p.lossless, p.do_psy, self.pyramid_levels, meta.inter_sharpen)
-        if self.dev_submit is not None:
-            g = xfer.upload(grids, self.device)
-            q = xfer.upload(np.array(d.quant, dtype=np.int32), self.device)
-            args = (d.dev["padded"], d.refdata.dev["recon"], g[0], g[1],
-                    g[2], g[3], g[4], g[5].to(torch.uint8), g[6] != 0,
-                    g[7] != 0, q) + scal
-            return self.dev_submit(
-                ("p_chain", cfg), devsteps.lanewise(devsteps.make_p_chain_step),
-                args, fetch=True)
         ints = xfer.upload(devsteps.p_chain_ints(grids, d.quant, *scal),
                            self.device)
-        with stage("encode.dispatch.p_chain", fnum=d.fnum):
-            return devsteps.p_chain_step(cfg, self.device)(
-                d.dev["padded"], d.refdata.dev["recon"], ints)
+        return self.dev_submit(("p_chain", cfg), devsteps.make_p_chain_lanes,
+                               (d.dev["padded"], d.refdata.dev["recon"], ints),
+                               fetch=True)
 
     # -- P-frame machinery ----------------------------------------------------
 

@@ -80,12 +80,9 @@ def make_motion_est(cfg, gang=None):
 
 def motion_est(enc, d):
     """Search frame d against its reference with the gang kernels (backend
-    "gang"): through the encoder's lockstep batcher (key ("hme_gang",
-    cfg)) when it has one, else as a batch of one lane."""
+    "gang"), a lane of key ("hme_gang", cfg) through the encoder's
+    `dev_submit`: outside lockstep a batch of one lane."""
     cfg, inputs = hw.prepare_motion_est(enc, d)
-    submit = getattr(enc, "dev_submit", None)
-    if submit is not None:
-        st = submit(("hme_gang", cfg), make_motion_est, inputs, fetch=True)
-    else:
-        st = {k: v[0] for k, v in make_motion_est(cfg)([inputs]).items()}
+    st = enc.dev_submit(("hme_gang", cfg), make_motion_est, inputs,
+                        fetch=True)
     hw.apply_motion_est(enc, d, st)

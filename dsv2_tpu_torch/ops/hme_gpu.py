@@ -9,8 +9,9 @@ tensors it is that plain version; for CUDA tensors each upper pyramid
 level is one `hme_level` launch and the base level one `hme_level0`
 launch, the global motion between them a few torch ops, so the search
 never syncs with the host. A CUDA tensor never reaches the plain
-version. `make_motion_est_lanes(cfg)` is its lockstep builder (key
-("hme_pl", cfg)): the lanes of a flush one after another.
+version. `make_motion_est_lanes(cfg)` is the builder the encoder runs
+(key ("hme_pl", cfg)): the lanes of a flush one after another, a lone
+stream's search a flush of one lane.
 `hme_gang_level`/`hme_gang_level0` launch kernels 6/7 for a list of
 lanes (ops/hme_gang builds the search from them).
 Each launch counts as `launch.<wrapper name>` (utils/trace).
@@ -49,7 +50,7 @@ GEOM = ("nbh", "nbv", "blk_w", "blk_h", "vid_w", "vid_h", "hs", "vs",
 # 1, 2 or 4. 1 was fastest at the lockstep cell's CIF levels 0-1 on an
 # H100 (chip_smoke.py phase hme_gang_vs_plain; PERF.md, kernels 6/7)
 GANG = 1
-MAX_LANES = 32     # lanes one gang launch takes (csrc/hme_gang.cu)
+LANES_PER_LAUNCH = 32   # the most lanes a gang launch takes (hme_gang.cu)
 
 
 def geometry(cfg, level, planes, chroma, quant, skip_thresh):
@@ -147,9 +148,9 @@ def _gang_args(cfg, level, lanes, parent, tmv, gxy, out, sums, quants,
     lane (luma planes, chroma planes); parent, tmv, out (L, NF, nbv, nbh),
     gxy (L, 2), sums (L, 4) or None, int32 on the planes' device."""
     n = len(lanes)
-    if not 1 <= n <= MAX_LANES:
+    if not 1 <= n <= LANES_PER_LAUNCH:
         raise ValueError("a gang launch takes 1 to %d lanes, got %d"
-                         % (MAX_LANES, n))
+                         % (LANES_PER_LAUNCH, n))
     if gang not in (1, 2, 4):
         raise ValueError("gang must be 1, 2 or 4 blocks per warp")
     if len(quants) != n or len(skip_threshs) != n:
@@ -189,15 +190,15 @@ def _gang_args(cfg, level, lanes, parent, tmv, gxy, out, sums, quants,
 def hme_gang_level(cfg, level, srcs, refs, ogrs, parent, tmv, gxy, quants,
                    gang=None):
     """One upper pyramid level of every lane on the card (kernel 6, one
-    launch for up to MAX_LANES lanes): srcs/refs/ogrs are the lanes' level
-    planes, parent and tmv (L, 2, nbv, nbh) int32, gxy (L, 2) int32,
-    quants L ints. Returns the (L, 2, nbv, nbh) int32 fields."""
+    launch for up to LANES_PER_LAUNCH lanes): srcs/refs/ogrs are the
+    lanes' level planes, parent and tmv (L, 2, nbv, nbh) int32, gxy (L, 2)
+    int32, quants L ints. Returns the (L, 2, nbv, nbh) int32 fields."""
     from . import _kernels
     n = len(srcs)
     out = torch.zeros((n, 2, cfg.nbv, cfg.nbh), dtype=_I32,
                       device=srcs[0].device)
-    for lo in range(0, n, MAX_LANES):
-        sl = slice(lo, lo + MAX_LANES)
+    for lo in range(0, n, LANES_PER_LAUNCH):
+        sl = slice(lo, lo + LANES_PER_LAUNCH)
         lanes = [([s, r, o], []) for s, r, o in zip(srcs[sl], refs[sl],
                                                      ogrs[sl])]
         m = len(lanes)
@@ -214,16 +215,16 @@ def hme_gang_level(cfg, level, srcs, refs, ogrs, parent, tmv, gxy, quants,
 def hme_gang_level0(cfg, srcs, refs, ogrs, chromas, parent, tmv, gxy,
                     quants, skip_threshs, gang=None):
     """The base level of every lane on the card (kernel 7, one launch for
-    up to MAX_LANES lanes): chromas are the lanes' (src_u, src_v, ref_u,
-    ref_v). Returns ((L, NF0, nbv, nbh) int32 fields, (L, 4) int32
+    up to LANES_PER_LAUNCH lanes): chromas are the lanes' (src_u, src_v,
+    ref_u, ref_v). Returns ((L, NF0, nbv, nbh) int32 fields, (L, 4) int32
     sums), as hme_level0 per lane."""
     from . import _kernels
     n = len(srcs)
     dev = srcs[0].device
     out = torch.zeros((n, NF0, cfg.nbv, cfg.nbh), dtype=_I32, device=dev)
     sums = torch.zeros((n, 4), dtype=_I32, device=dev)
-    for lo in range(0, n, MAX_LANES):
-        sl = slice(lo, lo + MAX_LANES)
+    for lo in range(0, n, LANES_PER_LAUNCH):
+        sl = slice(lo, lo + LANES_PER_LAUNCH)
         lanes = [([s, r, o], list(c)) for s, r, o, c in zip(
             srcs[sl], refs[sl], ogrs[sl], chromas[sl])]
         for _, c in lanes:
@@ -278,8 +279,8 @@ def make_motion_est(cfg):
 
 
 def make_motion_est_lanes(cfg):
-    """Lockstep builder of key ("hme_pl", cfg): fn(lanes) -> the output
-    dicts of make_motion_est, one per lane, the lanes searched one after
+    """The builder of key ("hme_pl", cfg): fn(lanes) -> the output dicts
+    of make_motion_est, one per lane, the lanes searched one after
     another (kernels 4/5 on the card)."""
     fn = make_motion_est(cfg)
     return lambda lanes: [fn(*inputs) for inputs in lanes]
@@ -287,14 +288,9 @@ def make_motion_est_lanes(cfg):
 
 def motion_est(enc, d):
     """Search frame d against its reference with kernels 4/5 (backend
-    "pallas"); through the encoder's lockstep batcher when it has one,
-    else in the span `encode.dispatch.hme` (the kernels' enqueue)."""
+    "pallas"), a lane of key ("hme_pl", cfg) through the encoder's
+    `dev_submit`."""
     cfg, inputs = hw.prepare_motion_est(enc, d)
-    submit = getattr(enc, "dev_submit", None)
-    if submit is not None:
-        st = submit(("hme_pl", cfg), make_motion_est_lanes, inputs,
-                    fetch=True)
-    else:
-        with trace.stage("encode.dispatch.hme", fnum=d.fnum):
-            st = make_motion_est(cfg)(*inputs)
+    st = enc.dev_submit(("hme_pl", cfg), make_motion_est_lanes, inputs,
+                        fetch=True)
     hw.apply_motion_est(enc, d, st)

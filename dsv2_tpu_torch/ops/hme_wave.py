@@ -1233,8 +1233,8 @@ def prepare_motion_est(enc, d):
     dev = srcp[0].device
     if has_tmv:
         mf = ref.final_mvs
-        tmv = xfer.put(np.stack([mf.grid(mf.x), mf.grid(mf.y)])
-                       .astype(np.int32), dev)
+        tmv = xfer.upload(np.stack([mf.grid(mf.x), mf.grid(mf.y)])
+                          .astype(np.int32), dev)
         tmvx, tmvy = tmv[0], tmv[1]
     else:
         tmvx = torch.zeros((p.nbv, p.nbh), dtype=_I32, device=dev)

@@ -15,9 +15,11 @@ of the queued argument tuples; fn returns a list with one output per
 lane, or a dict of tensors with a leading lane dimension (lane i gets
 {k: v[i]}, views that cost nothing). The motion search of a flush is one
 launch per pyramid level for every lane (ops/hme_gang, key "hme_gang");
-the input prep and the chain steps of encode and decode run their
-lane-batched forms (codec/devsteps.lanewise): one vk launch per plane
-and one filter launch per filter kind for every lane of the flush. The
+the input prep and the chain steps of encode and decode are such
+builders (codec/devsteps.make_*_lanes): one vk launch per plane and one
+filter launch per filter kind for every lane of the flush. Outside
+lockstep an encoder or decoder runs each step as a flush of one lane
+(codec/devsteps.run_one), so every step has this one form. The
 twin pads every batch to `width` with copies of lane 0 so that each XLA
 program compiles once; nothing compiles per shape here, so the port runs
 the lanes it has. `run_lanes` runs the lane threads of a group, for
@@ -55,7 +57,7 @@ from . import xfer
 _FLUSH_IDS = itertools.count(1)   # flush sequence numbers in the process
 
 
-def _lane(out, i):
+def lane_of(out, i):
     """Lane i of a builder's output (see the module docstring)."""
     if isinstance(out, list):
         return out[i]
@@ -186,7 +188,7 @@ class LockstepBatcher:
                     with stage("lockstep.post.%s" % kname):
                         out = post(out)
                 for i, (e, *_) in enumerate(pending[lo:lo + self.width]):
-                    e[1] = _lane(out, i)
+                    e[1] = lane_of(out, i)
         except BaseException as exc:  # propagate to every waiter
             for e, *_ in pending:
                 e[1] = exc

@@ -12,10 +12,10 @@ int32 scan and the native host coder (codec semantics, not a device
 fallback).
 
 Every wait of the host for the card goes through `_sync` here: a blocking
-read (`host`, `scalar`, `finish_d2h`), a stream wait (`wait_stream`) or
-an upload from pageable memory (`put`). Each opens a `sync` span and
-counts `sync` (utils/trace) when tracing; on CPU tensors nothing waits
-and nothing is recorded.
+read (`host`, `scalar`, `finish_d2h`) or a stream wait (`wait_stream`).
+Each opens a `sync` span and counts `sync` (utils/trace) when tracing;
+on CPU tensors nothing waits and nothing is recorded. Uploads go through
+pinned memory (`upload`) and never wait.
 """
 import torch
 
@@ -54,17 +54,6 @@ def wait_stream(t):
     everything enqueued on it."""
     with _sync():
         torch.cuda.current_stream(t.device).synchronize()
-
-
-def put(v, device):
-    """torch.as_tensor(v, device=device): a host value copied to a CUDA
-    device from pageable memory, which waits for the device's stream
-    (`upload` does not wait)."""
-    if torch.device(device).type != "cuda" or (
-            isinstance(v, torch.Tensor) and v.is_cuda):
-        return torch.as_tensor(v, device=device)
-    with _sync():
-        return torch.as_tensor(v, device=device)
 
 
 def merge_rows(rows_list, useds_list):

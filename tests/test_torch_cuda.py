@@ -885,8 +885,8 @@ def test_chain_lanes_cuda(cuda, step, launches):
         lanes = lb.decode_lanes("cif", isP, False, (), False, 5, n)[0]
         base = (w, h, subsamp, lb.BLK, lb.BLK, False) + ((1,) if isP
                                                          else ())
-        make = (devsteps.make_pd_chain_step if isP
-                else devsteps.make_id_chain_step)
+        builder = (devsteps.make_pd_chain_lanes if isP
+                   else devsteps.make_id_chain_lanes)
         cpu_cfg = base + (False, (), False, "cpu")
         dev_cfg = base + (False, (), False, cuda)
         dev_lanes = [a[:4] + (_to(a[4], cuda),) + a[5:] if isP else a
@@ -897,14 +897,14 @@ def test_chain_lanes_cuda(cuda, step, launches):
         lanes = (lb.p_lanes if isP else lb.i_lanes)("cif", 6, n)
         cpu_cfg = dev_cfg = ((w, h, subsamp, lb.BLK, lb.BLK, False,
                               K.PSY_ALL, lb.LEVELS) + ((1,) if isP else ()))
-        make = (devsteps.make_p_chain_step if isP
-                else devsteps.make_i_chain_step)
+        builder = (devsteps.make_p_chain_lanes if isP
+                   else devsteps.make_i_chain_lanes)
         dev_lanes = _to(lanes, cuda)
         kinds = {"luma": 1, "chroma": 1} if isP else {"intra": 1}
-    want = devsteps.lanewise(make)(cpu_cfg)(lanes)
+    want = builder(cpu_cfg)(lanes)
     vk0 = launches("vk_chain")
     wf0 = launches.filters()
-    got = devsteps.lanewise(make)(dev_cfg)(dev_lanes)
+    got = builder(dev_cfg)(dev_lanes)
     torch.cuda.synchronize()
     assert launches("vk_chain") - vk0 == (0 if decode else 3)
     assert {k: v - wf0[k] for k, v in launches.filters().items()
@@ -952,8 +952,9 @@ def test_decode_gops_parallel_corrupt_cuda(cuda):
             == [d for _, d in gold[golden.corrupt_key(i)]["frames"]], i
 
 
-# the single stream's one-frame P chain as a CUDA graph (codec/devsteps
-# GraphedStep): its streams against the unwrapped step's
+# the single stream's P chain, a one-lane flush replayed as a CUDA graph
+# (codec/devsteps.run_one, GraphedStep): its streams against the eager
+# flush's
 
 
 def _live(bench_cfg, nframes, seed):
@@ -985,14 +986,13 @@ def _encode_live(cfg, frames, device, filters=None):
 
 @pytest.fixture
 def eager_p_chain(monkeypatch):
-    """eager_p_chain(fn) runs fn with the unwrapped P chain step in place
-    of its CUDA graph."""
+    """eager_p_chain(fn) runs fn with the P chain's one-lane flush run
+    eagerly in place of its CUDA graph."""
     from dsv2_tpu_torch.codec import devsteps
 
     def run(fn):
         with monkeypatch.context() as m:
-            m.setattr(devsteps, "p_chain_step",
-                      lambda cfg, device: devsteps.make_p_chain_packed(*cfg))
+            m.setattr(devsteps, "GRAPHED", ())
             return fn()
     return run
 

@@ -120,11 +120,10 @@ def test_decode_lane_error_reaches_caller(monkeypatch):
                                               device="cpu"))
     monkeypatch.setattr(decoder.Decoder, "parse_packet", parse)
 
-    def boom(make_step):
-        def builder(cfg):
-            raise RuntimeError("flush failed")
-        return builder
-    monkeypatch.setattr(devsteps, "lanewise", boom)
+    def boom(cfg):
+        raise RuntimeError("flush failed")
+    monkeypatch.setattr(devsteps, "make_id_chain_lanes", boom)
+    monkeypatch.setattr(devsteps, "make_pd_chain_lanes", boom)
     with pytest.raises(RuntimeError, match="flush failed"):
         _run(lambda: gop.decode_gops_parallel(io.BytesIO(data), width=2,
                                               device="cpu"))

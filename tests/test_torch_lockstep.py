@@ -136,11 +136,17 @@ def test_lockstep_lane_error_reaches_caller():
 
 
 def _with_builder(builder, streams, meta):
+    """The lockstep encode with `builder` in place of every encode chain
+    step's builder."""
     from dsv2_tpu_torch.codec import devsteps
-    orig = devsteps.lanewise
-    devsteps.lanewise = lambda make_step: builder
+    names = ("make_input_prep_lanes", "make_i_chain_lanes",
+             "make_p_chain_lanes")
+    orig = [getattr(devsteps, n) for n in names]
+    for n in names:
+        setattr(devsteps, n, builder)
     try:
         return dynbatch.encode_streams_lockstep(
             streams, _factory(meta, "gang"), width=4)
     finally:
-        devsteps.lanewise = orig
+        for n, f in zip(names, orig):
+            setattr(devsteps, n, f)

@@ -1,17 +1,19 @@
-"""torch port: the lane-batched chain steps of a lockstep flush
-(dsv2_tpu_torch/codec/devsteps.make_*_lanes, reached through
-devsteps.lanewise) against the one-frame steps run lane by lane.
+"""torch port: the chain steps of a lockstep flush
+(dsv2_tpu_torch/codec/devsteps.make_*_lanes) against the same builders
+run as a flush of one lane per lane (devsteps.run_one, the path of a
+step outside lockstep).
 
 Three lanes of seeded inputs at the tiny (64x48) and nano (48x32) 4:2:0
 geometries, each lane with its own q, filter q and threshold, filter
 flag, temporal MC parity, motion field and reference, go through each
-batched builder (input prep, intra and P encode chain steps, intra and P
-decode chain steps) and through the one-frame step once per lane; every
-output must agree bit for bit, dtype included, and each lane's host
-fetch of the merged blob must equal the one-frame fetch. MC with a lane
-axis is held against one-plane calls. Counting wrappers show one filter
-wavefront call per filter kind and one vk chain call per plane for the
-whole flush. Everything runs the plain versions on the CPU.
+builder (input prep, intra and P encode chain steps, intra and P decode
+chain steps) once for all lanes and once per lane; every output must
+agree bit for bit, dtype included, and each lane's host fetch of the
+merged blob must equal the one-lane flush's. The decode lanes are also
+held against the decoder's one-frame steps. MC with a lane axis is held
+against one-plane calls. Counting wrappers show one filter wavefront
+call per filter kind and one vk chain call per plane for the whole
+flush. Everything runs the plain versions on the CPU.
 """
 import numpy as np
 import pytest
@@ -101,8 +103,8 @@ class Counts:
 
 
 def _check_lane_out(got, want, i):
-    """A LaneOut against the one-frame step's (buf, smalls, vs, chain):
-    equal scans, chain and host fetch."""
+    """A LaneOut against another (a one-lane flush's): equal scans, chain
+    and host fetch."""
     assert isinstance(got, devsteps.LaneOut) and got.lane == i
     assert_same(got.vs, want[2], "lane %d vs" % i)
     for k in want[3]:
@@ -124,10 +126,10 @@ def test_input_prep_lanes(geom):
                    for pw, ph in plane_dims(subsamp, w, h))
              for _ in range(L)]
     cfg = (w, h, subsamp, LEVELS)
-    got = devsteps.lanewise(devsteps.make_input_prep)(cfg)(lanes)
-    one = devsteps.make_input_prep(*cfg)
+    got = devsteps.make_input_prep_lanes(cfg)(lanes)
     for i, args in enumerate(lanes):
-        want = one(*args)
+        want = _one(("input_prep", cfg), devsteps.make_input_prep_lanes,
+                    args)
         for k in want:
             assert_same(got[i][k], want[k], "lane %d %s" % (i, k))
 
@@ -138,16 +140,21 @@ def test_i_chain_lanes(geom, monkeypatch):
     lanes = i_lanes(geom, 2)
     cfg = (w, h, subsamp, BLK, BLK, False, K.PSY_ALL, LEVELS)
     counts = Counts(monkeypatch)
-    got = devsteps.lanewise(devsteps.make_i_chain_step)(cfg)(lanes)
+    got = devsteps.make_i_chain_lanes(cfg)(lanes)
     assert counts.take() == ({"intra": 1}, 3)
-    one = devsteps.make_i_chain_step(*cfg)
     for i, args in enumerate(lanes):
-        _check_lane_out(got[i], one(*args), i)
+        _check_lane_out(got[i], _one(("i_chain", cfg),
+                                     devsteps.make_i_chain_lanes, args), i)
     assert counts.take() == ({"intra": L}, 3 * L)
 
 
+def _one(key, builder, args):
+    """One lane's step outside lockstep: a flush of that lane alone."""
+    return devsteps.run_one(key, builder, args, "cpu")
+
+
 def i_lanes(geom, salt, n=L):
-    """Argument tuples of make_i_chain_step for n lanes."""
+    """Lane argument tuples of make_i_chain_lanes for n lanes."""
     pcfg = _pcfg(geom, False)
     rng = _rng(geom, salt)
     lanes = []
@@ -160,21 +167,29 @@ def i_lanes(geom, salt, n=L):
     return lanes
 
 
-def p_lanes(geom, salt, n=L):
-    """Argument tuples of make_p_chain_step for n lanes."""
+def p_grids(rng, pcfg, lane):
+    """The (8, nbv, nbh) int32 grids of a P lane as p_chain_ints takes
+    them: mvx, mvy, flags, submask, dc, blockdata, eprm, mlt."""
+    g = _mv_grids(rng, pcfg, lane)
+    bd = rng.integers(0, 16, (pcfg.nbv, pcfg.nbh)).astype(np.uint8)
+    eprm = rng.random(bd.shape) < 0.3
+    mlt = rng.random(bd.shape) < 0.3
+    return np.stack([a.astype(np.int32) for a in g + [bd, eprm, mlt]])
+
+
+def p_lanes(geom, salt, n=L, scalars=None):
+    """Lane argument tuples (srcs_full, refs, ints) of make_p_chain_lanes
+    for n lanes; `scalars` (q, tmc, fq, fthresh, do_filter) per lane, by
+    default from SCALARS."""
     pcfg = _pcfg(geom, True)
     rng = _rng(geom, salt)
     lanes = []
     for i, (q, fq, fthresh, do_filter, fno) in enumerate(SCALARS[:n]):
-        g = _mv_grids(rng, pcfg, i)
-        bd = rng.integers(0, 16, (pcfg.nbv, pcfg.nbh)).astype(np.uint8)
-        eprm = rng.random(bd.shape) < 0.3
-        mlt = rng.random(bd.shape) < 0.3
-        lanes.append((_bordered(rng, pcfg), _bordered(rng, pcfg))
-                     + tuple(tt(a) for a in g)
-                     + (tt(bd), tt(eprm), tt(mlt),
-                        torch.tensor(q, dtype=torch.int32),
-                        K.temporal_mc(fno), fq, fthresh, do_filter))
+        grids = p_grids(rng, pcfg, i)
+        sc = (scalars[i] if scalars is not None else
+              (q, K.temporal_mc(fno), fq, fthresh, do_filter))
+        lanes.append((_bordered(rng, pcfg), _bordered(rng, pcfg),
+                      tt(devsteps.p_chain_ints(grids, *sc))))
     return lanes
 
 
@@ -184,11 +199,11 @@ def test_p_chain_lanes(geom, monkeypatch):
     lanes = p_lanes(geom, 3)
     cfg = (w, h, subsamp, BLK, BLK, False, K.PSY_ALL, LEVELS, 1)
     counts = Counts(monkeypatch)
-    got = devsteps.lanewise(devsteps.make_p_chain_step)(cfg)(lanes)
+    got = devsteps.make_p_chain_lanes(cfg)(lanes)
     assert counts.take() == ({"luma": 1, "chroma": 1}, 3)
-    one = devsteps.make_p_chain_step(*cfg)
     for i, args in enumerate(lanes):
-        _check_lane_out(got[i], one(*args), i)
+        _check_lane_out(got[i], _one(("p_chain", cfg),
+                                     devsteps.make_p_chain_lanes, args), i)
     assert counts.take() == ({"luma": L, "chroma": L}, 3 * L)
 
 
@@ -214,8 +229,9 @@ def _scans(rng, pcfg, dense):
 
 
 def decode_lanes(geom, isP, dense, bad, arena, salt, n=L):
-    """Argument tuples of make_{id,pd}_chain_step for n lanes, host arrays
-    and ints standing in for tensors, and the same with tensors."""
+    """Lane argument tuples of make_{id,pd}_chain_lanes for n lanes, host
+    arrays and ints standing in for tensors, and the arguments of the
+    one-frame steps make_{id,pd}_chain_step, tensors."""
     pcfg = _pcfg(geom, isP, do_psy=0)
     rng = _rng(geom, salt)
     host, dev = [], []
@@ -254,12 +270,25 @@ def test_decode_chain_lanes(geom, kind, case, monkeypatch):
                               4 + 2 * isP + dense)
     base = (w, h, subsamp, BLK, BLK, False) + ((1,) if isP else ())
     make = devsteps.make_pd_chain_step if isP else devsteps.make_id_chain_step
+    builder = (devsteps.make_pd_chain_lanes if isP
+               else devsteps.make_id_chain_lanes)
+    key = (kind + "_chain", base + (dense, bad, arena, "cpu"))
+    fresh = [a[:-1] + (None if a[-1] is None else a[-1].clone(),)
+             for a in host]
     counts = Counts(monkeypatch)
-    got = devsteps.lanewise(make)(base + (dense, bad, arena, "cpu"))(host)
+    got = builder(key[1])(host)
     kinds = {"luma": 1, "chroma": 1} if isP else {"intra": 1}
     if arena:
         kinds = {k: L for k in kinds}
     assert counts.take() == (kinds, 0)
+    for i, args in enumerate(fresh):
+        packed, chain = _one(key, builder, args)
+        assert_same(got[i][0], packed, "lane %d one-lane payload" % i)
+        assert_same(got[i][1]["recon"], chain["recon"],
+                    "lane %d one-lane recon" % i)
+        if arena:
+            assert_same(host[i][-1], args[-1], "lane %d one-lane arena" % i)
+    assert counts.take() == ({k: L for k in kinds}, 0)
     one = make(*base, dense)
     for i, (args, ar) in enumerate(dev):
         packed, chain = one(*args, bad=bad, arena=ar)

@@ -1,26 +1,26 @@
-"""torch port: the one-frame P chain step is safe to capture as a CUDA
-graph (codec/devsteps.make_p_chain_packed, replayed by GraphedStep on the
-card).
+"""torch port: the P chain step's one-lane flush is safe to capture as a
+CUDA graph (codec/devsteps.make_p_chain_lanes, run by devsteps.run_one,
+which replays a GraphedStep of it on the card).
 
 A graph replays the ops its capture recorded, with the arguments they
 had then: every value that changes from frame to frame must reach the
-step as a device tensor, never as a Python value an op bakes in, and
-nothing in it may wait for the device. On the CPU, at the tiny geometry,
-the aten ops of the packed step are recorded (TorchDispatchMode) for
-frames that differ in q, temporal MC parity, the filter q and threshold
-and the filter flag: the ops and their non-tensor arguments must be the
-same, no op reads a tensor's value back to the host, and no upload
-helper (`xfer.put`) runs. The plain stand-ins of kernels 1 and 2 (the vk
-chain and the filter wavefront, one launch each on the card) are
-recorded as one entry each, not op by op. The packed step's outputs
-equal the unwrapped step's, and the encoder's streams through it stay
-the golden ones."""
-import numpy as np
+step as a device tensor (the lane's p_chain_ints), never as a Python
+value an op bakes in, and nothing in it may wait for the device. On the
+CPU, at the tiny geometry, the aten ops of a one-lane flush are recorded
+(TorchDispatchMode) for frames that differ in q, temporal MC parity, the
+filter q and threshold and the filter flag: the ops and their
+non-tensor arguments must be the same, no op reads a tensor's value
+back to the host, and no upload (`xfer.upload`) runs inside the step.
+The plain stand-ins of kernels 1 and 2 (the vk chain and the filter
+wavefront, one launch each on the card) are recorded as one entry each,
+not op by op. Each frame's one-lane flush equals its lane of one flush
+of every frame, and the encoder's streams through the runner stay the
+golden ones."""
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from torch_parity import assert_same, tt
+import torch_parity  # noqa: F401
 import torch_port_golden as golden  # after torch_parity (sys.path)
 import test_torch_lockstep_batch as lb
 from dsv2_tpu_torch.cli import read_y4m
@@ -69,43 +69,41 @@ class _Ops(TorchDispatchMode):
         return run
 
 
-def _inputs(scalars):
-    """The packed step's inputs for lane 0's planes, grids and maps of
+def _lanes():
+    """One lane per frame of FRAMES: the planes, grids and maps of
     test_torch_lockstep_batch.p_lanes with the frame's scalars."""
-    a = lb.p_lanes("tiny", 3, 1)[0]
-    grids = np.stack([t.numpy().astype(np.int32) for t in a[2:10]])
-    return a[0], a[1], grids, tt(devsteps.p_chain_ints(grids, *scalars))
+    return lb.p_lanes("tiny", 3, len(FRAMES), FRAMES)
 
 
 @pytest.fixture
-def puts(monkeypatch):
+def uploads(monkeypatch):
     calls = []
-    put = xfer.put
+    upload = xfer.upload
 
-    def counted(v, device):
+    def counted(a, device):
         calls.append(device)
-        return put(v, device)
-    monkeypatch.setattr(xfer, "put", counted)
+        return upload(a, device)
+    monkeypatch.setattr(xfer, "upload", counted)
     return calls
 
 
-def test_p_chain_ops_do_not_depend_on_the_frames_values(monkeypatch, puts):
-    step = devsteps.make_p_chain_packed(*CFG)
-    srcs, refs, _, ints = _inputs(FRAMES[0])
-    step(srcs, refs, ints)   # builds the cached tables first
+def test_p_chain_ops_do_not_depend_on_the_frames_values(monkeypatch,
+                                                         uploads):
+    step = devsteps.make_p_chain_lanes(CFG)
+    lanes = _lanes()
+    step(lanes[:1])   # builds the cached tables first
     vk, wf = scan_pl.vk_chain_plain, filters.wavefront_filter_plain
     seqs = []
-    for scalars in FRAMES:
-        srcs, refs, _, ints = _inputs(scalars)
+    for lane in lanes:
         mode = _Ops()
         monkeypatch.setattr(scan_pl, "vk_chain_plain",
                             mode.standin("vk_chain", vk))
         monkeypatch.setattr(filters, "wavefront_filter_plain",
                             mode.standin("wavefront", wf))
         with mode:
-            step(srcs, refs, ints)
+            step([lane])
         seqs.append(mode.ops)
-    assert puts == []
+    assert uploads == []
     names = [op[0] for op in seqs[0]]
     assert names.count("vk_chain") == 3
     assert names.count("wavefront") == 2
@@ -119,41 +117,35 @@ def test_p_chain_ops_do_not_depend_on_the_frames_values(monkeypatch, puts):
 
 
 @pytest.mark.parametrize("frame", range(len(FRAMES)))
-def test_p_chain_packed_equals_the_step(frame, puts):
-    """The packed step's outputs are the unwrapped step's with the frame's
-    values as Python ints, and it uploads nothing."""
-    q, tmc, fq, fthresh, do_filter = FRAMES[frame]
-    srcs, refs, grids, ints = _inputs(FRAMES[frame])
-    got = devsteps.make_p_chain_packed(*CFG)(srcs, refs, ints)
-    assert puts == []
-    g = [tt(a) for a in grids]
-    want = devsteps.make_p_chain_step(*CFG)(
-        srcs, refs, *g[:5], g[5].to(torch.uint8), g[6] != 0, g[7] != 0,
-        torch.tensor(q, dtype=torch.int32), tmc, fq, fthresh, do_filter)
-    for k in range(3):
-        assert_same(got[k], want[k], "output %d" % k)
-    for k in want[3]:
-        assert_same(got[3][k], want[3][k], k)
+def test_p_chain_packed_equals_the_step(frame, uploads):
+    """Frame `frame` as a flush of one lane (the runner's, outside
+    lockstep) equals its lane of one flush of every frame of FRAMES, and
+    neither uploads anything."""
+    lanes = _lanes()
+    want = devsteps.make_p_chain_lanes(CFG)(lanes)[frame]
+    got = devsteps.run_one(("p_chain", CFG), devsteps.make_p_chain_lanes,
+                           lanes[frame], "cpu")
+    assert uploads == []
+    assert got.lane == 0 and want.lane == frame
+    lb._check_lane_out(want, got, frame)
 
 
-def test_p_encode_golden_uploads_nothing_in_the_step(monkeypatch, puts):
-    """The encoder's P frames go through the packed step (one call each,
-    no upload inside it), and the stream is the golden one."""
+def test_p_encode_golden_uploads_nothing_in_the_step(monkeypatch, uploads):
+    """The encoder's P frames go through the runner as a one-lane flush of
+    the P chain (one call each, no upload inside it), and the stream is
+    the golden one."""
     from dsv2_tpu_torch import cli
     name, qp, gop, nfr = golden.P_CASES[0]
     inside = []
-    chain = devsteps.p_chain_step
+    run_one = devsteps.run_one
 
-    def spied(cfg, device):
-        step = chain(cfg, device)
-
-        def run(*args):
-            n0 = len(puts)
-            out = step(*args)
-            inside.append(len(puts) - n0)
-            return out
-        return run
-    monkeypatch.setattr(devsteps, "p_chain_step", spied)
+    def spied(key, builder, args, device):
+        n0 = len(uploads)
+        out = run_one(key, builder, args, device)
+        if key[0] == "p_chain":
+            inside.append(len(uploads) - n0)
+        return out
+    monkeypatch.setattr(devsteps, "run_one", spied)
     frames, meta = read_y4m(golden.input_path(name))
     data = golden.encode(cli, frames[:nfr], meta, qp, gop=gop, device="cpu")
     want = golden.load()[golden.p_key(golden.P_CASES[0])]
