@@ -74,6 +74,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -173,6 +174,33 @@ def main():
         """Filter kernel launches by kind since reset_counts()."""
         return {k: launched("wavefront_filter." + k) for k in filters.KINDS}
 
+    def profiled_launches(run):
+        """run() after reset_counts() under torch.profiler: its P chain
+        replays, and the vk and filter launches the counters give beside
+        the kernels the card ran (vk_final_kernel once a vk_chain launch,
+        wavefront_kernel<KIND, ...> once a filter launch; names demangled
+        or not)."""
+        reset_counts()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            run()
+        on_card = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        kinds = collections.Counter()
+        for kname, n in on_card.items():
+            m = re.search(r"wavefront_kernel(?:<|ILi)(\d)", kname)
+            if m:
+                kinds[filters.KINDS[int(m.group(1))]] += n
+        return dict(
+            replays=trace.counters().get("graph.replay.p_chain", 0),
+            vk_counted=launched("vk_chain"),
+            vk_kernels=sum(n for k, n in on_card.items()
+                           if "vk_final_kernel" in k),
+            filters_counted={k: v for k, v in wf_launches().items() if v},
+            filter_kernels=dict(kinds))
+
     def flush_log(keys=None):
         """Each lockstep flush of a key since reset_counts(), in order
         (from the `lockstep.flush` records, whose children carry the key
@@ -204,6 +232,7 @@ def main():
                     c.update(inside(k))
                 out.append(dict(
                     key=key, lanes=sum(runs), runs=runs,
+                    replays=c.get("graph.replay." + key, 0),
                     vk=c.get("launch.vk_chain", 0),
                     filters={k: c["launch.wavefront_filter." + k]
                              for k in filters.KINDS
@@ -330,16 +359,30 @@ def main():
     vk_fn = scan_pl.vk_chain
 
     @contextlib.contextmanager
+    def eager_p_chain():
+        """The P chain's flushes run eagerly, not as their CUDA graphs: a
+        replay calls no launch wrapper, so a recording wrapper sees only
+        eager calls."""
+        graphed = dynbatch.GRAPHED
+        dynbatch.GRAPHED = ()
+        try:
+            yield
+        finally:
+            dynbatch.GRAPHED = graphed
+
+    @contextlib.contextmanager
     def recording_vk(calls):
         """Record (thr, s0, nnz) of each vk chain call with one chain (the
-        P paths' planes, in call order: three a frame)."""
+        P paths' planes, in call order: three a frame), the P chain run
+        eagerly."""
         def rec(thr, s0, nnz, stats=None):
             if thr.shape[1] == 1:
                 calls.append((thr.clone(), s0.clone(), nnz.clone()))
             return vk_fn(thr, s0, nnz, stats)
         scan_pl.vk_chain = rec
         try:
-            yield calls
+            with eager_p_chain():
+                yield calls
         finally:
             scan_pl.vk_chain = vk_fn
 
@@ -1158,8 +1201,8 @@ def main():
     del lane_calls, lenc
     emit("vk_b1", kernel="vk_chain", cases=vk_b1)
     # the warm run (an I and a P frame per lane) records the kernel calls
-    # of its p_chain flush: the vk chains of 8 lanes per plane, the luma
-    # planes and the U+V planes of 8 lanes
+    # of its p_chain flush, run eagerly: the vk chains of 8 lanes per
+    # plane, the luma planes and the U+V planes of 8 lanes
     flush_calls = {"vk": [], "wf": []}
 
     def in_p_flush():
@@ -1178,8 +1221,9 @@ def main():
         return wf(kind, lay, plane_, props, scal)
     scan_pl.vk_chain, filters.wavefront_filter = rec_vk, rec_wf
     try:
-        warm_s, _ = lockstep([st[:LS_WARM_FRAMES] for st in streams],
-                             "gang", width=nlanes)
+        with eager_p_chain():
+            warm_s, _ = lockstep([st[:LS_WARM_FRAMES] for st in streams],
+                                 "gang", width=nlanes)
     finally:
         scan_pl.vk_chain, filters.wavefront_filter = vk_fn, wf
     reset_counts()
@@ -1212,13 +1256,31 @@ def main():
     assert flush_lanes == [nlanes] * (per - 1), flush_lanes
     assert ls_launches == expect, (ls_launches, expect)
     assert launched("hme_level0") == 0
+    # a replayed flush's launch counts are credited from its capture, not
+    # counted where a wrapper launches: one more run of the same streams
+    # (every P chain run a replay) under torch.profiler, whose kernels on
+    # the card must equal the launches the counters give
+    replayed = [f for f in ls_flushes if f["replays"]]
+    credited = dict(
+        replays=sum(f["replays"] for f in replayed),
+        vk=sum(f["vk"] for f in replayed),
+        filters=dict(sum((collections.Counter(f["filters"])
+                          for f in replayed), collections.Counter())))
+    profiled = profiled_launches(
+        lambda: lockstep(streams, "gang", width=nlanes))
+    assert credited["replays"] > 0 and profiled["replays"] > 0, (
+        credited, profiled)
+    assert profiled["vk_kernels"] == profiled["vk_counted"], profiled
+    assert profiled["filter_kernels"] == profiled["filters_counted"], \
+        profiled
     emit("lockstep_p_encode", lanes=nlanes, frames_per_lane=per, gop=gop,
          qp=qp, fps=nlanes * per / dt, seconds=dt, warm_seconds=warm_s,
          warm_frames_per_lane=LS_WARM_FRAMES, golden=True,
          sha256=[d["sha256"] for d in digests], hme_flushes=nflush,
          lanes_per_flush=sorted(set(flush_lanes)), hme_launches=ls_launches,
          hme_launches_expected=expect, filter_launches=ls_filter_launches,
-         vk_chain_launches=ls_vk_launches, flushes=ls_flush_count,
+         vk_chain_launches=ls_vk_launches, credited=credited,
+         profiled_run=profiled, flushes=ls_flush_count,
          lanes_by_key=ls_flush_lanes,
          launches_per_flush={k: dict(vk=v[0], filters=v[1])
                              for k, v in want_per_flush.items()},
@@ -1518,7 +1580,8 @@ def main():
     @contextlib.contextmanager
     def recording_calls(vk_calls, wf_calls, me_calls):
         """Record every vk chain call (inputs copied), every filter call
-        (recording) and the first motion search's (cfg, inputs)."""
+        (recording) and the first motion search's (cfg, inputs), the P
+        chain run eagerly."""
         def rec_vk(thr, s0, nnz, stats=None):
             vk_calls.append((thr.clone(), s0.clone(), nnz.clone()))
             return vk_fn(thr, s0, nnz, stats)
@@ -1533,7 +1596,7 @@ def main():
             return f
         scan_pl.vk_chain, hme_gpu.make_motion_est = rec_vk, rec_me
         try:
-            with recording(wf_calls):
+            with recording(wf_calls), eager_p_chain():
                 yield
         finally:
             scan_pl.vk_chain, hme_gpu.make_motion_est = vk_fn, make_me

@@ -28,9 +28,10 @@ per-frame values reach the step as one uploaded int32 array
 
 Under lockstep the batcher runs a flush of every lane that reached a
 step; outside it a step is a flush of one lane (`run_one`). On the card
-the one-lane flush of the P chain is a CUDA graph, captured once per key
-and replayed for every frame of every encoder in the process
-(`GraphedStep`): some 9,000 ops a frame become one launch.
+a flush of the P chain, of one lane or of a lockstep flush's L, is a CUDA
+graph, captured once per key and lane count and replayed for every flush
+of that many lanes in the process (parallel/dynbatch.flush_step, whose
+GRAPHED names the P chain): some 9,000 ops a flush become one launch.
 
 Decode (device chain): dequantize -> inverse SBT -> (P) motion
 compensation and reconstruction -> in-loop filters -> border extension
@@ -48,7 +49,6 @@ decoder's arena: the reference's shared transform scratch, threaded from
 plane to plane and frame to frame (`_arena_apply`).
 """
 import functools
-import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -214,113 +214,12 @@ def p_chain_ints(grids, q, tmc, fq, fthresh, do_filter):
                                     np.int32)])
 
 
-def _leaves(x):
-    """The tensors of a nest of tuples, lists and dicts, in order."""
-    if isinstance(x, torch.Tensor):
-        yield x
-    elif isinstance(x, dict):
-        for v in x.values():
-            yield from _leaves(v)
-    elif isinstance(x, (list, tuple)):
-        for v in x:
-            yield from _leaves(v)
-
-
-def _copied(x):
-    """A nest of tuples (named ones too), lists and dicts with each tensor
-    cloned."""
-    if isinstance(x, torch.Tensor):
-        return x.clone()
-    if isinstance(x, dict):
-        return {k: _copied(v) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        vals = [_copied(v) for v in x]
-        return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
-    return x
-
-
-class GraphedStep:
-    """A device step replayed as a CUDA graph: the first call runs `body`
-    eagerly (its tables are built and uploaded, its kernels loaded), the
-    second captures it into static copies of its inputs, and that call
-    and each later one copy their inputs into those, replay the graph on
-    the current stream and return clones of its outputs, which no later
-    replay writes. A lock serializes copy-in, replay and copy-out, and a
-    stream waits for the last copy-out before its copy-in, so callers on
-    several threads and streams stay apart. The capture notes the counts
-    the body makes (trace.collect: its kernels' `launch.*`) and each
-    replay credits them, with `graph.replay.<name>`; the capture counts
-    `graph.capture.<name>`."""
-
-    def __init__(self, name, body, device):
-        self.name, self.body, self.device = name, body, device
-        self._lock = threading.Lock()
-        self._eager = False
-        self._graph = self._ins = self._outs = self._done = None
-        self._counts = {}
-
-    def __call__(self, *inputs):
-        with self._lock, torch.cuda.device(self.device):
-            if self._graph is None:
-                if not self._eager:
-                    self._eager = True
-                    return self.body(*inputs)
-                self._capture(inputs)
-            else:
-                torch.cuda.current_stream().wait_event(self._done)
-                for s, t in zip(_leaves(self._ins), _leaves(inputs)):
-                    if s.shape != t.shape or s.dtype != t.dtype:
-                        raise ValueError("%s graph takes %s %s, got %s %s"
-                                         % (self.name, s.dtype,
-                                            tuple(s.shape), t.dtype,
-                                            tuple(t.shape)))
-                    s.copy_(t)
-            self._graph.replay()
-            trace.count("graph.replay." + self.name)
-            for k, n in self._counts.items():
-                trace.count(k, n)
-            out = _copied(self._outs)
-            self._done.record()
-            return out
-
-    def _capture(self, inputs):
-        self._ins = _copied(inputs)
-        # torch.cuda.graph synchronizes the device first: wait here,
-        # counted, so that its wait finds the device idle
-        xfer.wait_stream(next(_leaves(self._ins)))
-        graph = torch.cuda.CUDAGraph()
-        with trace.collect() as made, torch.cuda.graph(
-                graph, capture_error_mode="thread_local"):
-            self._outs = self.body(*self._ins)
-        self._graph, self._counts = graph, made
-        self._done = torch.cuda.Event()
-        trace.count("graph.capture." + self.name)
-
-
-# the step kinds whose one-lane flush is a CUDA graph on the card
-GRAPHED = ("p_chain",)
-_GRAPHS = {}
-_GRAPHS_LOCK = threading.Lock()
-
-
 def run_one(key, builder, args, device):
-    """A device step outside lockstep: builder(key[1]) run as a flush of
-    one lane, `args` that lane's arguments; returns the lane's output. On
-    a CUDA device the flush of a GRAPHED kind (key[0]) is the process's
-    GraphedStep of (key, device), shared by every encoder; every other
-    step, every step on the CPU and every lockstep flush runs eagerly."""
-    dev = torch.device(device)
-    if key[0] not in GRAPHED or dev.type != "cuda":
-        step = builder(key[1])
-    else:
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        with _GRAPHS_LOCK:
-            step = _GRAPHS.get((key, dev))
-            if step is None:
-                step = _GRAPHS[(key, dev)] = GraphedStep(
-                    key[0], builder(key[1]), dev)
-    return dynbatch.lane_of(step([args]), 0)
+    """A device step outside lockstep: a flush of one lane
+    (dynbatch.flush_step), `args` that lane's arguments; returns the
+    lane's output."""
+    return dynbatch.lane_of(
+        dynbatch.flush_step(key, builder, 1, device)([args]), 0)
 
 
 class LaneOut(NamedTuple):
@@ -428,9 +327,9 @@ def make_p_chain_lanes(cfg):
     encode chain runs over (L, ...) stacks, the blob is one vk launch per
     plane, the filters one luma and one chroma (U and V of every lane)
     launch. Only the key and the number of lanes steer its Python, so one
-    CUDA graph of a one-lane flush serves every frame of the key
-    (run_one). Returns a LaneOut per lane (ref: dsv_encoder.c:1123-1172
-    + bmc.c:459-659)."""
+    CUDA graph of a flush of L lanes serves every such flush of the key
+    (dynbatch.flush_step). Returns a LaneOut per lane (ref:
+    dsv_encoder.c:1123-1172 + bmc.c:459-659)."""
     w, h, subsamp, blk_w, blk_h, lossless, do_psy, levels, inter_sharpen = cfg
     pcfg = _PCfg(VideoMeta(width=w, height=h, subsamp=subsamp),
                  blk_w, blk_h, True, lossless, do_psy)

@@ -8,6 +8,7 @@ and the nvcc flags, so a library built from other sources is never
 loaded. Nothing here runs at import time: a CPU-only installation
 imports this module freely and never builds.
 """
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -45,6 +46,7 @@ _GEOM = ("pw", "ph", "tw", "th", "ntx", "nty", "L", "nd", "mr", "mc", "HP",
 _PLAN = ("R", "C", "J", "LC", "wstride", "rows", "threads", "smem")
 
 _lock = threading.Lock()
+_local = threading.local()
 _entries = {}
 _wavefront_limits = []
 build_seconds = {}   # source name -> seconds its last build took
@@ -141,8 +143,41 @@ def vk_scratch_bytes(npad, nb, chunk):
     return 4 * (66 * nb * nchunk + (-(-nb // 4)) * 4)
 
 
+@contextlib.contextmanager
+def stand_ins():
+    """Yield a list that takes, while the block runs, a stand-in for each
+    launch the calling thread makes through vk_chain or wavefront_filter:
+    a function that, where this module's attribute of that name is no
+    longer the wrapper itself (someone wraps it), calls the attribute
+    with the launch's arguments and `replayed` true, so that it launches
+    nothing. A CUDA graph captured in the block
+    (parallel/dynbatch.GraphedStep) calls them after each replay:
+    whoever wraps a launch wrapper then sees each launch that a replay
+    makes, as it sees an eager one."""
+    prev = getattr(_local, "stand_ins", None)
+    made = _local.stand_ins = []
+    try:
+        yield made
+    finally:
+        _local.stand_ins = prev
+
+
+def _stand_in(name, args):
+    """Note a stand-in of this launch of wrapper `name`, args() its
+    arguments at a replay."""
+    made = getattr(_local, "stand_ins", None)
+    if made is None:
+        return
+
+    def run():
+        fn = globals()[name]
+        if fn is not _WRAPPERS[name]:
+            fn(*args(), replayed=True)
+    made.append(run)
+
+
 def vk_chain(thr, s0, nnz, out, scratch, chunk, warmup, walkers, passes=7,
-             stats=None):
+             stats=None, replayed=False):
     """Launch csrc/vk_chain.cu on the current stream. All arguments are
     contiguous int32 CUDA tensors on one device, checked by the caller
     (ops/scan_pl.vk_chain): thr/out (npad, B) with npad a multiple of 4
@@ -152,7 +187,11 @@ def vk_chain(thr, s0, nnz, out, scratch, chunk, warmup, walkers, passes=7,
     passes (the profiler launches them apart); `stats`, an int32 (5,)
     tensor or None, gets pass 2's counters added (live chunks, chunks
     whose true start met a candidate, chunks re-walked, re-walks that met
-    a candidate, rows re-walked)."""
+    a candidate, rows re-walked). `replayed`: the call stands for a
+    launch that a graph's replay made (stand_ins), with s0 and nnz as
+    that replay read them; it launches nothing."""
+    if replayed:
+        return
     import torch
     npad, nb = thr.shape
     with torch.cuda.device(thr.device):
@@ -164,6 +203,10 @@ def vk_chain(thr, s0, nnz, out, scratch, chunk, warmup, walkers, passes=7,
             None if stats is None else stats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("vk_chain launch failed: cudaError %d" % rc)
+    # a replay's s0 and nnz, which the next replay writes
+    _stand_in("vk_chain", lambda: (thr, s0.clone(), nnz.clone(), out,
+                                   scratch, chunk, warmup, walkers, passes,
+                                   stats))
 
 
 def max_smem():
@@ -194,7 +237,7 @@ def wavefront_geom(lay, nprops, plan):
 
 
 def wavefront_filter(kind, lay, plane, props, scal, cluster=None,
-                     ring=None):
+                     ring=None, replayed=False):
     """Launch csrc/wavefront_filter.cu on the current stream: kind 0/1/2
     (intra/luma/chroma), lay an ops/filters._Lay, plane (B, HP, WP),
     props (B, NP, nty, ntx) and scal (B, 8) contiguous int32 CUDA tensors
@@ -204,7 +247,11 @@ def wavefront_filter(kind, lay, plane, props, scal, cluster=None,
     ops/filters.wavefront_plan, which raises on a layout no plan takes.
     A global ring gets a scratch buffer of the plan's bytes per plane.
     The kernel works on a uint8 copy of the plane (its values lie in [0,
-    255]), copied back after the launch. Returns the plan."""
+    255]), copied back after the launch. Returns the plan. `replayed`:
+    the call stands for a launch that a graph's replay made (stand_ins);
+    it launches nothing and returns None."""
+    if replayed:
+        return None
     import torch
     from . import filters
     with torch.cuda.device(plane.device):
@@ -224,7 +271,13 @@ def wavefront_filter(kind, lay, plane, props, scal, cluster=None,
             raise RuntimeError("wavefront_filter launch failed: cudaError "
                                "%d (%s)" % (rc, plan))
         plane.copy_(u8)
+    _stand_in("wavefront_filter", lambda: (kind, lay, plane, props, scal,
+                                           cluster, ring))
     return plan
+
+
+# the launch wrappers whose launches a graph's replay stands in for
+_WRAPPERS = {"vk_chain": vk_chain, "wavefront_filter": wavefront_filter}
 
 
 def _ptr(t):

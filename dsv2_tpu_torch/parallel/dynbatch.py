@@ -19,7 +19,10 @@ the input prep and the chain steps of encode and decode are such
 builders (codec/devsteps.make_*_lanes): one vk launch per plane and one
 filter launch per filter kind for every lane of the flush. Outside
 lockstep an encoder or decoder runs each step as a flush of one lane
-(codec/devsteps.run_one), so every step has this one form. The
+(codec/devsteps.run_one), so every step has this one form; in and out
+of lockstep a flush of L lanes runs the callable that `flush_step` gives
+for (key, L, device): on the card a GRAPHED kind's (the P chain's) is
+the replay of a CUDA graph per lane count (`GraphedStep`). The
 twin pads every batch to `width` with copies of lane 0 so that each XLA
 program compiles once; nothing compiles per shape here, so the port runs
 the lanes it has. `run_lanes` runs the lane threads of a group, for
@@ -50,6 +53,7 @@ import threading
 
 import torch
 
+from ..ops import _kernels
 from ..utils import trace
 from ..utils.trace import stage
 from . import xfer
@@ -64,20 +68,169 @@ def lane_of(out, i):
     return {k: v[i] for k, v in out.items()}
 
 
+def tensors(x):
+    """The tensors of a nest of tuples, lists and dicts, in order."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from tensors(v)
+
+
 def _wait(out):
     """Block until the device has run the flush (the current stream of
     the first CUDA tensor of the output)."""
-    vals = [out]
-    while vals:
-        v = vals.pop()
-        if isinstance(v, torch.Tensor):
-            if v.is_cuda:
-                xfer.wait_stream(v)
-                return
-        elif isinstance(v, dict):
-            vals.extend(v.values())
-        elif isinstance(v, (list, tuple)):
-            vals.extend(v)
+    t = next((t for t in tensors(out) if t.is_cuda), None)
+    if t is not None:
+        xfer.wait_stream(t)
+
+
+def _copied(x, bases=None):
+    """A nest of tuples (named ones too), lists and dicts with each tensor
+    cloned. With `bases`, a dict, each base is cloned once and the
+    tensors that view it are views of that clone, laid out as they were:
+    the lanes of a flush share its blob and view its (L, ...) stacks, so
+    copying them costs a copy per base, whatever L is."""
+    if isinstance(x, torch.Tensor):
+        if bases is None:
+            return x.clone()
+        base = x if x._base is None else x._base
+        c = bases.get(id(base))
+        if c is None:
+            c = bases[id(base)] = base.clone()
+        if base is x:
+            return c
+        if c.stride() != base.stride() or x.dtype != base.dtype:
+            return x.clone()
+        return c.as_strided(x.shape, x.stride(), c.storage_offset()
+                            + x.storage_offset() - base.storage_offset())
+    if isinstance(x, dict):
+        return {k: _copied(v, bases) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        vals = [_copied(v, bases) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
+    return x
+
+
+# torch.cuda.graph captures on one stream of the process's, whatever
+# step captures: one capture at a time
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _KeyGraphs:
+    """The GraphedSteps of one step key on one device, by lane count
+    (`steps`), and whether one of them has run its body eagerly
+    (`warm`): the first call among them does, under `lock`, which holds
+    the first calls of the others until it has."""
+
+    def __init__(self):
+        self.lock, self.warm, self.steps = threading.Lock(), False, {}
+
+
+class GraphedStep:
+    """A device step replayed as a CUDA graph. The first call of the
+    steps that share `key_graphs` (a _KeyGraphs: the step's key at other
+    lane counts; the step alone without it) runs `body` eagerly: its
+    tables are built and uploaded, its kernels loaded, none of them by
+    lane count. Each step's first call after that captures it into
+    static copies of its inputs, and that call and each later one copy
+    their inputs into those, replay the graph on the current stream and
+    return copies of its outputs (a clone per base they view), which no
+    later replay writes. A lock serializes copy-in, replay and copy-out,
+    and a stream waits for the last copy-out before its copy-in, so
+    callers on several threads and streams stay apart; captures, of any
+    step, take one process-wide lock. The capture notes the counts the
+    body makes (trace.collect: its kernels' `launch.*`) and each replay
+    credits them, with `graph.replay.<name>`; the capture counts
+    `graph.capture.<name>`. Each replay but the capturing call's also
+    calls the stand-ins of the launches the capture made
+    (ops/_kernels.stand_ins), so whoever wraps a launch wrapper sees a
+    replayed launch as it sees an eager one."""
+
+    def __init__(self, name, body, device, key_graphs=None):
+        self.name, self.body, self.device = name, body, device
+        self._key = _KeyGraphs() if key_graphs is None else key_graphs
+        self._lock = threading.Lock()
+        self._graph = self._ins = self._outs = self._done = None
+        self._counts, self._stand_ins = {}, []
+
+    def __call__(self, *inputs):
+        with self._lock, torch.cuda.device(self.device):
+            capturing = self._graph is None
+            if capturing:
+                with self._key.lock:
+                    if not self._key.warm:
+                        out = self.body(*inputs)
+                        self._key.warm = True
+                        return out
+                self._capture(inputs)
+            else:
+                torch.cuda.current_stream().wait_event(self._done)
+                for s, t in zip(tensors(self._ins), tensors(inputs)):
+                    if s.shape != t.shape or s.dtype != t.dtype:
+                        raise ValueError("%s graph takes %s %s, got %s %s"
+                                         % (self.name, s.dtype,
+                                            tuple(s.shape), t.dtype,
+                                            tuple(t.shape)))
+                    s.copy_(t)
+            self._graph.replay()
+            trace.count("graph.replay." + self.name)
+            for k, n in self._counts.items():
+                trace.count(k, n)
+            if not capturing:
+                for fn in self._stand_ins:
+                    fn()
+            out = _copied(self._outs, {})
+            self._done.record()
+            return out
+
+    def _capture(self, inputs):
+        self._ins = _copied(inputs)
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK:
+            # torch.cuda.graph synchronizes the device first: wait here,
+            # counted, so that its wait finds the device idle
+            xfer.wait_stream(next(tensors(self._ins)))
+            with trace.collect() as made, _kernels.stand_ins() as calls, \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._outs = self.body(*self._ins)
+        self._graph, self._counts, self._stand_ins = graph, made, calls
+        self._done = torch.cuda.Event()
+        trace.count("graph.capture." + self.name)
+
+
+# the step kinds (key[0]) whose flushes are CUDA graphs on the card: the
+# P chain (codec/devsteps.make_p_chain_lanes)
+GRAPHED = ("p_chain",)
+_GRAPHS = {}      # (key, device) -> _KeyGraphs
+_GRAPHS_LOCK = threading.Lock()
+
+
+def flush_step(key, builder, nlanes, device):
+    """The callable that runs a flush of `nlanes` lanes of step `key` on
+    `device`, fn(lanes) -> one output per lane. On a CUDA device a
+    GRAPHED kind (key[0]) is the process's GraphedStep of (key, nlanes,
+    device), shared by every encoder and every lockstep batcher: the
+    key's first flush, of any lane count, runs eagerly, and every lane
+    count captures its graph at its first flush after that. Every other
+    step, and every step on the CPU, is builder(key[1]), run eagerly."""
+    dev = torch.device(device)
+    if key[0] not in GRAPHED or dev.type != "cuda":
+        return builder(key[1])
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _GRAPHS_LOCK:
+        graphs = _GRAPHS.get((key, dev))
+        if graphs is None:
+            graphs = _GRAPHS[(key, dev)] = _KeyGraphs()
+        step = graphs.steps.get(nlanes)
+        if step is None:
+            step = graphs.steps[nlanes] = GraphedStep(
+                key[0], builder(key[1]), dev, graphs)
+    return step
 
 
 class LockstepBatcher:
@@ -172,22 +325,26 @@ class LockstepBatcher:
             if any(p[3] is not fetch for p in pending):
                 raise ValueError("lockstep key %r: lanes submitted "
                                  "different fetch specs" % (kname,))
-            with stage("lockstep.stack.%s" % kname):
-                fn = builder(key[1])
-                lanes = [e[0] for e, *_ in pending]
             # more lanes than width (one group holding more streams):
-            # runs of at most width lanes, one after another
-            for lo in range(0, len(lanes), self.width):
-                run = lanes[lo:lo + self.width]
+            # runs of at most width lanes, one after another, each by
+            # the step of its lane count (flush_step)
+            with stage("lockstep.stack.%s" % kname):
+                runs = [pending[lo:lo + self.width]
+                        for lo in range(0, len(pending), self.width)]
+                first = next(tensors(pending[0][0][0]), None)
+                dev = "cpu" if first is None else first.device
+                steps = {len(run): flush_step(key, builder, len(run), dev)
+                         for run in runs}
+            for run in runs:
                 with stage("lockstep.dispatch.%s" % kname, lanes=len(run)):
-                    out = fn(run)
+                    out = steps[len(run)]([e[0] for e, *_ in run])
                 with stage("lockstep.run.%s" % kname):
                     if fetch:
                         _wait(out)
                 if post is not None:
                     with stage("lockstep.post.%s" % kname):
                         out = post(out)
-                for i, (e, *_) in enumerate(pending[lo:lo + self.width]):
+                for i, (e, *_) in enumerate(run):
                     e[1] = lane_of(out, i)
         except BaseException as exc:  # propagate to every waiter
             for e, *_ in pending:

@@ -953,8 +953,8 @@ def test_decode_gops_parallel_corrupt_cuda(cuda):
 
 
 # the single stream's P chain, a one-lane flush replayed as a CUDA graph
-# (codec/devsteps.run_one, GraphedStep): its streams against the eager
-# flush's
+# (codec/devsteps.run_one, parallel/dynbatch.GraphedStep): its streams
+# against the eager flush's
 
 
 def _live(bench_cfg, nframes, seed):
@@ -986,13 +986,14 @@ def _encode_live(cfg, frames, device, filters=None):
 
 @pytest.fixture
 def eager_p_chain(monkeypatch):
-    """eager_p_chain(fn) runs fn with the P chain's one-lane flush run
-    eagerly in place of its CUDA graph."""
-    from dsv2_tpu_torch.codec import devsteps
+    """eager_p_chain(fn) runs fn with the P chain's flushes, of one lane
+    or of a lockstep run's L, run eagerly in place of their CUDA
+    graphs."""
+    from dsv2_tpu_torch.parallel import dynbatch
 
     def run(fn):
         with monkeypatch.context() as m:
-            m.setattr(devsteps, "GRAPHED", ())
+            m.setattr(dynbatch, "GRAPHED", ())
             return fn()
     return run
 
@@ -1000,9 +1001,9 @@ def eager_p_chain(monkeypatch):
 @pytest.fixture
 def fresh_graphs():
     """No P chain graph captured before the test."""
-    from dsv2_tpu_torch.codec import devsteps
-    with devsteps._GRAPHS_LOCK:
-        devsteps._GRAPHS.clear()
+    from dsv2_tpu_torch.parallel import dynbatch
+    with dynbatch._GRAPHS_LOCK:
+        dynbatch._GRAPHS.clear()
     yield
 
 
@@ -1087,3 +1088,158 @@ def test_p_chain_graph_counts(cuda, eager_p_chain, fresh_graphs, launches):
     assert got["graph.replay.p_chain"] == 2 * 3 - 1
     assert {k: v for k, v in got.items() if k.startswith("launch.")} == {
         k: 2 * v for k, v in eager.items()}
+
+
+# the lockstep flusher's P chain, each run of L lanes replayed as the CUDA
+# graph of its lane count (dynbatch.flush_step): its streams and launches
+# against the eager flushes'
+
+
+@pytest.mark.parametrize("nlanes,width,groups,runs", [
+    (8, 8, 1, {8: 5}), (8, 3, 1, {3: 10, 2: 5}), (8, 4, 2, {4: 10}),
+    (7, 4, 2, {4: 5, 3: 5})])
+def test_lockstep_p_chain_graph_equals_eager(cuda, eager_p_chain,
+                                             fresh_graphs, launches, nlanes,
+                                             width, groups, runs):
+    """CIF lanes of 6 frames at the lockstep cell's settings (-gop=48,
+    the gang search): 8 at width 8 (P chain runs of 8 lanes), 8 at width
+    3 (runs of 3, 3 and 2: a lane count captured inside a flush), 8 in 2
+    groups of width 4 (two batchers' flushes on one graph, one capturing
+    while the other group's threads run) and 7 in 2 groups of width 4
+    (runs of 4 and 3: the groups capture two graphs at about the same
+    time). The streams equal the eager flushes', byte for byte. The
+    key's first run is eager, whatever its lane count; every lane count
+    captures at its first run after it (a capture per lane count, each
+    run twice or more here) and every run but the eager one replays (the
+    capturing call replays too); the launches the replays credit equal
+    the eager runs'."""
+    import collections
+    from codecbench import program
+    from dsv2_tpu_torch.parallel import dynbatch
+    from dsv2_tpu_torch.utils import trace
+    per = 6
+    cfg, frames = _live("cif420_qp60", nlanes * per, 2 ** 31 + 41)
+    lanes = [frames[i * per:(i + 1) * per] for i in range(nlanes)]
+
+    def job():
+        return dynbatch.encode_streams_lockstep(
+            lanes, lambda: program.encoder(cfg, 48, cuda, "gang"),
+            width=width, groups=groups)
+
+    def counted():
+        c = trace.counters()
+        return {k: v for k, v in c.items() if k.startswith("launch.")}, c
+    trace.reset()
+    want = eager_p_chain(job)
+    eager, c = counted()
+    assert eager["launch.vk_chain"] > 0
+    assert "graph.replay.p_chain" not in c
+    trace.reset()
+    got = job()
+    made, c = counted()
+    assert got == want
+    seen = collections.Counter(r.ids["lanes"] for r in trace.records()
+                               if r.name == "lockstep.dispatch.p_chain")
+    assert seen == runs
+    assert c["graph.capture.p_chain"] == len(runs)
+    assert c["graph.replay.p_chain"] == sum(runs.values()) - 1
+    assert made == eager
+
+
+def test_graphed_steps_capture_at_once(cuda):
+    """Two GraphedSteps, each called from a thread of its own, capture at
+    the same moment (their second calls start together): both replay
+    their eager results. torch.cuda.graph captures on one stream of the
+    process's, which takes one capture at a time."""
+    import threading
+    import torch
+    from dsv2_tpu_torch.parallel import dynbatch
+
+    def body(lanes):
+        x = torch.stack(lanes)
+        for _ in range(400):
+            x = (x * 3 + 1) % 65521
+        return list(x)
+
+    # step i takes i + 2 lanes
+    ins = [[torch.arange(1000, dtype=torch.int64, device=cuda) + k
+            for k in range(n)] for n in (2, 3)]
+    want = [[t.tolist() for t in body(lanes)] for lanes in ins]
+    for _ in range(3):
+        steps = [dynbatch.GraphedStep("t%d" % i, body, cuda)
+                 for i in range(2)]
+        start = threading.Barrier(2)
+        got, errors = [None, None], []
+
+        def run(i):
+            try:
+                steps[i](ins[i])          # eager
+                start.wait()
+                first = steps[i](ins[i])  # the capture, and its replay
+                got[i] = [first, steps[i](ins[i])]
+                torch.cuda.current_stream().synchronize()
+            except BaseException as exc:
+                errors.append(exc)
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not errors, errors
+        for i in range(2):
+            for out in got[i]:
+                assert [t.tolist() for t in out] == want[i]
+
+
+def test_replays_stand_in_for_their_launches(cuda, eager_p_chain,
+                                             fresh_graphs, launches,
+                                             monkeypatch):
+    """8 CIF lanes of 6 frames in lockstep: a job whose P chain runs all
+    replay (after a warm job) calls the launch wrappers
+    _kernels.vk_chain and _kernels.wavefront_filter, through their stand-
+    ins, as often and in the same order as the eager job, with the same
+    chain bounds (s0, nnz), each read after the job, as a wrapper that
+    counts a launch's bytes reads them: a launch's lanes as a set, since
+    the order of a flush's lanes is the order their threads arrived
+    in."""
+    from codecbench import program
+    from dsv2_tpu_torch.ops import _kernels
+    from dsv2_tpu_torch.parallel import dynbatch
+    from dsv2_tpu_torch.utils import trace
+    nlanes, per = 8, 6
+    cfg, frames = _live("cif420_qp60", nlanes * per, 2 ** 31 + 43)
+    lanes = [frames[i * per:(i + 1) * per] for i in range(nlanes)]
+
+    def job():
+        return dynbatch.encode_streams_lockstep(
+            lanes, lambda: program.encoder(cfg, 48, cuda, "gang"),
+            width=nlanes)
+    vk, wf = _kernels.vk_chain, _kernels.wavefront_filter
+
+    def recorded(fn):
+        calls = []
+
+        def rec_vk(thr, s0, nnz, *a, **k):
+            calls.append(("vk", tuple(thr.shape), s0, nnz))
+            return vk(thr, s0, nnz, *a, **k)
+
+        def rec_wf(kind, lay, plane, *a, **k):
+            calls.append(("wf", kind, tuple(plane.shape)))
+            return wf(kind, lay, plane, *a, **k)
+        with monkeypatch.context() as m:
+            m.setattr(_kernels, "vk_chain", rec_vk)
+            m.setattr(_kernels, "wavefront_filter", rec_wf)
+            out = fn()
+        return out, [c[:2] + (sorted(zip(c[2].tolist(), c[3].tolist())),)
+                     if c[0] == "vk" else c for c in calls]
+    trace.reset()
+    want, eager = recorded(lambda: eager_p_chain(job))
+    assert job() == want            # eager first run, then the capture
+    trace.reset()
+    got, replayed = recorded(job)
+    assert got == want
+    assert trace.counters()["graph.replay.p_chain"] == per - 1
+    assert "graph.capture.p_chain" not in trace.counters()
+    assert len([c for c in eager if c[0] == "vk"]) == trace.counters()[
+        "launch.vk_chain"]
+    assert replayed == eager

@@ -95,11 +95,15 @@ def test_lockstep_too_many_streams_raises():
 def test_lockstep_width_below_streams(backend):
     """One group runs every stream whatever its width: 3 streams at
     width 2 flush in runs of at most 2 lanes, each stream's bytes equal
-    to its sequential encode."""
+    to its sequential encode. Each run takes the step of its lane count
+    from dynbatch.flush_step, on the lanes' device: the P chain's runs
+    of 2 and 1 lanes."""
     port, _ = _sequential()
     streams, meta = _streams()
     sizes = []
+    steps = []
     make_gang = hme_gang.make_motion_est
+    flush_step = dynbatch.flush_step
 
     def counting(cfg):
         fn = make_gang(cfg)
@@ -108,15 +112,23 @@ def test_lockstep_width_below_streams(backend):
             sizes.append(len(lanes))
             return fn(lanes)
         return f
+
+    def spied(key, builder, nlanes, device):
+        steps.append((key[0], nlanes, str(device)))
+        return flush_step(key, builder, nlanes, device)
     hme_gang.make_motion_est = counting
+    dynbatch.flush_step = spied
     try:
         got = _run(lambda: dynbatch.encode_streams_lockstep(
             streams, _factory(meta, backend), width=2, groups=1))
     finally:
         hme_gang.make_motion_est = make_gang
+        dynbatch.flush_step = flush_step
     assert got == port
     if backend == "gang":
         assert sizes and max(sizes) == 2, sizes
+    assert {s for s in steps if s[0] == "p_chain"} == {
+        ("p_chain", 2, "cpu"), ("p_chain", 1, "cpu")}, steps
 
 
 def test_lockstep_lane_error_reaches_caller():

@@ -8,6 +8,8 @@ lanes x 48 frames, one FHD intra chunk of 16 frames and the first frames
 of the single FHD stream (one I and two P frames), each run traced
 under torch.cuda.set_sync_debug_mode("warn"); each synchronizing call's
 warning is traced back to the innermost frame of the port that made it.
+In the lockstep job and the single stream, the P chain's runs replay
+the CUDA graphs their warm job captured, with no wait inside them.
 
 Marked `cuda`; each test skips (from the `cuda` fixture, never at import)
 where torch sees no GPU. Run on the card with
@@ -106,7 +108,9 @@ def test_lockstep_job_waits_only_in_the_helper(cuda):
     cfg, traffic = _bench("cif_lockstep_encode_x8")
     program.prepare(cuda)
     lanes = program.lane_clips(cfg, traffic, SEED)
-    want = program.encode_lanes(cfg, traffic, lanes, cuda)   # warm, untraced
+    # warm, untraced: the P chain's first run, eager, and every lane
+    # count's capture
+    want = program.encode_lanes(cfg, traffic, lanes, cuda)
     got, sites, counters, recs = _traced(
         lambda: program.encode_lanes(cfg, traffic, lanes, cuda))
     assert got == want
@@ -117,6 +121,20 @@ def test_lockstep_job_waits_only_in_the_helper(cuda):
     assert len(flushes) == sum(v for k, v in counters.items()
                                if k.startswith("lockstep.flushes."))
     assert counters["launch.vk_chain"] > 0
+    # every P chain run replays the graph of its lane count, which the
+    # warm jobs captured, and waits not at all
+    p_runs = [r for r in recs if r.name == "lockstep.dispatch.p_chain"]
+    assert counters["graph.replay.p_chain"] == len(p_runs) > 0
+    assert "graph.capture.p_chain" not in counters
+    by_id = {r.id: r for r in recs}
+
+    def in_p_run(r):
+        while r.parent in by_id:
+            r = by_id[r.parent]
+            if r.name == "lockstep.dispatch.p_chain":
+                return True
+        return False
+    assert not [r for r in syncs if in_p_run(r)]
 
 
 def test_intra_chunk_waits_only_in_the_helper(cuda):
