@@ -34,6 +34,7 @@ from ..ops import blockanalysis, hzcc
 from ..ops.blockanalysis import intra_analysis
 from ..utils import log, packet
 from ..utils.packet import VideoMeta
+from ..utils.trace import count as _count
 from ..utils.trace import stage as _stage
 from . import xfer
 
@@ -329,7 +330,9 @@ def _serialize_chunk(enc, ctx):
         for fi in range(nfr):
             if fbs[c][fi]:
                 enc.stats.blob_fallbacks += 1
-                col.append(("dense", xfer.host(dv["vs"][c][fi])))
+                _count("blob.fallback")
+                with _stage("batch.fallback.fetch"):
+                    col.append(("dense", xfer.host(dv["vs"][c][fi])))
             else:
                 o = int(offs_flat[c * nfr + fi])
                 u = int(used_flat[c * nfr + fi])
@@ -367,7 +370,9 @@ def _serialize_chunk(enc, ctx):
             if kind == "blob":
                 planecode.encode_plane_blob(w, payload, int(lls[c][fi]))
             else:
-                planecode.encode_plane(w, payload, int(lls[c][fi]), cw, ch)
+                with _stage("batch.fallback.code"):
+                    planecode.encode_plane(w, payload, int(lls[c][fi]),
+                                           cw, ch)
         out = w.data()
         bufs = []
         if gop_starts[fi]:
